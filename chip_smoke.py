@@ -1,0 +1,534 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` (nvcc,
+sm_90a), holds each kernel against its plain PyTorch version on the card,
+drives the port's main path — ``FastVAT().fit(X)`` then ``order()``,
+``image()``, ``image(use_ivat=True)`` and ``assess()`` at n = 2,048, and
+the ``ivat`` rung at n = 2,048 and 16,384 — checks what comes out and that
+every kernel of the path was launched, times each kernel beside its plain
+version, one PyTorch library call and the card's bound, and prints:
+
+  * one line per phase, the GPU's name and power limit (nvidia-smi), and a
+    JSON line ``{"kernels": [...]}`` before the last;
+  * as the last line, ``{"ok": true, "device": {...}}``.
+
+It exits non-zero, printing no result line, when there is no CUDA device,
+when ``src/repro_torch`` is missing, or when any phase fails.  It imports
+nothing of JAX or of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+#: HBM3 bandwidth and f32 outside the tensor cores.  The bound of a kernel
+#: is the larger of its bytes over the first and its operations over the
+#: second.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+#: Relative spanning-tree-weight excess allowed between orderings built
+#: from the kernel's and the plain version's matrices (the reference's
+#: EXCESS_F32, repro/numerics/certify.py).
+EXCESS_F32 = 1e-5
+
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(phase: str, **fields) -> None:
+    print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
+
+
+def blobs(n: int, d: int, k: int, seed: int) -> np.ndarray:
+    """k Gaussian clusters of n // k points in d dimensions, from a seed."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=8.0, size=(k, d))
+    labels = np.repeat(np.arange(k), -(-n // k))[:n]
+    return (centers[labels] + rng.normal(size=(n, d))).astype(np.float32)
+
+
+# ------------------------------------------------------------ timing ----
+
+def kernel_device_ms(prof) -> dict:
+    """Device time (ms) by kernel name from a torch.profiler run: only the
+    device-side events, so the CPU ops that launched them are not counted
+    a second time."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            by_name[e.key] = by_name.get(e.key, 0.0) \
+                + e.self_device_time_total / 1e3
+    return by_name
+
+
+def device_ms(torch, fn, *, reps: int, label: str = "") -> float:
+    """Device time of one ``fn()`` in ms: every kernel and copy it puts on
+    the card, summed by torch.profiler over ``reps`` calls after one
+    warm-up.  Host time between launches is not counted.
+
+    A profiler session now and then records no device events at all; it
+    is then tried twice more, and if none records any, the stream time of
+    ``event_ms`` (host launch gaps included, so an upper bound) is
+    returned instead and a ``timer-fallback`` line says so."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(kernel_device_ms(prof).values())
+        if total > 0:
+            return total / reps
+    ms = event_ms(torch, fn, reps=reps, warmup=1)
+    log("timer-fallback", call=label, event_ms=ms,
+        why="torch.profiler recorded no device time in 3 sessions")
+    return ms
+
+
+def event_ms(torch, fn, *, reps: int, warmup: int = 2) -> float:
+    """Stream time of one ``fn()`` in ms: CUDA events around ``reps``
+    back-to-back calls.  Where the host launches more slowly than the
+    card runs the kernels, this is the host's rate, not the card's."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_s(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def bound_ms(nbytes: float, nops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pairwise_cost(n: int, m: int | None, d: int):
+    """Bytes (X, Y read once, R written once) and f32 operations (the
+    multiply-add per feature and pair, the row norms, a 4-op epilogue).
+
+    ``m=None`` is the self-matrix (Y is X): R[i, j] == R[j, i], so only the
+    n (n + 1) / 2 pairs on and above the diagonal need their dot product
+    and epilogue, while all n * n entries are still written."""
+    if m is None:
+        nbytes = 4 * (n * d + n * n)
+        pairs = n * (n + 1) // 2
+        nops = 2 * pairs * d + 2 * n * d + 4 * pairs
+    else:
+        nbytes = 4 * (n * d + m * d + n * m)
+        nops = 2 * n * m * d + 2 * (n + m) * d + 4 * n * m
+    return nbytes, nops
+
+
+def argmin_cost(n: int):
+    return 4 * n + n + 16, 2 * n      # vals + mask read, pair written
+
+
+def ivat_cost(n: int):
+    """The strict lower triangle of R* read once, D' written once; one
+    compare and one max per lower-triangle entry."""
+    lower = n * (n - 1) // 2
+    return 4 * lower + 4 * n * n, 2 * lower
+
+
+# ------------------------------------------------------------ phases ----
+
+def phase_environment(torch, build):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    nvcc = build.find_nvcc()
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+    log("environment", torch=torch.__version__, cuda=torch.version.cuda,
+        nvcc=ver[-1] if ver else None, build_s=build_s,
+        library=str(build.build()), device=torch.cuda.get_device_name(0))
+    return card
+
+
+def check_pairwise(torch, ref, ops, pairwise_dist_cuda, probe_count, gen):
+    """Kernel against plain version at the main path's shapes: the
+    self-matrix of the fit, a ragged one, and assess()'s Hopkins calls,
+    (m probes) x (n points) with m = probe_count(n)."""
+    worst = 0.0
+    cases = ((2048, None, 64), (2047, None, 3), (2048, 256, 64),
+             (probe_count(2048), 2048, 64))
+    for n, m, d in cases:
+        case_worst = {}
+        X = torch.randn(n, d, device="cuda", generator=gen)
+        Y = None if m is None else torch.randn(m, d, device="cuda",
+                                               generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            Xc = X.to(dtype)
+            Yc = None if Y is None else Y.to(dtype)
+            sq_max = float(torch.amax(torch.sum(Xc.float() ** 2, dim=1)))
+            if Yc is not None:
+                sq_max = max(sq_max, float(torch.amax(
+                    torch.sum(Yc.float() ** 2, dim=1))))
+            for metric in ref.METRICS:
+                for form in ("gram", "direct"):
+                    K = pairwise_dist_cuda(Xc, Yc, metric=metric, form=form)
+                    P = ref.pairwise_dissim_ref(Xc, Yc, metric=metric,
+                                                form=form)
+                    torch.cuda.synchronize()
+                    err = float(torch.amax(torch.abs(K - P)))
+                    if metric == "euclidean" and form == "gram":
+                        tol = (16 * F32_EPS * sq_max) ** 0.5
+                    else:
+                        tol = 1e-5 * float(torch.amax(torch.abs(P))) + 1e-6
+                    worst = max(worst, err)
+                    key = f"{metric}/{form}"
+                    case_worst[key] = max(case_worst.get(key, 0.0), err)
+                    require(err <= tol, f"pairwise {metric}/{form} n={n} "
+                            f"m={m} d={d} {dtype}: err {err} > tol {tol}")
+                    if Yc is None:
+                        require(torch.equal(K, K.T), f"pairwise {metric}/"
+                                f"{form} n={n} d={d}: not exactly symmetric")
+                        R = ops.pairwise_dist(Xc, metric=metric, form=form)
+                        require(bool((torch.diagonal(R) == 0).all()),
+                                "pairwise diagonal is not exactly zero")
+        log("kernel-check", kernel="pairwise_dist", n=n, m=m, d=d,
+            dtypes=["float32", "bfloat16"], max_abs_err=case_worst)
+    return worst
+
+
+def check_argmin(torch, ref, masked_argmin_cuda, gen):
+    for n in (2048, 16384):
+        vals = torch.randint(-20, 50, (n,), device="cuda",
+                             generator=gen).float()     # many ties
+        masks = {
+            "random": torch.rand(n, device="cuda", generator=gen) < 0.5,
+            "all_but_one": torch.ones(n, dtype=torch.bool, device="cuda"),
+            "all": torch.ones(n, dtype=torch.bool, device="cuda"),
+            "none": torch.zeros(n, dtype=torch.bool, device="cuda"),
+        }
+        masks["all_but_one"][n - 7] = False
+        for name, mask in masks.items():
+            kv, ki = masked_argmin_cuda(vals, mask)
+            pv, pi = ref.masked_argmin_ref(vals, mask)
+            torch.cuda.synchronize()
+            require(int(ki) == int(pi) and torch.equal(
+                kv.view(1).view(torch.int32), pv.view(1).view(torch.int32)),
+                f"masked_argmin n={n} mask={name}: kernel ({float(kv)}, "
+                f"{int(ki)}) != plain ({float(pv)}, {int(pi)})")
+        log("kernel-check", kernel="masked_argmin", n=n, bitwise=True,
+            masks=list(masks))
+    return 0.0
+
+
+def check_ivat(torch, ref, ivat_from_vat_cuda, rstars):
+    for rstar in rstars:
+        K = ivat_from_vat_cuda(rstar)
+        P = ref.ivat_from_vat_ref(rstar)
+        torch.cuda.synchronize()
+        require(torch.equal(K, P), f"ivat n={rstar.shape[0]}: kernel != "
+                f"plain (max |diff| {float(torch.amax(torch.abs(K - P)))})")
+        log("kernel-check", kernel="ivat_from_vat", n=rstar.shape[0],
+            bitwise=True)
+    return 0.0
+
+
+def tree_weight(torch, X, order):
+    """Spanning-tree weight of a Prim ordering, in f64 euclidean: the sum
+    over positions t >= 1 of the distance to the nearest earlier point."""
+    Xd = X.double().index_select(0, order)
+    sq = torch.sum(Xd * Xd, dim=1)
+    D = torch.sqrt(torch.clamp_min(sq[:, None] + sq[None, :]
+                                   - 2.0 * (Xd @ Xd.T), 0.0))
+    n = D.shape[0]
+    earlier = torch.ones(n, n, dtype=torch.bool, device=X.device).tril(-1)
+    D = torch.where(earlier, D, torch.inf)
+    return float(torch.sum(torch.amin(D[1:], dim=1)))
+
+
+def check_orders(torch, ref, ops, vat_order, Xt, order_fit, label):
+    """The fit's order against the plain paths on the same input."""
+    n = Xt.shape[0]
+    require(torch.equal(torch.sort(order_fit).values,
+                        torch.arange(n, device=Xt.device)),
+            f"{label}: order is not a permutation")
+    R = ops.pairwise_dist(Xt)
+    order_k, prim_s = wall_s(torch, lambda: vat_order(R))
+    require(torch.equal(order_k, order_fit), f"{label}: refit order differs")
+    order_plain_argmin, prim_plain_s = wall_s(
+        torch, lambda: vat_order(R, argmin=ref.masked_argmin_ref))
+    require(torch.equal(order_k, order_plain_argmin),
+            f"{label}: kernel and plain argmin give different orders on "
+            "the same matrix")
+    Rp = ref.pairwise_dissim_ref(Xt)
+    Rp.fill_diagonal_(0.0)
+    order_plain = vat_order(Rp, argmin=ref.masked_argmin_ref)
+    wk = tree_weight(torch, Xt, order_k)
+    wp = tree_weight(torch, Xt, order_plain)
+    excess = abs(wk - wp) / wp
+    require(excess <= EXCESS_F32, f"{label}: tree weight of the kernel "
+            f"ordering {wk} vs plain {wp}: relative {excess} > {EXCESS_F32}")
+    return {"prim_loop_s": prim_s, "prim_loop_plain_argmin_s": prim_plain_s,
+            "same_order_as_plain_argmin": True,
+            "same_order_as_plain_pairwise": bool(torch.equal(order_k,
+                                                             order_plain)),
+            "tree_weight_rel_excess": excess}
+
+
+def phase_main_path(torch, rt, ref, ops, build, vat_order):
+    """Drive the port's main path and its ivat rung through FastVAT."""
+    n, d = 2048, 64
+    X = blobs(n, d, k=8, seed=0)
+    build.reset_launch_counts()
+    walls = {}
+    fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit(X))
+    order, walls["order"] = wall_s(torch, fv.order)
+    img, walls["image"] = wall_s(torch, fv.image)
+    img_iv, walls["image_ivat"] = wall_s(
+        torch, lambda: fv.image(use_ivat=True))
+    rep, walls["assess"] = wall_s(torch, fv.assess)
+    launches = build.launch_counts()
+    # a second fit: the first paid one-time costs (lazy module loading)
+    _, walls["fit_again"] = wall_s(torch, lambda: rt.FastVAT().fit(X))
+    from repro_torch.api.validation import validate_points
+    from repro_torch.numerics import resolve
+    t0 = time.perf_counter()
+    validate_points(X)
+    resolve(X, metric="euclidean")
+    walls["host_prepass"] = time.perf_counter() - t0
+    require(fv.method_resolved == "vat",
+            f"auto picked {fv.method_resolved!r} at n={n}, want 'vat'")
+    require(fv.result.meta.device.startswith("cuda"), "fit did not run on cuda")
+    Xt = fv._X
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the main path")
+    require(launches["masked_argmin"] == n - 1,
+            f"masked_argmin launched {launches['masked_argmin']} times, "
+            f"want n - 1 = {n - 1}")
+    require(img.shape == (n, n) and np.isfinite(img).all(), "bad image")
+    require(img_iv.shape == (n, n) and np.isfinite(img_iv).all(),
+            "bad iVAT image")
+    require(np.array_equal(img_iv, img_iv.T) and not np.diag(img_iv).any(),
+            "iVAT image is not symmetric with a zero diagonal")
+    require(bool((img_iv <= img).all()), "iVAT image exceeds the VAT image")
+    require(np.isfinite(rep.hopkins) and 0 < rep.hopkins < 1,
+            f"bad hopkins {rep.hopkins}")
+    require(rep.k_est == 8 and rep.clustered,
+            f"8 separated blobs gave k_est={rep.k_est}, "
+            f"clustered={rep.clustered}")
+    orders = check_orders(torch, ref, ops, vat_order, Xt,
+                          fv.result.order, "vat n=2048")
+    # the same fit on the CPU: the plain versions end to end.  Gram-form
+    # euclidean entries may differ by up to tol_e (the sqrt of the Gram
+    # cancellation floor) and the super-diagonal holds the smallest
+    # distances, so the band mean moves by up to tol_e: the block score
+    # 1 - band / mean(R*) by tol_e / mean(R*), plus f32 rounding.
+    cpu = rt.FastVAT(device="cpu").fit(X)
+    cpu_rep = cpu.assess()
+    sq_max = float(torch.amax(torch.sum(Xt * Xt, dim=1)))
+    tol_score = ((16 * F32_EPS * sq_max) ** 0.5
+                 / float(torch.mean(fv.result.rstar)) + 1e-5)
+    require(abs(cpu_rep.block_score - rep.block_score) <= tol_score
+            and cpu_rep.k_est == rep.k_est,
+            f"CPU and GPU assess differ beyond {tol_score}: {cpu_rep} vs "
+            f"{rep}")
+    log("main-path", n=n, d=d, method=fv.method_resolved,
+        launches=launches, walls_s=walls, hopkins=rep.hopkins,
+        block_score=rep.block_score, k_est=rep.k_est,
+        cpu_block_score=cpu_rep.block_score, block_score_tol=tol_score,
+        same_order_as_cpu_fit=bool(np.array_equal(cpu.order(), order)),
+        **orders)
+
+    rstars = [fv.result.rstar]
+    for n2, d2 in ((2048, 64), (16384, 32)):
+        X2 = X if n2 == n else blobs(n2, d2, k=8, seed=1)
+        build.reset_launch_counts()
+        fiv, wall = wall_s(torch, lambda: rt.FastVAT(method="ivat").fit(X2))
+        counts = build.launch_counts()
+        require(counts["pairwise_dist"] == 1 and counts["ivat_from_vat"] == 1
+                and counts["masked_argmin"] == n2 - 1,
+                f"ivat fit n={n2}: launch counts {counts}")
+        iv = fiv.result.ivat_image
+        require(iv.shape == (n2, n2) and bool(torch.isfinite(iv).all()),
+                "bad ivat image")
+        require(torch.equal(iv, iv.T) and not bool(torch.diagonal(iv).any()),
+                "ivat image not symmetric with zero diagonal")
+        orders = check_orders(torch, ref, ops, vat_order, fiv._X,
+                              fiv.result.order, f"ivat n={n2}")
+        log("ivat-rung", n=n2, d=d2, launches=counts, fit_wall_s=wall,
+            **orders)
+        if n2 != n:
+            rstars.append(fiv.result.rstar)
+    return launches, walls, rstars
+
+
+def phase_profile(torch, rt, X):
+    """Device busy share of one main-path fit, from torch.profiler: the
+    kernels' device time over the fit's wall time (tracing slows the host,
+    so the share is a lower bound), and the kernels that take most."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = wall_s(torch, lambda: rt.FastVAT().fit(X))
+    by_name = kernel_device_ms(prof)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("profile", fit_wall_ms=wall * 1e3, device_busy_ms=busy,
+        device_busy_share=busy / (wall * 1e3),
+        top_ms={name[:60]: ms for name, ms in top})
+
+
+def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
+    """Kernel, plain version, library call and bound at both sizes.
+
+    ``ms`` / ``plain_ms`` / ``library_ms`` are device times per call
+    (``device_ms``); ``event_ms`` beside them is the stream time per call
+    in a back-to-back run, host launch overhead included."""
+    rows = []
+    for n, d in ((2048, 64), (16384, 32)):
+        X = torch.randn(n, d, device="cuda", generator=gen)
+        vals = torch.rand(n, device="cuda", generator=gen)
+        mask = torch.rand(n, device="cuda", generator=gen) < 0.5
+        rstar = next(r for r in rstars if r.shape[0] == n)
+        big = n > 2048
+        cases = {
+            "pairwise_dist": (
+                lambda: kernels["pairwise_dist"](X),
+                lambda: ref.pairwise_dissim_ref(X),
+                lambda: torch.cdist(X, X), pairwise_cost(n, None, d), 20),
+            "masked_argmin": (
+                lambda: kernels["masked_argmin"](vals, mask),
+                lambda: ref.masked_argmin_ref(vals, mask),
+                lambda: torch.argmin(vals.masked_fill(mask, torch.inf)),
+                argmin_cost(n), 200),
+            "ivat_from_vat": (
+                lambda: kernels["ivat_from_vat"](rstar),
+                lambda: ref.ivat_from_vat_ref(rstar), None, ivat_cost(n),
+                3 if big else 10),
+        }
+        for name, (kern, plain, lib, cost, reps) in cases.items():
+            plain_reps = 1 if name == "ivat_from_vat" else reps
+            row = {"kernel": name, "n": n,
+                   "ms": device_ms(torch, kern, reps=reps,
+                                   label=f"{name} n={n}"),
+                   "plain_ms": device_ms(torch, plain, reps=plain_reps,
+                                         label=f"{name} plain n={n}"),
+                   "library_ms": (None if lib is None else device_ms(
+                       torch, lib, reps=reps, label=f"{name} library n={n}")),
+                   "event_ms": event_ms(torch, kern, reps=reps),
+                   "plain_event_ms": event_ms(torch, plain,
+                                              reps=plain_reps, warmup=1)}
+            row["bound_ms"], row["bound_by"] = bound_ms(*cost)
+            log("time", **row)
+            rows.append(row)
+    meta = {
+        "pairwise_dist": ("src/repro_torch/kernels/csrc/pairwise_dist.cu",
+                          "src/repro/kernels/pairwise_dist.py:120"),
+        "masked_argmin": ("src/repro_torch/kernels/csrc/prim_update.cu",
+                          "src/repro/kernels/prim_update.py:39"),
+        "ivat_from_vat": ("src/repro_torch/kernels/csrc/ivat_update.cu",
+                          "src/repro/kernels/ivat_update.py:73"),
+    }
+    out = []
+    for name, (source, replaces) in meta.items():
+        row = next(r for r in rows if r["kernel"] == name and r["n"] == 2048)
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"]})
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs a CUDA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch as rt
+    from repro_torch.core.hopkins import probe_count
+    from repro_torch.core.vat import vat_order
+    from repro_torch.kernels import _build as build
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.kernels.prim_update import masked_argmin_cuda
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "repro" or m.startswith("repro.")]
+    require(not bad, f"the port imported {bad}")
+
+    t0 = time.perf_counter()
+    card = phase_environment(torch, build)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {"pairwise_dist": check_pairwise(torch, ref, ops,
+                                            pairwise_dist_cuda, probe_count,
+                                            gen),
+            "masked_argmin": check_argmin(torch, ref, masked_argmin_cuda,
+                                          gen)}
+    launches, walls, rstars = phase_main_path(torch, rt, ref, ops, build,
+                                              vat_order)
+    errs["ivat_from_vat"] = check_ivat(torch, ref, ivat_from_vat_cuda, rstars)
+    kernels = {"pairwise_dist": pairwise_dist_cuda,
+               "masked_argmin": masked_argmin_cuda,
+               "ivat_from_vat": ivat_from_vat_cuda}
+    phase_profile(torch, rt, blobs(2048, 64, k=8, seed=0))
+    rows = phase_times(torch, ref, kernels, rstars, gen, errs, launches)
+    log("done", total_s=time.perf_counter() - t0)
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,232 @@
+"""The uniform result types the port's rungs return.
+
+``TendencyResult`` is the one shape the public API speaks: the vat and
+ivat rungs both return it, so downstream code reads ``result.order`` /
+``result.image()`` without knowing which rung produced it.  Its array
+fields are tensors on the device the fit ran on.
+
+``ResultMeta`` is the single seed source: every sampling path — on the
+device (the Hopkins probes, through ``generator(salt)``) and on the host
+(the Hopkins subsample, through ``host_rng(salt)``) — derives from
+``meta.seed``, which makes a fit reproducible from its meta alone.
+
+``TendencyReport`` is ``assess()``'s stable shape, with dict-like access.
+
+>>> from repro_torch.api.result import TendencyReport
+>>> rep = TendencyReport(method="vat", metric="euclidean", n=100,
+...                      hopkins=0.9, block_score=0.8, k_est=3,
+...                      clustered=True)
+>>> rep["k_est"], rep.k_est            # dict-like and attribute access
+(3, 3)
+>>> sorted(rep.keys())[:3]
+['batch_index', 'block_score', 'clustered']
+>>> dict(rep)["batch_index"] is None   # solo fit: key present, value None
+True
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from collections.abc import Mapping
+from typing import Any, ClassVar
+
+import numpy as np
+import torch
+
+from repro_torch.core.bigvat import expand_image
+from repro_torch.core.ivat import ivat_from_vat
+from repro_torch.numerics.condition import NumericsReport
+
+# Salts for deriving independent streams from the one seed on ResultMeta.
+# Fit-time sampling, assessment (Hopkins probes) and the host-side Hopkins
+# subsample each get their own stream so no two consumers of the seed are
+# correlated.
+SALT_FIT = 0
+SALT_ASSESS = 1
+SALT_HOPKINS = 2
+
+
+def device_scope(device):
+    """Make a CUDA ``device`` the current one while the kernels run (they
+    launch on the current device's current stream), so a fit on "cuda:1"
+    works whatever device is current; a no-op for the CPU."""
+    dev = torch.device(device)
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+@dataclasses.dataclass(frozen=True)
+class ResultMeta:
+    """Static metadata of a fit.
+
+    Attributes:
+      method: resolved rung name, e.g. "vat".
+      metric: dissimilarity metric the fit used ("precomputed" means the
+        caller handed the matrix in).
+      n: points per dataset.
+      seed: the single seed every sampling path derives from.
+      device: the device the fit ran on ("cuda", "cuda:0", "cpu").  On a
+        CUDA device every kernel of the fit was the CUDA kernel; on the
+        CPU every one was its plain PyTorch version.
+      approx: the approx rung's error report; always None until that rung
+        is ported.
+      numerics: the numerics shield's plan for this fit
+        (``numerics.NumericsReport``): condition estimate κ, policy mode,
+        tile form, storage dtype, whether the conditioning transform ran,
+        and counted fallbacks.  None for precomputed input.
+    """
+
+    method: str
+    metric: str = "euclidean"
+    n: int = 0
+    seed: int = 0
+    device: str = "cuda"
+    approx: None = None
+    numerics: NumericsReport | None = None
+
+    def generator(self, salt: int = SALT_FIT) -> torch.Generator:
+        """``torch.Generator`` on the fit's device, seeded from
+        (seed, salt) — the port's counterpart of the reference's
+        ``jax_key(salt)``."""
+        seed = int(np.random.SeedSequence([self.seed, salt])
+                   .generate_state(1, np.uint64)[0] >> np.uint64(1))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def host_rng(self, salt: int = SALT_FIT) -> np.random.Generator:
+        """numpy Generator for host-side sampling, same seed source.
+
+        Uses ``SeedSequence([seed, salt])``, exactly as the reference does.
+        """
+        return np.random.default_rng(np.random.SeedSequence([self.seed, salt]))
+
+
+@dataclasses.dataclass(frozen=True)
+class TendencyResult:
+    """What every rung returns: ordering + images, one shape.
+
+    Attributes:
+      order: (n,) int64 VAT ordering.
+      rstar: (n, n) reordered dissimilarity image.
+      ivat_image: geodesic (iVAT) image where the rung computed one (ivat),
+        else None; ``image(use_ivat=True)`` derives it on demand from
+        ``rstar`` when absent.
+      meta: static fit metadata (method, metric, n, seed, device, ...).
+      group_sizes: per-prototype group counts of a banded render; None for
+        vat/ivat.
+    """
+
+    order: torch.Tensor
+    rstar: torch.Tensor
+    ivat_image: torch.Tensor | None
+    meta: ResultMeta
+    group_sizes: torch.Tensor | None = None
+
+    @property
+    def n(self) -> int:
+        return self.meta.n
+
+    @classmethod
+    def from_arrays(cls, order, rstar, ivat_image, meta: ResultMeta
+                    ) -> "TendencyResult":
+        """A result from host arrays — e.g. the fields of a reference
+        ``TendencyResult`` as numpy arrays — placed on ``meta.device``, so
+        ``image()`` and ``assess()`` can be run on a fit made elsewhere."""
+        def put(a, dtype):
+            return None if a is None else torch.tensor(
+                np.asarray(a), dtype=dtype, device=meta.device)
+        return cls(order=put(order, torch.int64),
+                   rstar=put(rstar, torch.float32),
+                   ivat_image=put(ivat_image, torch.float32), meta=meta)
+
+    def image(self, *, resolution: int = 256,
+              use_ivat: bool | None = None) -> np.ndarray:
+        """The reordered dissimilarity image (the thing you look at).
+
+        The geodesic image is used when one was computed
+        (``use_ivat=None``) or demanded (``use_ivat=True`` — derived on
+        demand from ``rstar`` if the rung didn't build one);
+        ``use_ivat=False`` forces the plain reordered dissimilarities.
+        Results carrying ``group_sizes`` are expanded to ``resolution``
+        pixels by group size; everything else returns the image at its
+        native size, as a host numpy array.
+        """
+        want_ivat = (self.ivat_image is not None if use_ivat is None
+                     else bool(use_ivat))
+        if want_ivat:
+            if self.ivat_image is not None:
+                base = self.ivat_image
+            else:
+                with device_scope(self.rstar.device):
+                    base = ivat_from_vat(self.rstar)
+        else:
+            base = self.rstar
+        base = base.cpu().numpy()
+        if self.group_sizes is not None:
+            return expand_image(base, self.group_sizes.cpu().numpy(),
+                                resolution)
+        return base
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TendencyReport(Mapping):
+    """``assess()``'s stable shape.
+
+    A frozen dataclass that also satisfies the Mapping protocol
+    (``rep["k_est"]``, ``dict(rep)``, ``rep.get("hopkins")``).  Equality
+    treats NaN hopkins values (the precomputed-metric case) as equal.
+
+    Attributes:
+      method: resolved rung name.
+      metric: dissimilarity metric of the fit.
+      n: points per dataset.
+      hopkins: Hopkins statistic (H > 0.75 => significant structure);
+        NaN when metric="precomputed" (no point coordinates to probe).
+      block_score: [0, 1] diagonal-block contrast of the VAT image.
+      k_est: estimated cluster count from super-diagonal cuts.
+      clustered: the combined verdict (hopkins and block_score bars;
+        block_score alone when hopkins is NaN).
+      batch_index: dataset index of a batched fit; None for solo fits.
+    """
+
+    method: str
+    metric: str
+    n: int
+    hopkins: float
+    block_score: float
+    k_est: int
+    clustered: bool
+    batch_index: int | None = None
+
+    _KEYS: ClassVar[tuple[str, ...]] = (
+        "method", "metric", "n", "hopkins", "block_score", "k_est",
+        "clustered", "batch_index")
+
+    def __getitem__(self, key: str) -> Any:
+        if key in self._KEYS:
+            return getattr(self, key)
+        raise KeyError(key)
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def __len__(self) -> int:
+        return len(self._KEYS)
+
+    def __eq__(self, other):
+        if not isinstance(other, TendencyReport):
+            return NotImplemented
+        return all(_field_eq(getattr(self, k), getattr(other, k))
+                   for k in self._KEYS)
+
+    def as_dict(self) -> dict:
+        """Plain-dict copy (e.g. for json.dumps)."""
+        return {k: getattr(self, k) for k in self._KEYS}
+
+
+def _field_eq(a, b) -> bool:
+    """Equality where NaN == NaN (hopkins is NaN for precomputed fits)."""
+    if isinstance(a, float) and isinstance(b, float) \
+            and math.isnan(a) and math.isnan(b):
+        return True
+    return a == b

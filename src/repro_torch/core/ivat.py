@@ -1,0 +1,57 @@
+"""iVAT — improved VAT via graph-geodesic (max-min path) distances.
+
+Uses the Havens & Bezdek (2012) O(n^2) recurrence, which requires the
+input to already be VAT-ordered.  ``kernels/ops.py::ivat_from_vat`` runs
+it: the CUDA kernel (``kernels/csrc/ivat_update.cu``) for a CUDA matrix,
+the plain PyTorch loop (``kernels/ref.py``) for a CPU one; this module is
+the stable public surface, as ``repro/core/ivat.py`` is.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.vat import VATResult, vat_from_dist
+from repro_torch.kernels import ops as kops
+
+
+def ivat_from_vat(rstar: torch.Tensor) -> torch.Tensor:
+    """VAT-ordered dissimilarity matrix -> iVAT geodesic matrix.
+
+    Args:
+      rstar: (n, n) float32 — VAT-ordered dissimilarity matrix (the
+        ``rstar`` field of a ``VATResult``). Must be VAT-ordered: the
+        recurrence below is only valid along a recorded Prim traversal.
+
+    Returns:
+      (n, n) float32 — D', the max-min path ("geodesic") distance matrix,
+      symmetric with zero diagonal.
+
+    The Havens & Bezdek (2012) recurrence: with D = R* VAT-ordered,
+    D'[0, 0] = 0, and for each r = 1 .. n-1 in order,
+
+        j        = argmin_{k < r} D[r, k]          (nearest ordered point —
+                                                    the MST edge that
+                                                    attached point r)
+        D'[r, k] = max(D[r, j], D'[j, k])   for k < r, k != j
+        D'[r, j] = D[r, j]
+        D'[k, r] = D'[r, k]                 (symmetry), D'[r, r] = 0.
+
+    Every path from r to an earlier point k must cross r's MST attachment
+    edge (r, j), so the minimax path cost is that edge's weight capped
+    below by the already-known minimax cost D'[j, k] — hence the single
+    max per entry and the O(n^2) total.
+    """
+    return kops.ivat_from_vat(rstar)
+
+
+def ivat(R: torch.Tensor) -> tuple[torch.Tensor, VATResult]:
+    """Dissimilarity matrix -> (iVAT image, underlying VAT result).
+
+    Args:
+      R: (n, n) float — symmetric dissimilarity matrix, zero diagonal.
+
+    Returns:
+      ((n, n) float32 geodesic image, VATResult of the ordering pass).
+    """
+    res = vat_from_dist(R)
+    return ivat_from_vat(res.rstar), res

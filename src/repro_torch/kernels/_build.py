@@ -1,0 +1,161 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into one ``.so``, bound
+with ``ctypes``.
+
+Every ``csrc/*.cu`` source is compiled for ``sm_90a`` (Hopper) into an
+object file, all sources at once in parallel, and the objects are linked
+into one shared library with a plain C interface.  The library goes to
+``build/repro_torch/`` at the repository root (a generated directory that
+git ignores), named by a hash of the sources and flags, so an edited source
+builds a new library and an unchanged one is reused.  Nothing here runs at
+import: the first kernel launch calls ``library()``, which builds if needed
+and raises ``RuntimeError`` when no ``nvcc`` is found.
+
+The launch counts of the kernels live here too, one plain integer per
+kernel: each wrapper adds one where it launches its kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+#: The C interface of the library: function name -> argument types.  The
+#: launch functions return the ``cudaError_t`` of their launches as an int.
+SIGNATURES = {
+    # X, Y, norms_x, norms_y, out, n, m, d, kind, is_bf16, y_is_x, stream
+    "repro_pairwise_dist": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # vals, mask, n, partial, out, stream
+    "repro_masked_argmin": (_P, _P, _I, _P, _P, _P),
+    "repro_masked_argmin_chunk": (),
+    "repro_cuda_error_string": (_I,),
+    # rstar, out, b, n, stream
+    "repro_ivat_from_vat": (_P, _P, _I, _I, _P),
+}
+
+#: Kernel launches per wrapper since the last ``reset_launch_counts``.
+LAUNCHES = {"pairwise_dist": 0, "masked_argmin": 0, "ivat_from_vat": 0}
+
+_LIB = None
+
+#: Lanes one CTA of ``repro_masked_argmin`` reduces (a compile-time constant
+#: of prim_update.cu), read once when ``library()`` loads the library.
+MASKED_ARGMIN_CHUNK = 0
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def sources() -> list[pathlib.Path]:
+    """Every file the library is built from (``.cu`` and headers)."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """The ``nvcc`` to build with: $CUDA_HOME/bin, then PATH, then
+    /usr/local/cuda/bin; ``RuntimeError`` when there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "repro_torch needs nvcc to build its CUDA kernels and found none "
+        "(set CUDA_HOME or put nvcc on PATH); CPU tensors take the plain "
+        "PyTorch versions and need no build")
+
+
+def _compile(nvcc: str, out: pathlib.Path, workdir: pathlib.Path) -> str:
+    """Compile every ``.cu`` in parallel, then link; return the compiler's
+    output (ptxas register and shared-memory report included)."""
+    procs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = workdir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, objs, failed = [], [], []
+    for src, obj, proc in procs:
+        text, _ = proc.communicate()
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+        objs.append(str(obj))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(out),
+                           *objs], capture_output=True, text=True)
+    log.append(f"== link\n{link.stdout}{link.stderr}")
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+    return "\n".join(log)
+
+
+def build() -> pathlib.Path:
+    """Build the library if no library of these sources exists; its path."""
+    path = BUILD_DIR / f"librepro_torch_{source_hash()}.so"
+    if path.exists():
+        return path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_path = pathlib.Path(tmp)
+        staged = tmp_path / path.name
+        log = _compile(nvcc, staged, tmp_path)
+        os.replace(staged, path)  # atomic: a concurrent build loses nothing
+    (BUILD_DIR / "build.log").write_text(log)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), argtypes set."""
+    global _LIB, MASKED_ARGMIN_CHUNK
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        MASKED_ARGMIN_CHUNK = lib.repro_masked_argmin_chunk()
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise when a C launch function reported a CUDA error."""
+    if err != 0:
+        msg = library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t "
+                           f"{err} ({msg})")

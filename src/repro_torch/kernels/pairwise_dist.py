@@ -1,0 +1,90 @@
+"""CUDA kernel: tiled pairwise dissimilarity matrix, metric-dispatched.
+
+The port of ``repro/kernels/pairwise_dist.py::pairwise_dist_pallas``.  The
+kernel is ``csrc/pairwise_dist.cu`` (its opening note gives the design and
+what bounds it); this module checks the inputs, allocates the output and
+the row-norm scratch, and launches on the current stream.  It has no plain
+fallback: ``kernels/ops.py`` sends CPU tensors to ``ref.py`` instead.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import check_metric
+from repro_torch.numerics.condition import check_form
+
+#: (metric, form) -> the kernel's metric kind (``enum Kind`` in the .cu).
+#: manhattan has only a direct form and cosine only a gram form, so the
+#: form is ignored for them, as in the reference.
+_KINDS = {
+    ("sqeuclidean", "gram"): 0, ("euclidean", "gram"): 1,
+    ("cosine", "gram"): 2, ("cosine", "direct"): 2,
+    ("sqeuclidean", "direct"): 3, ("euclidean", "direct"): 4,
+    ("manhattan", "gram"): 5, ("manhattan", "direct"): 5,
+}
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_cuda(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t`` is a contiguous tensor on the current CUDA device."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name} lies on {t.device}, but the current CUDA "
+                         f"device is {torch.cuda.current_device()}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def pairwise_dist_cuda(X: torch.Tensor, Y: torch.Tensor | None = None, *,
+                       metric: str = "euclidean",
+                       form: str = "gram") -> torch.Tensor:
+    """(n, m) f32 dissimilarity matrix of X (n, d) against Y (m, d).
+
+    Args:
+      X: (n, d) contiguous CUDA tensor, float32 or bfloat16 (storage only:
+        the kernel accumulates in f32).
+      Y: (m, d) like X, same dtype, or None for Y = X (the kernel then
+        reuses X's row norms, and R[i, j] == R[j, i] bit for bit).
+      metric: one of ``ref.METRICS``.
+      form: "gram" or "direct" (euclidean / sqeuclidean only).
+
+    Returns:
+      (n, m) float32 matrix; the diagonal of a self matrix is the kernel's
+      own value (``ops.pairwise_dist`` writes the exact zero).
+    """
+    check_metric(metric)
+    check_form(form)
+    check_cuda(X, "X")
+    y_is_x = Y is None
+    if y_is_x:
+        Y = X
+    else:
+        check_cuda(Y, "Y")
+    if X.dtype not in _DTYPES or Y.dtype != X.dtype:
+        raise ValueError(f"X and Y must share a dtype in {_DTYPES}, got "
+                         f"{X.dtype} and {Y.dtype}")
+    if X.dim() != 2 or Y.dim() != 2 or X.shape[1] != Y.shape[1]:
+        raise ValueError(f"want X (n, d) and Y (m, d), got {tuple(X.shape)} "
+                         f"and {tuple(Y.shape)}")
+    n, d = X.shape
+    m = Y.shape[0]
+    if n == 0 or m == 0 or d == 0:
+        raise ValueError(f"empty input: X {tuple(X.shape)}, Y {tuple(Y.shape)}")
+    out = torch.empty((n, m), dtype=torch.float32, device=X.device)
+    # Row-norm scratch, freed on return while the kernel may still run:
+    # the caching allocator hands it out again only to later work on this
+    # stream, which runs after the kernel.
+    norms = torch.empty(n + (0 if y_is_x else m), dtype=torch.float32,
+                        device=X.device)
+    lib = _build.library()
+    err = lib.repro_pairwise_dist(
+        X.data_ptr(), Y.data_ptr(), norms.data_ptr(),
+        norms.data_ptr() + 4 * n, out.data_ptr(), n, m, d,
+        _KINDS[(metric, form)], int(X.dtype == torch.bfloat16), int(y_is_x),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "pairwise_dist")
+    _build.LAUNCHES["pairwise_dist"] += 1
+    return out

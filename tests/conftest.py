@@ -13,3 +13,9 @@ if importlib.util.find_spec("hypothesis") is None:
     _spec.loader.exec_module(_mod)
     sys.modules["hypothesis"] = _mod
     sys.modules["hypothesis.strategies"] = _mod.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skipped when "
+        "torch.cuda.is_available() is False")

@@ -1,0 +1,193 @@
+"""The port's kernels (repro_torch.kernels) held against the JAX package's.
+
+On the CPU the port's ops take the plain PyTorch versions (``ref.py``);
+the JAX side runs its Pallas kernels in interpret mode
+(``repro.kernels.ops.*(use_pallas=True)``) and its own refs.  Inputs are
+made with numpy from a seed and handed to both.  The CUDA kernels
+themselves run only on a GPU: ``test_torch_cuda.py`` holds them against
+the plain versions there.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
+from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+from repro_torch.kernels.prim_update import masked_argmin_cuda
+from repro_torch.numerics.condition import _quantize_bf16
+
+F32_EPS = float(np.finfo(np.float32).eps)
+FORMS = ("gram", "direct")
+
+
+def _tolerance(metric, form, X, Y, want):
+    """Section-7 tolerances: a sqrt of the Gram cancellation floor for
+    gram-form euclidean, 1e-5 of the matrix scale (+1e-6) otherwise."""
+    if metric == "euclidean" and form == "gram":
+        sq = max(float(np.max(np.sum(np.float64(A) ** 2, axis=1)))
+                 for A in (X, X if Y is None else Y))
+        return (16 * F32_EPS * sq) ** 0.5
+    return 1e-5 * float(np.max(np.abs(want))) + 1e-6
+
+
+def _port_pairwise(X, Y, metric, form):
+    Yt = None if Y is None else torch.from_numpy(Y)
+    return ops.pairwise_dist(torch.from_numpy(X), Yt, metric=metric,
+                             form=form).numpy()
+
+
+def _jax_pairwise(X, Y, metric, form, use_pallas):
+    Yj = None if Y is None else jnp.asarray(Y)
+    return np.asarray(jops.pairwise_dist(jnp.asarray(X), Yj, metric=metric,
+                                         form=form, use_pallas=use_pallas))
+
+
+@pytest.mark.parametrize("n,m,d", [(67, None, 5), (100, 37, 10),
+                                   (130, 70, 130)])
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_pairwise_matches_reference(metric, form, n, m, d):
+    rng = np.random.default_rng(n * 1000 + d)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    Y = None if m is None else rng.normal(size=(m, d)).astype(np.float32)
+    got = _port_pairwise(X, Y, metric, form)
+    assert got.dtype == np.float32 and got.shape == (n, n if m is None else m)
+    for use_pallas in (True, False):
+        want = _jax_pairwise(X, Y, metric, form, use_pallas)
+        tol = _tolerance(metric, form, X, Y, want)
+        assert np.max(np.abs(got - want)) <= tol, (use_pallas, tol)
+    if Y is None:
+        assert not np.diag(got).any()   # the exact zero diagonal
+
+
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_pairwise_bf16_storage(metric):
+    """bf16-quantized points: the port's bfloat16 tensor, its f32 copy
+    and the JAX kernel on the quantized values agree."""
+    rng = np.random.default_rng(7)
+    X = _quantize_bf16(rng.normal(size=(90, 17)).astype(np.float32))
+    Y = _quantize_bf16(rng.normal(size=(33, 17)).astype(np.float32))
+    as_bf16 = ops.pairwise_dist(torch.from_numpy(X).bfloat16(),
+                                torch.from_numpy(Y).bfloat16(),
+                                metric=metric).numpy()
+    np.testing.assert_array_equal(as_bf16,
+                                  _port_pairwise(X, Y, metric, "gram"))
+    want = _jax_pairwise(X, Y, metric, "gram", use_pallas=True)
+    assert np.max(np.abs(as_bf16 - want)) <= _tolerance(metric, "gram", X, Y,
+                                                        want)
+
+
+def _argmin_cases(n, seed):
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-5, 6, size=n).astype(np.float32)   # many ties
+    all_but_one = np.ones(n, bool)
+    all_but_one[n // 3] = False
+    return vals, {"random": rng.random(n) < 0.5, "none": np.zeros(n, bool),
+                  "all_but_one": all_but_one, "all": np.ones(n, bool)}
+
+
+@pytest.mark.parametrize("n", [1, 17, 1000, 2049])
+def test_masked_argmin_bitwise(n):
+    vals, masks = _argmin_cases(n, seed=n)
+    for name, mask in masks.items():
+        pv, pi = ops.masked_argmin(torch.from_numpy(vals),
+                                   torch.from_numpy(mask))
+        assert pv.dtype == torch.float32 and pi.dtype == torch.int64
+        for use_pallas, block in ((True, 8), (True, 1024), (False, 1024)):
+            jv, ji = jops.masked_argmin(jnp.asarray(vals), jnp.asarray(mask),
+                                        use_pallas=use_pallas, block=block)
+            assert int(pi) == int(ji), (name, use_pallas, block)
+            assert np.float32(pv).tobytes() == np.float32(jv).tobytes()
+    assert float(ops.masked_argmin(torch.from_numpy(vals),
+                                   torch.from_numpy(masks["all"]))[0]) \
+        == np.inf
+
+
+def _vat_ordered(n, seed, d=4):
+    rng = np.random.default_rng(seed)
+    X = np.concatenate([rng.normal(size=(n // 2, d)),
+                        rng.normal(size=(n - n // 2, d)) + 5.0])
+    from repro.core.vat import vat
+    return np.array(vat(jnp.asarray(X, jnp.float32)).rstar)
+
+
+@pytest.mark.parametrize("n", [1, 2, 65, 256])
+def test_ivat_bitwise(n):
+    rstar = _vat_ordered(n, seed=n) if n > 1 else np.zeros((1, 1), np.float32)
+    got = ops.ivat_from_vat(torch.from_numpy(rstar)).numpy()
+    for use_pallas in (True, False):
+        want = np.asarray(jops.ivat_from_vat(jnp.asarray(rstar),
+                                             use_pallas=use_pallas))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_ivat_batch_matches_solo():
+    stack = np.stack([_vat_ordered(40, seed=s) for s in range(3)])
+    got = ops.ivat_from_vat(torch.from_numpy(stack)).numpy()
+    want = np.asarray(jops.ivat_from_vat(jnp.asarray(stack), use_pallas=True))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ref_versions_match_jax_refs():
+    """The plain versions are the JAX refs written in PyTorch."""
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(40, 6)).astype(np.float32)
+    for metric in ref.METRICS:
+        for form in FORMS:
+            got = ref.pairwise_dissim_ref(torch.from_numpy(X), metric=metric,
+                                          form=form).numpy()
+            want = np.asarray(jref.pairwise_dissim_ref(
+                jnp.asarray(X), metric=metric, form=form))
+            assert np.max(np.abs(got - want)) <= _tolerance(
+                metric, form, X, None, want)
+    with pytest.raises(ValueError, match="metric must be one of"):
+        ref.check_metric("hamming")
+
+
+def test_cpu_dispatch_launches_no_kernel():
+    _build.reset_launch_counts()
+    X = torch.randn(20, 3)
+    R = ops.pairwise_dist(X)
+    ops.masked_argmin(R[0], torch.zeros(20, dtype=torch.bool))
+    ops.ivat_from_vat(R)
+    assert _build.launch_counts() == {"pairwise_dist": 0,
+                                      "masked_argmin": 0,
+                                      "ivat_from_vat": 0}
+
+
+@pytest.mark.parametrize("call", [
+    lambda: pairwise_dist_cuda(torch.zeros(4, 2)),
+    lambda: masked_argmin_cuda(torch.zeros(4), torch.zeros(4, dtype=bool)),
+    lambda: ivat_from_vat_cuda(torch.zeros(4, 4)),
+], ids=["pairwise_dist", "masked_argmin", "ivat_from_vat"])
+def test_cuda_wrappers_refuse_cpu_tensors(call):
+    """A wrapper launches its kernel or raises; it never computes on the
+    CPU itself."""
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        call()
+
+
+def test_build_needs_nvcc(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda path: False)
+    with pytest.raises(RuntimeError, match="needs nvcc"):
+        _build.find_nvcc()
+
+
+def test_build_hash_covers_every_source():
+    names = {p.name for p in _build.sources()}
+    assert {"pairwise_dist.cu", "prim_update.cu", "ivat_update.cu",
+            "argmin_key.cuh"} <= names
+    assert _build.source_hash() == _build.source_hash()
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    for src in _build.CSRC.glob("*.cu"):
+        head = src.read_text().split("#include")[0]
+        assert "Replaces: src/repro/kernels/" in head, src.name
+        assert "bounds it on the H100" in head, src.name
+        assert "Design:" in head, src.name
