@@ -7,11 +7,14 @@ Run from the repository root, with no arguments:
 
 It builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-drives the port's main path — ``FastVAT().fit(X)`` then ``order()``,
-``image()``, ``image(use_ivat=True)`` and ``assess()`` at n = 2,048, and
-the ``ivat`` rung at n = 2,048 and 16,384 — checks what comes out and that
-every kernel of the path was launched, times each kernel beside its plain
-version, one PyTorch library call and the card's bound, and prints:
+drives the port's paths — ``FastVAT().fit(X)`` then ``order()``,
+``image()``, ``image(use_ivat=True)`` and ``assess()`` at n = 2,048 (the
+``vat`` rung) and at n = 50,000 (the ``flashvat`` rung, and its stepwise
+engine), and the ``ivat`` rung at n = 2,048 and 16,384 — checks what comes
+out and that every kernel of each path was launched, holds the flashvat
+engines bit for bit against each other and against the materialized
+ordering, times each kernel beside its plain version, one PyTorch library
+call where there is one and the card's bound, and prints:
 
   * one line per phase, the GPU's name and power limit (nvidia-smi), and a
     JSON line ``{"kernels": [...]}`` before the last;
@@ -162,6 +165,20 @@ def argmin_cost(n: int):
     return 4 * n + n + 16, 2 * n      # vals + mask read, pair written
 
 
+def persist_cost(n: int, d: int, pairs: int):
+    """X, aux read once, order (int64), edges and stats written once; one
+    FMA per feature and pair evaluation the kernel made (``stats[2]``:
+    each unselected lane against each pivot folded into its tile, which
+    for an exact traversal is n (n - 1) / 2 whatever the schedule)."""
+    return 4 * n * d + 4 * n + 12 * n + 24, 2 * d * pairs
+
+
+def stream_step_cost(n: int, d: int):
+    """One step: X, aux and the mask read, the frontier read and written,
+    the pair written; one FMA per feature and lane, a 4-op epilogue."""
+    return 4 * n * d + 4 * n + n + 8 * n + 16, 2 * n * d + 4 * n
+
+
 def ivat_cost(n: int):
     """The strict lower triangle of R* read once, D' written once; one
     compare and one max per lower-triangle entry."""
@@ -195,7 +212,12 @@ def check_pairwise(torch, ref, ops, pairwise_dist_cuda, probe_count, gen):
     (m probes) x (n points) with m = probe_count(n)."""
     worst = 0.0
     cases = ((2048, None, 64), (2047, None, 3), (2048, 256, 64),
-             (probe_count(2048), 2048, 64))
+             (probe_count(2048), 2048, 64),
+             # the flash path's: a seed-scan block at n = 50,000 (25 x 7
+             # blocks of about 2,000 x 7,143), the band render's
+             # representatives, and assess()'s Hopkins calls
+             (2000, 7143, 64), (256, None, 64),
+             (probe_count(50_000), 50_000, 64))
     for n, m, d in cases:
         case_worst = {}
         X = torch.randn(n, d, device="cuda", generator=gen)
@@ -273,15 +295,21 @@ def check_ivat(torch, ref, ivat_from_vat_cuda, rstars):
 
 def tree_weight(torch, X, order):
     """Spanning-tree weight of a Prim ordering, in f64 euclidean: the sum
-    over positions t >= 1 of the distance to the nearest earlier point."""
+    over positions t >= 1 of the distance to the nearest earlier point.
+    Rows go in blocks of 2,048, so no (n, n) object is formed."""
     Xd = X.double().index_select(0, order)
     sq = torch.sum(Xd * Xd, dim=1)
-    D = torch.sqrt(torch.clamp_min(sq[:, None] + sq[None, :]
-                                   - 2.0 * (Xd @ Xd.T), 0.0))
-    n = D.shape[0]
-    earlier = torch.ones(n, n, dtype=torch.bool, device=X.device).tril(-1)
-    D = torch.where(earlier, D, torch.inf)
-    return float(torch.sum(torch.amin(D[1:], dim=1)))
+    n = Xd.shape[0]
+    col = torch.arange(n, device=X.device)
+    total = 0.0
+    for t0 in range(1, n, 2048):
+        t1 = min(n, t0 + 2048)
+        D = torch.sqrt(torch.clamp_min(sq[t0:t1, None] + sq[None, :]
+                                       - 2.0 * (Xd[t0:t1] @ Xd.T), 0.0))
+        earlier = col[None, :] < torch.arange(t0, t1, device=X.device)[:, None]
+        total += float(torch.sum(torch.amin(
+            torch.where(earlier, D, torch.inf), dim=1)))
+    return total
 
 
 def check_orders(torch, ref, ops, vat_order, Xt, order_fit, label):
@@ -338,8 +366,11 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
             f"auto picked {fv.method_resolved!r} at n={n}, want 'vat'")
     require(fv.result.meta.device.startswith("cuda"), "fit did not run on cuda")
     Xt = fv._X
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+    for name in ("pairwise_dist", "masked_argmin", "ivat_from_vat"):
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the main path")
+    require(launches["prim_persist"] == launches["prim_stream_step"] == 0,
+            f"the vat path launched a Prim kernel: {launches}")
     require(launches["masked_argmin"] == n - 1,
             f"masked_argmin launched {launches['masked_argmin']} times, "
             f"want n - 1 = {n - 1}")
@@ -400,7 +431,7 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
     return launches, walls, rstars
 
 
-def phase_profile(torch, rt, X):
+def phase_profile(torch, rt, X, label="vat n=2048"):
     """Device busy share of one main-path fit, from torch.profiler: the
     kernels' device time over the fit's wall time (tracing slows the host,
     so the share is a lower bound), and the kernels that take most."""
@@ -412,9 +443,262 @@ def phase_profile(torch, rt, X):
     by_name = kernel_device_ms(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log("profile", fit_wall_ms=wall * 1e3, device_busy_ms=busy,
+    log("profile", fit=label, fit_wall_ms=wall * 1e3, device_busy_ms=busy,
         device_busy_share=busy / (wall * 1e3),
         top_ms={name[:60]: ms for name, ms in top})
+
+
+# ------------------------------------------------------- flash path ----
+
+def frontier_minima(torch, R, order):
+    """edges[t] of a Prim ordering read off the matrix R: the least entry of
+    row order[t] over the earlier vertices, t >= 1."""
+    out = torch.empty(R.shape[0] - 1, dtype=R.dtype, device=R.device)
+    Rs = R.index_select(0, order)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=R.device)
+    for t0 in range(1, R.shape[0], 2048):   # row blocks: no (n, n) mask
+        rows = Rs[t0:t0 + 2048]
+        t = torch.arange(t0, t0 + rows.shape[0], device=R.device)
+        earlier = pos[None, :] < t[:, None]
+        out[t0 - 1:t0 - 1 + rows.shape[0]] = torch.amin(
+            torch.where(earlier, rows, torch.inf), dim=1)
+    return out
+
+
+def event_once_ms(torch, fn):
+    """CUDA-event time of one call (for a kernel of seconds, where launch
+    cost is nothing and a repeat costs as much as the first run)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
+                     prim_stream_step_cuda, seed_pivot):
+    """The flashvat rung at the top of its auto window, its stepwise engine,
+    and the bitwise checks of its kernels on the card."""
+    from repro_torch.kernels.prim_persist import DEFAULT_BLOCK
+    n, d = 50_000, 64
+    X = blobs(n, d, k=8, seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    walls = {}
+    fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit(X))
+    peak = torch.cuda.max_memory_allocated() - base
+    order, walls["order"] = wall_s(torch, fv.order)
+    img, walls["image"] = wall_s(torch, fv.image)
+    img_iv, walls["image_ivat"] = wall_s(
+        torch, lambda: fv.image(use_ivat=True))
+    rep, walls["assess"] = wall_s(torch, fv.assess)
+    launches = build.launch_counts()
+    require(fv.method_resolved == "flashvat",
+            f"auto picked {fv.method_resolved!r} at n={n}, want 'flashvat'")
+    require(fv.result.meta.device.startswith("cuda"), "fit did not run on cuda")
+    m = fv.result.rstar.shape[0]
+    require(launches["prim_persist"] == 1 and launches["prim_stream_step"] == 0
+            and launches["masked_argmin"] == m - 1 == 255
+            and launches["ivat_from_vat"] == 1
+            and launches["pairwise_dist"] > 0,
+            f"flash path launch counts {launches}")
+    require(peak < 512 * 2 ** 20, f"the flashvat fit allocated {peak} bytes "
+            "on the card, over 512 MiB")
+    require(np.array_equal(np.sort(order), np.arange(n)),
+            "flashvat order is not a permutation")
+    require(img.shape == (256, 256) and np.isfinite(img).all()
+            and img_iv.shape == (256, 256) and np.isfinite(img_iv).all(),
+            "bad flashvat image")
+    require(np.array_equal(img_iv, img_iv.T) and bool((img_iv <= img).all()),
+            "flashvat iVAT image not symmetric or above the VAT image")
+    require(rep.k_est == 8 and rep.clustered and 0 < rep.hopkins < 1,
+            f"8 separated blobs gave {rep}")
+
+    # pruned == eager, bit for bit, at the fit's own input and seed
+    Xt = fv._X.float().contiguous()
+    aux = ops.metric_aux(Xt)
+    i0 = seed_pivot(Xt, metric="euclidean")
+    (o1, e1, s1), pruned_ms = event_once_ms(
+        torch, lambda: prim_persist_cuda(Xt, aux, i0))
+    (o0, e0, s0), eager_ms = event_once_ms(
+        torch, lambda: prim_persist_cuda(Xt, aux, i0, prune=False))
+    nblk = -(-n // DEFAULT_BLOCK)
+    require(torch.equal(o1, o0) and torch.equal(e1, e0),
+            "prim_persist: pruned and eager traversals differ")
+    require(torch.equal(o1, fv.result.order), "refit order differs")
+    require(int(s0[0]) <= (n - 1) * nblk and int(s1[0]) <= int(s0[0]),
+            f"tile folds pruned {s1.tolist()} eager {s0.tolist()}")
+    # an exact traversal meets each (earlier pivot, lane) pair once
+    require(int(s1[2]) == int(s0[2]) == n * (n - 1) // 2,
+            f"pair evaluations pruned {s1.tolist()} eager {s0.tolist()}, "
+            f"want n (n - 1) / 2 = {n * (n - 1) // 2}")
+    log("flash-path", n=n, d=d, method=fv.method_resolved,
+        launches=launches, walls_s=walls, peak_alloc_mib=peak / 2 ** 20,
+        hopkins=rep.hopkins, block_score=rep.block_score, k_est=rep.k_est,
+        pruned_equals_eager=True, stats_pruned=s1.tolist(),
+        stats_eager=s0.tolist(), eager_tile_fold_cap=(n - 1) * nblk,
+        pruned_ms=pruned_ms, eager_ms=eager_ms)
+
+    # the stepwise engine is its own path: counts from 0, read after
+    build.reset_launch_counts()
+    fs, wall = wall_s(torch, lambda: rt.FastVAT(turbo=False).fit(X))
+    step_launches = build.launch_counts()
+    require(step_launches["prim_stream_step"] == n - 1
+            and step_launches["prim_persist"] == 0,
+            f"stepwise launch counts {step_launches}")
+    require(np.array_equal(fs.order(), order),
+            "stepwise and persistent engines give different orders")
+    log("flash-stepwise", n=n, fit_wall_s=wall, launches=step_launches,
+        same_order_as_persistent=True)
+
+    # flashvat against the materialized ordering of the same conditioned
+    # data: the pairwise kernel's matrix and the masked-argmin Prim loop
+    n2, d2 = 16_384, 32
+    X2 = blobs(n2, d2, k=8, seed=1)
+    ff, wall_flash = wall_s(torch,
+                            lambda: rt.FastVAT(method="flashvat").fit(X2))
+    fm, wall_vat = wall_s(torch, lambda: rt.FastVAT(method="vat").fit(X2))
+    require(ff.result.meta.numerics == fm.result.meta.numerics,
+            "flashvat and vat fits took different numerics plans")
+    require(np.array_equal(ff.order(), fm.order()),
+            "flashvat order differs from the materialized vat order")
+    X2t = ff._X.float().contiguous()
+    res2 = core.vat_matrix_free(X2t)
+    require(torch.equal(res2.order, ff.result.order), "refit order differs")
+    R2 = ops.pairwise_dist(X2t)
+    require(torch.equal(res2.edges[1:], frontier_minima(torch, R2,
+                                                        res2.order)),
+            "flashvat edges are not the materialized frontier minima")
+    del R2
+    # the plain version on the same card tensors: rows from cuBLAS, so
+    # held by spanning-tree weight
+    aux2 = ops.metric_aux(X2t)
+    i02 = seed_pivot(X2t, metric="euclidean")
+    porder, pedges = ref.prim_persist_ref(X2t, aux2, i02)
+    wk = tree_weight(torch, X2t, res2.order)
+    wp = tree_weight(torch, X2t, porder)
+    excess = abs(wk - wp) / wp
+    require(excess <= EXCESS_F32, f"prim_persist vs plain at n={n2}: tree "
+            f"weight {wk} vs {wp}, relative {excess} > {EXCESS_F32}")
+    # the MST's edge weights, as multisets, within the gram tolerance
+    persist_err = float(torch.amax(torch.abs(
+        torch.sort(res2.edges).values - torch.sort(pedges).values)))
+    tol2 = (16 * F32_EPS * float(torch.amax(aux2))) ** 0.5
+    require(persist_err <= tol2, f"prim_persist edges vs plain: "
+            f"{persist_err} > {tol2}")
+    log("flash-vs-materialized", n=n2, d=d2, flash_fit_s=wall_flash,
+        vat_fit_s=wall_vat, same_order=True, edges_are_frontier_minima=True,
+        plain_tree_weight_rel_excess=excess, plain_edges_max_abs_err=
+        persist_err, plain_edges_tol=tol2,
+        same_order_as_plain=bool(torch.equal(porder, res2.order)))
+
+    # uncentered data: through the fit (auto policy: conditioned, direct
+    # form) and raw, both forms, where the pruning slack carries the gram
+    # rows' absolute error
+    X3 = blobs(4_096, 16, k=8, seed=2) + np.float32(1e3)
+    f3 = rt.FastVAT(method="flashvat").fit(X3)
+    require(f3.result.meta.numerics.form == "direct",
+            f"uncentered blobs took {f3.result.meta.numerics}")
+    checked = []
+    for data, form, label in ((f3._X.float().contiguous(), "direct", "fit"),
+                              (torch.from_numpy(X3).cuda(), "gram", "raw"),
+                              (torch.from_numpy(X3).cuda(), "direct", "raw")):
+        a3 = ops.metric_aux(data)
+        s3 = seed_pivot(data, metric="euclidean", form=form)
+        p = prim_persist_cuda(data, a3, s3, form=form, block=64)
+        e = prim_persist_cuda(data, a3, s3, form=form, block=64, prune=False)
+        require(torch.equal(p[0], e[0]) and torch.equal(p[1], e[1]),
+                f"uncentered {label}/{form}: pruned and eager differ")
+        checked.append({"data": label, "form": form,
+                        "stats_pruned": p[2].tolist(),
+                        "stats_eager": e[2].tolist()})
+    require(np.array_equal(f3.order(), core.vat_matrix_free(
+        f3._X, form="direct").order.cpu().numpy()), "uncentered refit differs")
+    log("flash-uncentered", n=4096, d=16, offset=1e3, checked=checked)
+
+    # one step of the stepwise kernel against its plain version at the
+    # path's shape: the frontier within the pairwise tolerance, the pair
+    # the plain argmin of the kernel's own frontier, bit for bit
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mind = torch.rand(n, device="cuda", generator=gen) * 50.0
+    sel = torch.rand(n, device="cuda", generator=gen) < 0.5
+    q = torch.tensor([int(i0)], device="cuda")
+    want, _, _ = ref.prim_stream_step_ref(Xt, aux, q, mind.clone(), sel)
+    got, ev, nq = prim_stream_step_cuda(Xt, aux, q, mind, sel)
+    step_err = float(torch.amax(torch.abs(got - want)))
+    tol = (16 * F32_EPS * float(torch.amax(aux))) ** 0.5
+    pv, pi = ref.masked_argmin_ref(got, sel)
+    require(step_err <= tol and int(nq) == int(pi)
+            and torch.equal(ev.view(1), pv.view(1)),
+            f"prim_stream_step vs plain: err {step_err} (tol {tol}), pair "
+            f"({float(ev)}, {int(nq)}) vs ({float(pv)}, {int(pi)})")
+    log("kernel-check", kernel="prim_stream_step", n=n, d=d,
+        max_abs_err=step_err, tol=tol, pair_bitwise=True)
+    return {"launches": launches, "step_launches": step_launches,
+            "X": Xt, "aux": aux, "i0": i0, "stats": s1.tolist(),
+            "order": o1, "edges": e1,
+            "pruned_ms": pruned_ms, "eager_ms": eager_ms,
+            "stats_eager": s0.tolist(),
+            "step_err": step_err}
+
+
+def phase_flash_times(torch, ref, flash, prim_stream_step_cuda):
+    """The two Prim kernels beside their plain versions and bounds, at the
+    flash path's shapes (n = 50,000, d = 64)."""
+    X, aux, i0 = flash["X"], flash["aux"], flash["i0"]
+    n, d = X.shape
+    # the plain traversal is n - 1 steps of ~7 launches: a profiler trace of
+    # it takes minutes to read back, so it is timed by CUDA events around
+    # one call (stream time: the host's launch gaps are included)
+    (porder, pedges), plain_ms = event_once_ms(
+        torch, lambda: ref.prim_persist_ref(X, aux, i0))
+    # ... and held against the kernel's traversal of the same tensors: its
+    # rows come from cuBLAS, so by spanning-tree weight and by the MST's
+    # edge weights as multisets, within the gram tolerance
+    wk = tree_weight(torch, X, flash["order"])
+    wp = tree_weight(torch, X, porder)
+    excess = abs(wk - wp) / wp
+    require(excess <= EXCESS_F32, f"prim_persist vs plain at n={n}: tree "
+            f"weight {wk} vs {wp}, relative {excess} > {EXCESS_F32}")
+    err = float(torch.amax(torch.abs(torch.sort(flash["edges"]).values
+                                     - torch.sort(pedges).values)))
+    tol = (16 * F32_EPS * float(torch.amax(aux))) ** 0.5
+    require(err <= tol, f"prim_persist edges vs plain at n={n}: {err} > "
+            f"{tol}")
+    persist = {"kernel": "prim_persist", "n": n, "ms": flash["pruned_ms"],
+               "eager_ms": flash["eager_ms"], "plain_ms": plain_ms,
+               "plain_timer": "cuda events, one call",
+               "library_ms": None, "stats": flash["stats"],
+               "stats_eager": flash["stats_eager"],
+               "plain_tree_weight_rel_excess": excess,
+               "plain_edges_max_abs_err": err, "plain_edges_tol": tol,
+               "same_order_as_plain": bool(torch.equal(porder,
+                                                       flash["order"]))}
+    persist["bound_ms"], persist["bound_by"] = bound_ms(
+        *persist_cost(n, d, flash["stats"][2]))
+    log("time", **persist)
+    mind = torch.full((n,), torch.inf, device=X.device)
+    sel = torch.zeros(n, dtype=torch.bool, device=X.device)
+    sel[int(i0)] = True
+    q = i0.view(1)
+    step = {"kernel": "prim_stream_step", "n": n,
+            "ms": device_ms(torch, lambda: prim_stream_step_cuda(
+                X, aux, q, mind, sel), reps=200, label="prim_stream_step"),
+            "plain_ms": device_ms(torch, lambda: ref.prim_stream_step_ref(
+                X, aux, q, mind, sel), reps=50,
+                label="prim_stream_step plain"),
+            "library_ms": None,
+            "event_ms": event_ms(torch, lambda: prim_stream_step_cuda(
+                X, aux, q, mind, sel), reps=200)}
+    step["bound_ms"], step["bound_by"] = bound_ms(*stream_step_cost(n, d))
+    log("time", **step)
+    return persist, step
 
 
 def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
@@ -422,7 +706,11 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
 
     ``ms`` / ``plain_ms`` / ``library_ms`` are device times per call
     (``device_ms``); ``event_ms`` beside them is the stream time per call
-    in a back-to-back run, host launch overhead included."""
+    in a back-to-back run, host launch overhead included.  The iVAT
+    kernel's row in the ``kernels`` line takes its ``event_ms``: one
+    launch of milliseconds, so launch gaps are nothing, and its profiler
+    reading has come back well below that stream time, which a single
+    launch cannot be."""
     rows = []
     for n, d in ((2048, 64), (16384, 32)):
         X = torch.randn(n, d, device="cuda", generator=gen)
@@ -471,9 +759,12 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
     out = []
     for name, (source, replaces) in meta.items():
         row = next(r for r in rows if r["kernel"] == name and r["n"] == 2048)
+        timer = "cuda events" if name == "ivat_from_vat" else "profiler"
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": errs[name], "ms": row["ms"],
+                    "max_abs_err": errs[name],
+                    "ms": row["event_ms" if timer == "cuda events" else "ms"],
+                    "timer": timer, "profiler_ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"]})
@@ -490,12 +781,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch as rt
+    from repro_torch import core
     from repro_torch.core.hopkins import probe_count
-    from repro_torch.core.vat import vat_order
+    from repro_torch.core.vat import _streamed_seed_pivot, vat_order
     from repro_torch.kernels import _build as build
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
     from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.kernels.prim_persist import prim_persist_cuda
+    from repro_torch.kernels.prim_stream import prim_stream_step_cuda
     from repro_torch.kernels.prim_update import masked_argmin_cuda
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
@@ -516,7 +810,31 @@ def main() -> int:
                "masked_argmin": masked_argmin_cuda,
                "ivat_from_vat": ivat_from_vat_cuda}
     phase_profile(torch, rt, blobs(2048, 64, k=8, seed=0))
+    flash = phase_flash_path(torch, rt, ref, ops, build, core,
+                             prim_persist_cuda, prim_stream_step_cuda,
+                             _streamed_seed_pivot)
+    phase_profile(torch, rt, blobs(50_000, 64, k=8, seed=0),
+                  label="flashvat n=50000")
+    persist, step = phase_flash_times(torch, ref, flash,
+                                      prim_stream_step_cuda)
     rows = phase_times(torch, ref, kernels, rstars, gen, errs, launches)
+    errs["prim_persist"] = persist["plain_edges_max_abs_err"]
+    errs["prim_stream_step"] = flash["step_err"]
+    for row, path_launches, source, replaces in (
+            (persist, flash["launches"],
+             "src/repro_torch/kernels/csrc/prim_persist.cu",
+             "src/repro/kernels/prim_persist.py:319"),
+            (step, flash["step_launches"],
+             "src/repro_torch/kernels/csrc/prim_stream.cu",
+             "src/repro/kernels/prim_stream.py:218")):
+        name = row["kernel"]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": path_launches[name],
+                     "max_abs_err": errs[name], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row["library_ms"]})
     log("done", total_s=time.perf_counter() - t0)
     print(card)
     print(json.dumps({"kernels": rows}))

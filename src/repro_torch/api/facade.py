@@ -2,10 +2,11 @@
 
 The same surface as ``repro.FastVAT`` for the rungs ported so far:
 
-  n <= SMALL_N  (2_048)   exact ``vat``   — O(n^2) matrix fits easily
-  larger                  the reference's ``flashvat`` / ``approx`` —
-                          not ported yet: ``fit`` raises
-                          ``NotImplementedError`` naming the rung
+  n <= SMALL_N  (2_048)   exact ``vat``      — O(n^2) matrix fits easily
+  n <= MEDIUM_N (50_000)  exact ``flashvat`` — matrix-free, persistent
+                                               Prim kernel, banded render
+  larger                  the reference's ``approx`` — not ported yet:
+                          ``fit`` raises ``NotImplementedError``
 
 plus the opt-in ``ivat`` rung.  The fit runs on ``device`` (default
 "cuda": the CUDA kernels of ``kernels/csrc``); ``device="cpu"`` runs the
@@ -65,6 +66,11 @@ class FastVAT:
                "precomputed" to pass ``fit`` an (n, n) matrix directly.
     seed:      the single seed every sampling path (device and host side)
                derives from — see ``ResultMeta``.
+    sample_size: m, the representatives flashvat's banded render draws
+               (its image and ``rstar`` are (m, m)).
+    turbo:     flashvat's traversal engine — None (default) or True the
+               persistent kernel, False the stepwise engine (one fused step
+               kernel per vertex); the same ordering either way.
     validate:  admission-check inputs before they reach a kernel (finite
                values, real dtype, n >= 4, non-degenerate, no zero-norm
                rows under cosine) and fail with the typed
@@ -79,6 +85,7 @@ class FastVAT:
     """
 
     def __init__(self, method: str = "auto", *, metric: str = "euclidean",
+                 sample_size: int = 256, turbo: bool | None = None,
                  seed: int = 0, validate: bool = True, numerics="auto",
                  device="cuda"):
         if method in registry.UNPORTED:
@@ -90,6 +97,8 @@ class FastVAT:
         validate_metric(metric)
         self.method = method
         self.metric = metric
+        self.sample_size = sample_size
+        self.turbo = turbo
         self.seed = seed
         self.validate = validate
         self.numerics = as_policy(numerics)
@@ -105,7 +114,8 @@ class FastVAT:
         needed for ``assess()`` on non-precomputed metrics."""
         m = result.meta
         fv = cls(method=m.method, metric=m.metric, seed=m.seed,
-                 device=m.device)
+                 sample_size=(m.sample_size if m.sample_size is not None
+                              else 256), device=m.device)
         fv.result = result
         fv.method_resolved = m.method
         fv._X = None if X is None else torch.tensor(
@@ -153,9 +163,10 @@ class FastVAT:
                              "metric='precomputed'")
         meta = ResultMeta(method=method, metric=self.metric, n=n,
                           seed=self.seed, device=str(dev),
-                          numerics=num_report)
+                          sample_size=self.sample_size, numerics=num_report)
         with device_scope(dev):
             self.result = rung.fit(data, meta, RungOptions(
+                sample_size=self.sample_size, turbo=self.turbo,
                 num_form=(num_report.form if num_report is not None
                           else "gram")))
         self.method_resolved = method
@@ -172,6 +183,11 @@ class FastVAT:
     def order(self) -> np.ndarray:
         """VAT ordering of all n points, as a host array."""
         return self._require_fit().order.cpu().numpy()
+
+    def sample_indices(self) -> np.ndarray | None:
+        """Dataset rows of the representatives (flashvat), else None."""
+        idx = self._require_fit().sample_idx
+        return None if idx is None else idx.cpu().numpy()
 
     def image(self, *, resolution: int = 256,
               use_ivat: bool | None = None) -> np.ndarray:

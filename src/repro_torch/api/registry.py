@@ -6,15 +6,16 @@ adapter that runs a ``repro_torch.core`` rung and wraps its output into
 the uniform ``TendencyResult``), its capability flags and its
 auto-selection threshold.
 
-The port registers the ``vat`` and ``ivat`` rungs.  The reference's other
-rungs are listed in ``UNPORTED`` with their auto-selection thresholds, so
-``select_method`` still picks what the reference would pick — and
-``FastVAT.fit`` raises ``NotImplementedError`` naming that rung instead of
-quietly running ``vat`` at a size the reference hands elsewhere.
+The port registers the ``vat``, ``ivat`` and ``flashvat`` rungs.  The
+reference's other rungs are listed in ``UNPORTED`` with their
+auto-selection thresholds, so ``select_method`` still picks what the
+reference would pick — and ``FastVAT.fit`` raises ``NotImplementedError``
+naming that rung instead of quietly running another at a size the
+reference hands elsewhere.
 
 >>> from repro_torch.api import registry
 >>> sorted(registry.registered())
-['ivat', 'vat']
+['flashvat', 'ivat', 'vat']
 >>> registry.select_method(100), registry.select_method(10_000)
 ('vat', 'flashvat')
 >>> registry.select_method(1_000_000, precomputed=True)   # matrix exists
@@ -26,8 +27,12 @@ import dataclasses
 import math
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
+import torch
+
 from repro_torch import core
 from repro_torch.api.result import ResultMeta, TendencyResult
+from repro_torch.kernels import ops as kops
 
 #: Auto-selection thresholds, the reference's: materialized exact VAT up to
 #: SMALL_N, matrix-free exact VAT (flashvat) to MEDIUM_N, the kNN-graph
@@ -38,18 +43,26 @@ MEDIUM_N = 50_000
 #: Rungs of the reference the port does not have yet -> their
 #: auto-selection threshold (None: opt-in only).  None of them accepts
 #: precomputed input.
-UNPORTED = {"flashvat": MEDIUM_N, "approx": math.inf, "svat": None,
-            "bigvat": None, "dvat": None, "embed": None}
+UNPORTED = {"approx": math.inf, "svat": None, "bigvat": None, "dvat": None,
+            "embed": None}
 
 
 class RungOptions(NamedTuple):
     """Facade knobs forwarded to a fitter (metric/seed/device ride on
     ``ResultMeta``).
 
+    ``sample_size`` is m, the representatives flashvat's banded render
+    draws.  ``turbo`` picks flashvat's traversal engine: None (default) and
+    True the persistent kernel, False the stepwise engine.  The reference's
+    None also auto-shards across devices; the port has one card, so None
+    and True are the same here.
+
     ``num_form`` is the numerics shield's tile-form plan: "gram" (default
     — the ‖x‖²+‖y‖²−2x·y form) or "direct" (per-coordinate (x−y)², no
     cancellation).  The facade sets it from ``numerics.resolve``.
     """
+    sample_size: int = 256
+    turbo: bool | None = None
     num_form: str = "gram"
 
 
@@ -169,14 +182,91 @@ def _vat_result(data, meta: ResultMeta, opts: RungOptions) -> core.VATResult:
 def _fit_vat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     res = _vat_result(data, meta, opts)
     return TendencyResult(order=res.order, rstar=res.rstar, ivat_image=None,
-                          meta=meta)
+                          sample_idx=None, extension_labels=None, meta=meta)
 
 
 def _fit_ivat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     res = _vat_result(data, meta, opts)
     iv = core.ivat_from_vat(res.rstar)
     return TendencyResult(order=res.order, rstar=res.rstar, ivat_image=iv,
+                          sample_idx=None, extension_labels=None, meta=meta)
+
+
+def _flash_groups(n: int, m: int):
+    """Partition VAT-order positions 0..n-1 into m contiguous groups.
+
+    Returns (sizes (m,) int64, mids (m,) int64): per-group lengths
+    (remainder spread over the leading groups) and each group's middle
+    position — the representative whose distances render that band.
+    """
+    base, extra = divmod(n, m)
+    sizes = np.full(m, base, np.int64)
+    sizes[:extra] += 1
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    return sizes, starts + sizes // 2
+
+
+def _rep_ivat(Rrep: torch.Tensor) -> torch.Tensor:
+    """iVAT image of a representative matrix, returned in band order.
+
+    The Havens-Bezdek recurrence holds only along a Prim traversal of the
+    matrix it runs on, and band order (representatives sorted by their
+    position in the full-n ordering) is generally not one — so the
+    geodesics run along the representatives' own Prim order
+    (``vat_from_dist``) and are permuted back to band order.
+    """
+    sres = core.vat_from_dist(Rrep)
+    iv_s = core.ivat_from_vat(sres.rstar)
+    m = Rrep.shape[0]
+    rank = torch.empty(m, dtype=torch.int64, device=Rrep.device)
+    rank[sres.order] = torch.arange(m, device=Rrep.device)
+    return iv_s.index_select(0, rank).index_select(1, rank)
+
+
+def _flash_order(Xf: torch.Tensor, meta: ResultMeta,
+                 opts: RungOptions) -> core.FlashVATResult:
+    """The flashvat rung's engine: the persistent kernel unless
+    ``opts.turbo`` is False (the stepwise engine).  The reference's
+    sharded engine is not ported (one card)."""
+    return core.vat_matrix_free(Xf, metric=meta.metric, form=opts.num_form,
+                                turbo=opts.turbo is not False)
+
+
+def _band_render(Xf: torch.Tensor, order: torch.Tensor, meta: ResultMeta,
+                 opts: RungOptions) -> TendencyResult:
+    """bigvat-style banded rendering of a full-n ordering.
+
+    m = sample_size representatives sit at the middle of m contiguous bands
+    of the ordering; their (m, m) matrix inherits band order, and
+    ``TendencyResult.image`` expands it by the band sizes, so the picture
+    shows all n points while only an (m, m) object exists.  The iVAT
+    companion runs along the representatives' own Prim order
+    (``_rep_ivat``).
+    """
+    n, m = meta.n, min(opts.sample_size, meta.n)
+    sizes, mids = _flash_groups(n, m)
+    dev = Xf.device
+    rep_idx = order.index_select(0, torch.as_tensor(mids, device=dev))
+    Rrep = kops.pairwise_dist(Xf.index_select(0, rep_idx),
+                              metric=meta.metric, form=opts.num_form)
+    iv = _rep_ivat(Rrep)
+    gid = torch.as_tensor(np.repeat(np.arange(m, dtype=np.int64), sizes),
+                          device=dev)
+    labels = torch.empty(n, dtype=torch.int64, device=dev)
+    labels[order] = gid
+    return TendencyResult(order=order, rstar=Rrep, ivat_image=iv,
+                          sample_idx=rep_idx, extension_labels=labels,
+                          group_sizes=torch.as_tensor(sizes, device=dev),
                           meta=meta)
+
+
+def _fit_flashvat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
+    """Flash-VAT: the exact full-n ordering without the (n, n) matrix, then
+    the banded render.  The points are cast to f32 first, so bf16 storage
+    reaches neither Prim kernel."""
+    Xf = data.float().contiguous()
+    res = _flash_order(Xf, meta, opts)
+    return _band_render(Xf, res.order, meta, opts)
 
 
 register(Rung(
@@ -187,3 +277,8 @@ register(Rung(
     name="ivat", fit=_fit_ivat, supports_precomputed=True,
     auto_threshold=None,
     description="exact VAT + geodesic (iVAT) image; opt-in"))
+register(Rung(
+    name="flashvat", fit=_fit_flashvat, supports_precomputed=False,
+    auto_threshold=MEDIUM_N,
+    description="matrix-free exact VAT (Flash-VAT): persistent Prim kernel, "
+                "O(n·d) memory, no (n, n) object"))

@@ -69,6 +69,8 @@ class ResultMeta:
       device: the device the fit ran on ("cuda", "cuda:0", "cpu").  On a
         CUDA device every kernel of the fit was the CUDA kernel; on the
         CPU every one was its plain PyTorch version.
+      sample_size: representatives the banded render draws (flashvat's
+        m); the facade's ``sample_size``.
       approx: the approx rung's error report; always None until that rung
         is ported.
       numerics: the numerics shield's plan for this fit
@@ -82,6 +84,7 @@ class ResultMeta:
     n: int = 0
     seed: int = 0
     device: str = "cuda"
+    sample_size: int | None = None
     approx: None = None
     numerics: NumericsReport | None = None
 
@@ -106,19 +109,25 @@ class TendencyResult:
     """What every rung returns: ordering + images, one shape.
 
     Attributes:
-      order: (n,) int64 VAT ordering.
-      rstar: (n, n) reordered dissimilarity image.
-      ivat_image: geodesic (iVAT) image where the rung computed one (ivat),
-        else None; ``image(use_ivat=True)`` derives it on demand from
-        ``rstar`` when absent.
+      order: (n,) int64 VAT ordering of all n points.
+      rstar: reordered dissimilarity image — (n, n) for vat/ivat, the
+        (m, m) matrix of the representatives in band order for flashvat.
+      ivat_image: geodesic (iVAT) image where the rung computed one (ivat,
+        flashvat), else None; ``image(use_ivat=True)`` derives it on demand
+        from ``rstar`` when absent.
+      sample_idx: dataset rows of the representatives (flashvat), else
+        None.
+      extension_labels: (n,) band id of every point (flashvat), else None.
       meta: static fit metadata (method, metric, n, seed, device, ...).
-      group_sizes: per-prototype group counts of a banded render; None for
-        vat/ivat.
+      group_sizes: (m,) points per band of a banded render (flashvat);
+        None for vat/ivat.
     """
 
     order: torch.Tensor
     rstar: torch.Tensor
     ivat_image: torch.Tensor | None
+    sample_idx: torch.Tensor | None
+    extension_labels: torch.Tensor | None
     meta: ResultMeta
     group_sizes: torch.Tensor | None = None
 
@@ -127,8 +136,9 @@ class TendencyResult:
         return self.meta.n
 
     @classmethod
-    def from_arrays(cls, order, rstar, ivat_image, meta: ResultMeta
-                    ) -> "TendencyResult":
+    def from_arrays(cls, order, rstar, ivat_image, meta: ResultMeta, *,
+                    sample_idx=None, extension_labels=None,
+                    group_sizes=None) -> "TendencyResult":
         """A result from host arrays — e.g. the fields of a reference
         ``TendencyResult`` as numpy arrays — placed on ``meta.device``, so
         ``image()`` and ``assess()`` can be run on a fit made elsewhere."""
@@ -137,7 +147,10 @@ class TendencyResult:
                 np.asarray(a), dtype=dtype, device=meta.device)
         return cls(order=put(order, torch.int64),
                    rstar=put(rstar, torch.float32),
-                   ivat_image=put(ivat_image, torch.float32), meta=meta)
+                   ivat_image=put(ivat_image, torch.float32),
+                   sample_idx=put(sample_idx, torch.int64),
+                   extension_labels=put(extension_labels, torch.int64),
+                   group_sizes=put(group_sizes, torch.int64), meta=meta)
 
     def image(self, *, resolution: int = 256,
               use_ivat: bool | None = None) -> np.ndarray:

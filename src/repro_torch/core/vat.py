@@ -8,6 +8,11 @@ The three stages of the paper, as in ``repro/core/vat.py``:
                                 tensors, one masked-argmin kernel per step
   3. matrix reordering       -> two gathers, ``reorder``
 
+and the matrix-free (Flash-VAT) ordering of the ``flashvat`` rung,
+``vat_matrix_free``: a streamed seed scan through the pairwise kernel, then
+the whole Prim traversal without the (n, n) matrix — the persistent kernel
+(``turbo=True``) or one fused step kernel per vertex (``turbo=False``).
+
 Everything stays on the input's device.  The Prim loop never reads a value
 back to the host: the selected vertex is a 0-d device tensor, rows are
 taken with ``index_select``, so n - 1 steps enqueue without a sync.
@@ -19,12 +24,18 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.prim_persist import DEFAULT_BLOCK
 
 
 class VATResult(NamedTuple):
     rstar: torch.Tensor   # (n, n) reordered dissimilarity matrix
     order: torch.Tensor   # (n,) int64 permutation
     dist: torch.Tensor    # (n, n) original dissimilarity matrix
+
+
+class FlashVATResult(NamedTuple):
+    order: torch.Tensor   # (n,) int64 exact VAT visit order
+    edges: torch.Tensor   # (n,) f32 MST edge weight admitting each vertex
 
 
 def vat_order(R: torch.Tensor, *,
@@ -96,6 +107,130 @@ def vat_from_dist(R: torch.Tensor) -> VATResult:
     """
     order = vat_order(R)
     return VATResult(rstar=reorder(R, order), order=order, dist=R)
+
+
+# ------------------------------------------------------------------------
+# Flash-VAT: the matrix-free Prim ordering — exact VAT at O(n·d) memory.
+# ------------------------------------------------------------------------
+
+#: Largest (rows, columns) block of the seed scan: 64 MiB of f32 output, so
+#: n = 50,000 takes 25 x 7 = 175 pairwise launches.
+SEED_BLOCK = (2_048, 8_192)
+
+
+def _split(n: int, most: int) -> int:
+    """Block length for n lanes: at least two blocks (so a block never
+    spans all n), none longer than ``most``, all about even."""
+    parts = max(2, -(-n // most))
+    return -(-n // parts)
+
+
+def _streamed_seed_pivot(Xf: torch.Tensor, *, metric: str,
+                         form: str = "gram") -> torch.Tensor:
+    """VAT's seed i0 = argmax_i max_j R[i, j], without forming R.
+
+    Blocks of R come from ``kernels.ops.pairwise_dist(xb, yb)`` — two
+    operands, each shorter than n — with the diagonal masked to 0, as in
+    the materialized matrix, and are reduced to row maxima on the spot.
+    Every entry depends only on its own pair and the max is exact, so any
+    blocking gives the same row maxima, and the seed equals ``vat_order``'s
+    on the materialized matrix.
+
+    Returns:
+      0-d int64 tensor on Xf's device (the first index wins ties); no
+      host sync.
+    """
+    n = Xf.shape[0]
+    if n == 1:
+        return torch.zeros((), dtype=torch.int64, device=Xf.device)
+    br, bc = _split(n, SEED_BLOCK[0]), _split(n, SEED_BLOCK[1])
+    rowmax = torch.empty(n, dtype=torch.float32, device=Xf.device)
+    for r0 in range(0, n, br):
+        r1 = min(n, r0 + br)
+        rm = None
+        for c0 in range(0, n, bc):
+            c1 = min(n, c0 + bc)
+            T = kops.pairwise_dist(Xf[r0:r1], Xf[c0:c1], metric=metric,
+                                   form=form)
+            lo, hi = max(r0, c0), min(r1, c1)
+            if lo < hi:   # the block holds part of the diagonal
+                diag = torch.arange(lo, hi, device=Xf.device)
+                T[diag - r0, diag - c0] = 0.0
+            bm = torch.amax(T, dim=1)
+            rm = bm if rm is None else torch.maximum(rm, bm)
+        rowmax[r0:r1] = rm
+    return torch.argmax(rowmax)
+
+
+def _prim_stream_order(Xf: torch.Tensor, aux: torch.Tensor,
+                       i0: torch.Tensor, *, metric: str,
+                       form: str) -> FlashVATResult:
+    """n - 1 fused Prim steps from seed i0 (the stepwise engine).
+
+    The frontier starts at +inf, the seed is selected; each step folds the
+    last pivot's row and picks the next vertex.  Every index stays a device
+    tensor, so the loop enqueues without a host sync.
+    """
+    n = Xf.shape[0]
+    dev = Xf.device
+    q = i0.view(1)
+    mind = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    sel = torch.zeros(n, dtype=torch.bool, device=dev)
+    sel.index_fill_(0, q, True)
+    order = torch.zeros(n, dtype=torch.int64, device=dev)
+    order[0:1] = q
+    edges = torch.zeros(n, dtype=torch.float32, device=dev)
+    for t in range(1, n):
+        mind, ev, nq = kops.prim_stream_step(Xf, aux, q, mind, sel,
+                                             metric=metric, form=form)
+        q = nq.view(1)
+        sel.index_fill_(0, q, True)
+        order[t:t + 1] = q
+        edges[t:t + 1] = ev.view(1)
+    return FlashVATResult(order=order, edges=edges)
+
+
+def vat_matrix_free(X: torch.Tensor, *, metric: str = "euclidean",
+                    form: str = "gram", block: int = DEFAULT_BLOCK,
+                    turbo: bool = True) -> FlashVATResult:
+    """Exact VAT ordering of X without ever forming the (n, n) matrix.
+
+    The seed comes from a streamed row-max scan (``_streamed_seed_pivot``),
+    then the Prim traversal runs through one of two engines:
+
+      * ``turbo=True`` (default): ``kernels.ops.prim_persist`` — on the
+        card one launch of the persistent kernel, all n - 1 steps, tiles
+        folded lazily;
+      * ``turbo=False``: n - 1 launches of the fused step kernel
+        (``kernels.ops.prim_stream_step``).
+
+    Both give the order and edges of ``vat_order`` on the materialized
+    matrix of the same device bit for bit: the same per-pair code, exact
+    f32 min folds, the same first-index tie rule and seed rule.  Memory is
+    O(n·d) for X plus O(n) of state, and the seed scan's blocks
+    (``SEED_BLOCK``).
+
+    Args:
+      X: (n, d) float — data points (cast to f32).
+      metric: one of ``kernels.ref.METRICS``.
+      form: "gram" (default) or "direct" — the tile form of the seed scan
+        and the traversal alike.
+      block: tile length of the persistent kernel; it changes its work,
+        never its result.
+      turbo: persistent engine (True) or stepwise (False).
+
+    Returns:
+      FlashVATResult — ``order`` (n,) int64 and ``edges`` (n,) f32, the
+      MST edge weight that admitted each vertex (edges[0] = 0).
+    """
+    Xf = X.float().contiguous()
+    aux = kops.metric_aux(Xf, metric=metric)
+    i0 = _streamed_seed_pivot(Xf, metric=metric, form=form)
+    if turbo:
+        order, edges = kops.prim_persist(Xf, aux, i0, metric=metric,
+                                         form=form, block=block)
+        return FlashVATResult(order=order, edges=edges)
+    return _prim_stream_order(Xf, aux, i0, metric=metric, form=form)
 
 
 def block_structure_score(rstar: torch.Tensor,

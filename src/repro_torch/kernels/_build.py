@@ -42,16 +42,30 @@ SIGNATURES = {
     "repro_cuda_error_string": (_I,),
     # rstar, out, b, n, stream
     "repro_ivat_from_vat": (_P, _P, _I, _I, _P),
+    # X, n, d, take_sqrt, is_bf16, out, stream
+    "repro_metric_aux": (_P, _I, _I, _I, _I, _P, _P),
+    # X, aux, i0, cent, rad, slack, margin, n, d, block, kind, prune,
+    # mind, tmin, pend, nfold, live, order, edges, stats, stream
+    "repro_prim_persist": (_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I,
+                           _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # X, aux, q, mind, selected, n, d, kind, partial, out, stream
+    "repro_prim_stream_step": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "repro_prim_stream_lanes": (),
 }
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts``.
-LAUNCHES = {"pairwise_dist": 0, "masked_argmin": 0, "ivat_from_vat": 0}
+LAUNCHES = {"pairwise_dist": 0, "masked_argmin": 0, "ivat_from_vat": 0,
+            "prim_persist": 0, "prim_stream_step": 0}
 
 _LIB = None
 
 #: Lanes one CTA of ``repro_masked_argmin`` reduces (a compile-time constant
 #: of prim_update.cu), read once when ``library()`` loads the library.
 MASKED_ARGMIN_CHUNK = 0
+
+#: Lanes one CTA of ``repro_prim_stream_step`` covers (prim_stream.cu), read
+#: once with the library.
+PRIM_STREAM_LANES = 0
 
 
 def reset_launch_counts() -> None:
@@ -140,7 +154,7 @@ def build() -> pathlib.Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), argtypes set."""
-    global _LIB, MASKED_ARGMIN_CHUNK
+    global _LIB, MASKED_ARGMIN_CHUNK, PRIM_STREAM_LANES
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
@@ -149,6 +163,7 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         MASKED_ARGMIN_CHUNK = lib.repro_masked_argmin_chunk()
+        PRIM_STREAM_LANES = lib.repro_prim_stream_lanes()
         _LIB = lib
     return _LIB
 

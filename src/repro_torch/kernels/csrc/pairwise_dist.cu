@@ -27,13 +27,18 @@
 // and masks the ragged n, m and d edges on load (zero features are the
 // identity of every reduction here) and on store; nothing is padded in
 // device memory.  Row norms come from a small pre-pass in this file (one
-// warp per row).  Exact symmetry when Y is X: every entry sums its features
-// in one fixed ascending order with fmaf, and fmaf(x, y, a) == fmaf(y, x, a),
+// warp per row), which also serves the Prim kernels their aux vector
+// (repro_metric_aux).  The per-pair arithmetic lives in dissim.cuh, shared
+// with prim_persist.cu and prim_stream.cu: every entry sums its features in
+// one fixed ascending order with fmaf, and fmaf(x, y, a) == fmaf(y, x, a),
 // (x - y)^2 == (y - x)^2 and |x - y| == |y - x| bit for bit, so
-// R[i, j] == R[j, i] whichever tile computes it.  Inputs are f32 or bf16
+// R[i, j] == R[j, i] whichever tile computes it, and a matrix-free Prim row
+// equals the matrix's row bit for bit.  Inputs are f32 or bf16
 // storage; accumulation is always f32 and the output is f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dissim.cuh"
 
 namespace {
 
@@ -45,20 +50,7 @@ constexpr int TN = 4;         // accumulator columns per thread
 constexpr int THREADS = 256;  // (BM / TM) * (BN / TN)
 constexpr int PAD = 4;        // keeps float4 alignment, spreads banks
 
-// Metric kinds, as numbered by kernels/pairwise_dist.py::_KINDS.
-enum Kind {
-    GRAM_SQEUCLIDEAN = 0,
-    GRAM_EUCLIDEAN = 1,
-    COSINE = 2,
-    DIRECT_SQEUCLIDEAN = 3,
-    DIRECT_EUCLIDEAN = 4,
-    MANHATTAN = 5,
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-}
+using namespace repro_torch;  // Kind, to_f32, accumulate, finish
 
 // One warp per row: out[i] = sum_k X[i, k]^2 (or its sqrt for cosine).
 template <typename T>
@@ -67,40 +59,9 @@ __global__ void row_norms_kernel(const T* __restrict__ X, int n, int d,
     const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (row >= n) return;  // warp-uniform
-    const T* x = X + static_cast<size_t>(row) * d;
-    float s = 0.0f;
-    for (int k = lane; k < d; k += 32) {
-        const float v = to_f32(x[k]);
-        s = fmaf(v, v, s);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) out[row] = take_sqrt ? sqrtf(s) : s;
-}
-
-template <int KIND>
-__device__ __forceinline__ float accumulate(float acc, float x, float y) {
-    if (KIND == MANHATTAN) return acc + fabsf(x - y);
-    if (KIND == DIRECT_SQEUCLIDEAN || KIND == DIRECT_EUCLIDEAN) {
-        const float diff = x - y;
-        return fmaf(diff, diff, acc);
-    }
-    return fmaf(x, y, acc);  // gram forms and cosine: the cross term
-}
-
-template <int KIND>
-__device__ __forceinline__ float finish(float acc, float nx, float ny) {
-    if (KIND == GRAM_SQEUCLIDEAN || KIND == GRAM_EUCLIDEAN) {
-        const float sq = fmaxf(fmaf(-2.0f, acc, nx + ny), 0.0f);
-        return KIND == GRAM_EUCLIDEAN ? sqrtf(sq) : sq;
-    }
-    if (KIND == COSINE) {
-        const float denom = fmaxf(nx * ny, 1e-12f);
-        return fminf(fmaxf(1.0f - acc / denom, 0.0f), 2.0f);
-    }
-    if (KIND == DIRECT_EUCLIDEAN) return sqrtf(acc);
-    return acc;
+    const float s = warp_row_norm(X + static_cast<size_t>(row) * d, d, lane,
+                                  take_sqrt);
+    if (lane == 0) out[row] = s;
 }
 
 template <typename T, int KIND>
@@ -254,5 +215,17 @@ extern "C" int repro_pairwise_dist(const void* X, const void* Y,
     const cudaError_t err = is_bf16
         ? run<__nv_bfloat16>(X, Y, norms_x, norms_y, out, n, m, d, kind, y_is_x, s)
         : run<float>(X, Y, norms_x, norms_y, out, n, m, d, kind, y_is_x, s);
+    return static_cast<int>(err);
+}
+
+// aux (n,) f32 of X (n, d) for the Prim kernels, with the pre-pass above:
+// squared row norms (take_sqrt = 0: euclidean, sqeuclidean) or norms
+// (take_sqrt = 1: cosine), the very values the gram and cosine tiles use.
+extern "C" int repro_metric_aux(const void* X, int n, int d, int take_sqrt,
+                                int is_bf16, float* out, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err = is_bf16
+        ? launch_norms<__nv_bfloat16>(X, n, d, take_sqrt, out, s)
+        : launch_norms<float>(X, n, d, take_sqrt, out, s);
     return static_cast<int>(err);
 }

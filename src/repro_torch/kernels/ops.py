@@ -1,8 +1,9 @@
 """Public wrappers of the kernels package: the device decides the path.
 
 A CUDA tensor launches the hand-written CUDA kernel (``pairwise_dist.py``,
-``prim_update.py``, ``ivat_update.py``); a CPU tensor takes the plain
-PyTorch version in ``ref.py``.  There is no other switch and no fallback: a
+``prim_update.py``, ``ivat_update.py``, ``prim_persist.py``,
+``prim_stream.py``); a CPU tensor takes the plain PyTorch version in
+``ref.py``.  There is no other switch and no fallback: a
 CUDA tensor the kernel refuses raises.  ``launch_counts()`` reads how often
 each kernel was launched since ``reset_launch_counts()``.
 """
@@ -13,11 +14,15 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
-from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
+                                              pairwise_dist_cuda)
+from repro_torch.kernels.prim_persist import DEFAULT_BLOCK, prim_persist_cuda
+from repro_torch.kernels.prim_stream import prim_stream_step_cuda
 from repro_torch.kernels.prim_update import masked_argmin_cuda
 
-__all__ = ["pairwise_dist", "masked_argmin", "ivat_from_vat",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["pairwise_dist", "masked_argmin", "ivat_from_vat", "metric_aux",
+           "prim_persist", "prim_stream_step", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _dispatch_site(op: str, device: torch.device) -> None:
@@ -78,3 +83,52 @@ def ivat_from_vat(rstar: torch.Tensor) -> torch.Tensor:
     if rstar.dim() == 3:
         return torch.stack([ref.ivat_from_vat_ref(R) for R in rstar])
     return ref.ivat_from_vat_ref(rstar)
+
+
+def metric_aux(X: torch.Tensor, *, metric: str = "euclidean") -> torch.Tensor:
+    """(n,) f32 aux vector of X for the Prim paths (``ref.metric_aux_ref``'s
+    values); on the card the pairwise kernel's own row norms, so a
+    matrix-free row equals the materialized row bit for bit."""
+    if X.is_cuda:
+        return metric_aux_cuda(X, metric=metric)
+    return ref.metric_aux_ref(X, metric=metric)
+
+
+def prim_persist(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor, *,
+                 metric: str = "euclidean", form: str = "gram",
+                 block: int = DEFAULT_BLOCK, prune: bool = True):
+    """The whole exact Prim traversal from seed ``i0``.
+
+    On the card: the persistent kernel, one launch, lazily pruned tiles of
+    ``block`` lanes.  On the CPU: ``ref.prim_persist_ref``, the eager
+    schedule; ``block`` and ``prune`` change the work, never a bit of the
+    result, so the plain version ignores them.
+
+    Returns:
+      (order (n,) int64, edges (n,) f32) on X's device.
+    """
+    _dispatch_site("prim_persist", X.device)
+    if X.is_cuda:
+        order, edges, _ = prim_persist_cuda(X, aux, i0, metric=metric,
+                                            form=form, block=block,
+                                            prune=prune)
+        return order, edges
+    return ref.prim_persist_ref(X, aux, i0, metric=metric, form=form)
+
+
+def prim_stream_step(X: torch.Tensor, aux: torch.Tensor, q: torch.Tensor,
+                     mind: torch.Tensor, selected: torch.Tensor, *,
+                     metric: str = "euclidean", form: str = "gram"):
+    """One matrix-free Prim step: fold pivot q's row into ``mind``, then the
+    masked first-index (min, argmin).
+
+    Returns:
+      (new_mind (n,) f32, edge f32 0-d, next int64 0-d).  On the card
+      ``new_mind`` is ``mind`` updated in place; on the CPU a new tensor.
+    """
+    _dispatch_site("prim_stream_step", X.device)
+    if X.is_cuda:
+        return prim_stream_step_cuda(X, aux, q, mind, selected,
+                                     metric=metric, form=form)
+    return ref.prim_stream_step_ref(X, aux, q, mind, selected, metric=metric,
+                                    form=form)

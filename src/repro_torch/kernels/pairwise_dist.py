@@ -88,3 +88,30 @@ def pairwise_dist_cuda(X: torch.Tensor, Y: torch.Tensor | None = None, *,
     _build.check(err, "pairwise_dist")
     _build.LAUNCHES["pairwise_dist"] += 1
     return out
+
+
+def metric_aux_cuda(X: torch.Tensor, *, metric: str) -> torch.Tensor:
+    """(n,) f32 aux vector of X for the Prim kernels, on the card.
+
+    Squared row norms for euclidean/sqeuclidean, norms for cosine, zeros
+    for manhattan — the values ``kernels.ref.metric_aux_ref`` gives, but
+    computed by the row-norm pre-pass of ``csrc/pairwise_dist.cu``, the
+    very norms the gram and cosine tiles use.  That is what makes a
+    matrix-free Prim row equal the materialized matrix's row bit for bit.
+    It is that kernel's pre-pass and counts no launch of its own.
+    """
+    check_metric(metric)
+    check_cuda(X, "X")
+    if X.dtype not in _DTYPES or X.dim() != 2 or 0 in X.shape:
+        raise ValueError(f"want a non-empty (n, d) float32 or bfloat16 X, "
+                         f"got {X.dtype} {tuple(X.shape)}")
+    n, d = X.shape
+    if metric == "manhattan":
+        return torch.zeros(n, dtype=torch.float32, device=X.device)
+    out = torch.empty(n, dtype=torch.float32, device=X.device)
+    err = _build.library().repro_metric_aux(
+        X.data_ptr(), n, d, int(metric == "cosine"),
+        int(X.dtype == torch.bfloat16), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "metric_aux")
+    return out

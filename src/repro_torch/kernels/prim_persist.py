@@ -1,0 +1,139 @@
+"""CUDA kernel: the whole exact Prim traversal in one launch, lazily pruned.
+
+The port of ``repro/kernels/prim_persist.py::prim_persist_pallas``, the
+flashvat rung's default ("Turbo") engine.  The kernel is
+``csrc/prim_persist.cu`` (its opening note gives the schedule, the bound
+and the design); this module computes the per-tile pruning geometry in
+plain PyTorch (``persist_tile_bounds``), the pruning slack, allocates the
+state, and launches on the current stream.
+
+The reference's VMEM seam (``persist_supported``, ``persist_state_bytes``,
+``PERSIST_VMEM_BUDGET``) is a TPU rule and has no counterpart: the state
+lives in global memory, so a CUDA tensor of any n takes the kernel.  Nor is
+anything padded in memory (the reference's ``pad_points``): the kernel
+masks the ragged last tile itself.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.pairwise_dist import _KINDS, check_cuda
+from repro_torch.kernels.ref import check_metric
+from repro_torch.numerics.condition import _F32_EPS, check_form, lb_slack_ulps
+
+#: Lanes of X per tile (the reference's default too).  It sets the number
+#: of tiles, and with it which tiles a step folds and the kernel's stats;
+#: no bit of order or edges.
+DEFAULT_BLOCK = 1024
+
+#: Relative safety factor on every pruning lower bound (the reference's):
+#: the direct-form bound math carries a few ulp of f32 rounding; shrinking
+#: it 1e-3 keeps it a true lower bound with ~100x margin.
+_LB_MARGIN = 0.999
+
+
+def persist_tile_bounds(X: torch.Tensor, *, metric: str, block: int):
+    """Per-tile (centroid, radius) for the pruning bounds.
+
+    Args:
+      X: (n, d) float32 — the points (unpadded).
+      metric: one of ``kernels.ref.METRICS``.
+      block: tile length; tile T holds lanes [T·block, (T+1)·block) ∩ [0, n).
+
+    Returns:
+      (cent (nblk, d) f32, rad (nblk,) f32): each tile's mean point and its
+      radius in the bound's geometry — euclidean for euclidean/sqeuclidean,
+      L1 for manhattan, +inf for cosine (no triangle inequality, so no
+      pruning).  Both in the direct difference form, so their errors are
+      relative and ``_LB_MARGIN`` covers them.
+    """
+    check_metric(metric)
+    n, d = X.shape
+    nblk = -(-n // block)
+    Xf = X.float()
+    tiles = torch.nn.functional.pad(Xf, (0, 0, 0, nblk * block - n)).view(
+        nblk, block, d)
+    real = (torch.arange(nblk * block, device=X.device) < n).view(nblk, block)
+    cnt = torch.clamp_min(real.sum(dim=1), 1).float()
+    cent = torch.sum(tiles, dim=1) / cnt[:, None]   # padded rows are zeros
+    if metric == "cosine":
+        rad = torch.full((nblk,), torch.inf, device=X.device)
+    else:
+        diff = tiles - cent[:, None, :]
+        if metric == "manhattan":
+            dist = torch.sum(torch.abs(diff), dim=-1)
+        else:
+            dist = torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1),
+                                              0.0))
+        rad = torch.amax(torch.where(real, dist, -torch.inf), dim=1)
+    return cent.contiguous(), torch.clamp_min(rad, 0.0).contiguous()
+
+
+def prim_persist_cuda(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor,
+                      *, metric: str = "euclidean", form: str = "gram",
+                      block: int = DEFAULT_BLOCK, prune: bool = True):
+    """Exact VAT ordering of X in one launch, on the card.
+
+    Args:
+      X: (n, d) contiguous float32 CUDA tensor, n >= 1.
+      aux: (n,) float32 — ``kernels.ops.metric_aux`` of X (on the card the
+        pairwise kernel's row norms, so rows match its matrix bit for bit).
+      i0: integer CUDA tensor of one element — the seed vertex; the kernel
+        reads it, so nothing waits on the host.
+      metric: one of ``kernels.ref.METRICS``.
+      form: "gram" or "direct" — the tile form; the pruning slack is
+        ``lb_slack_ulps(form)·eps·max(aux)`` in squared units.
+      block: tile length (>= 1).
+      prune: lazy tile pruning; False folds every live tile every step —
+        the same order and edges bit for bit, more work.
+
+    Returns:
+      (order (n,) int64, edges (n,) f32, stats (3,) int64) — the visit
+      order, each visit's MST edge weight (edges[0] = 0), and the work done:
+      [tile folds, pivot-row folds, pair evaluations], where a pair
+      evaluation is one (pivot, unselected lane) dissimilarity.  The eager
+      schedule folds at most (n - 1)·nblk tiles, pruning fewer; both
+      evaluate exactly n·(n - 1)/2 pairs, each lane against every earlier
+      pivot once.
+    """
+    check_metric(metric)
+    check_form(form)
+    for t, name in ((X, "X"), (aux, "aux"), (i0, "i0")):
+        check_cuda(t, name)
+    if X.dtype != torch.float32 or X.dim() != 2 or 0 in X.shape:
+        raise ValueError(f"want a non-empty (n, d) float32 X, got {X.dtype} "
+                         f"{tuple(X.shape)}")
+    n, d = X.shape
+    if aux.dtype != torch.float32 or aux.shape != (n,):
+        raise ValueError(f"want (n,) float32 aux, got {aux.dtype} "
+                         f"{tuple(aux.shape)}")
+    if i0.numel() != 1 or i0.dtype.is_floating_point:
+        raise ValueError(f"i0 must be one integer, got {i0.dtype} "
+                         f"{tuple(i0.shape)}")
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    dev = X.device
+    i0 = i0.to(torch.int64).reshape(1).contiguous()
+    nblk = -(-n // block)
+    cent, rad = persist_tile_bounds(X, metric=metric, block=block)
+    slack = (lb_slack_ulps(form) * _F32_EPS) * torch.amax(aux).view(1)
+    # kernel state, freed on return while the kernel may still run: the
+    # caching allocator hands it out again only to later work on this stream
+    mind = torch.empty(n, dtype=torch.float32, device=dev)
+    tmin_pend = torch.empty((2, nblk), dtype=torch.float32, device=dev)
+    nfold_live = torch.empty((2, nblk), dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int64, device=dev)
+    edges = torch.empty(n, dtype=torch.float32, device=dev)
+    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    err = _build.library().repro_prim_persist(
+        X.data_ptr(), aux.data_ptr(), i0.data_ptr(), cent.data_ptr(),
+        rad.data_ptr(), slack.data_ptr(), _LB_MARGIN, n, d, block,
+        _KINDS[(metric, form)], int(prune), mind.data_ptr(),
+        tmin_pend[0].data_ptr(), tmin_pend[1].data_ptr(),
+        nfold_live[0].data_ptr(), nfold_live[1].data_ptr(), order.data_ptr(),
+        edges.data_ptr(), stats.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "prim_persist")
+    _build.LAUNCHES["prim_persist"] += 1
+    return order, edges, stats

@@ -1,0 +1,71 @@
+"""CUDA kernel: one fused matrix-free Prim step, the pivot given by index.
+
+The port of ``repro/kernels/prim_stream.py::prim_stream_step_pallas``, the
+flashvat rung's stepwise engine (``turbo=False``).  The kernel is
+``csrc/prim_stream.cu``: every lane folds the pivot's row into the frontier
+(in place), and a packed-key reduction gives the masked first-index (min,
+argmin).  The pivot comes in as a device index and the pair goes out into a
+device buffer, so a loop of steps never waits on the host.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.pairwise_dist import _KINDS, check_cuda
+from repro_torch.kernels.ref import check_metric
+from repro_torch.numerics.condition import check_form
+
+
+def prim_stream_step_cuda(X: torch.Tensor, aux: torch.Tensor,
+                          q: torch.Tensor, mind: torch.Tensor,
+                          selected: torch.Tensor, *,
+                          metric: str = "euclidean", form: str = "gram"):
+    """One Prim step on the card: ``mind = min(mind, row q)``, in place,
+    then the first-index (min, argmin) of mind over unselected lanes.
+
+    Args:
+      X: (n, d) contiguous float32 CUDA tensor.
+      aux: (n,) float32 — ``kernels.ops.metric_aux`` of X.
+      q: integer CUDA tensor of one element — the pivot.
+      mind: (n,) float32 frontier, updated in place.
+      selected: (n,) bool — True lanes are excluded from the argmin.
+      metric: one of ``kernels.ref.METRICS``.
+      form: "gram" or "direct".
+
+    Returns:
+      (mind, edge f32 0-d, next int64 0-d) — ``mind`` is the argument,
+      updated; edge and next are views of one 2-element device buffer.
+    """
+    check_metric(metric)
+    check_form(form)
+    for t, name in ((X, "X"), (aux, "aux"), (q, "q"), (mind, "mind"),
+                    (selected, "selected")):
+        check_cuda(t, name)
+    if X.dtype != torch.float32 or X.dim() != 2 or 0 in X.shape:
+        raise ValueError(f"want a non-empty (n, d) float32 X, got {X.dtype} "
+                         f"{tuple(X.shape)}")
+    n, d = X.shape
+    if aux.dtype != torch.float32 or mind.dtype != torch.float32 \
+            or selected.dtype != torch.bool \
+            or not aux.shape == mind.shape == selected.shape == (n,):
+        raise ValueError("want (n,) float32 aux and mind and (n,) bool "
+                         f"selected for n = {n}, got {aux.dtype} "
+                         f"{tuple(aux.shape)}, {mind.dtype} "
+                         f"{tuple(mind.shape)}, {selected.dtype} "
+                         f"{tuple(selected.shape)}")
+    if q.numel() != 1 or q.dtype != torch.int64:
+        raise ValueError(f"q must be one int64, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    lib = _build.library()
+    lanes = _build.PRIM_STREAM_LANES
+    out = torch.empty(2, dtype=torch.int64, device=X.device)
+    partial = (torch.empty(-(-n // lanes), dtype=torch.int64, device=X.device)
+               if n > lanes else out)
+    err = lib.repro_prim_stream_step(
+        X.data_ptr(), aux.data_ptr(), q.data_ptr(), mind.data_ptr(),
+        selected.data_ptr(), n, d, _KINDS[(metric, form)], partial.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "prim_stream_step")
+    _build.LAUNCHES["prim_stream_step"] += 1
+    return mind, out[1:].view(torch.float32)[0], out[0]

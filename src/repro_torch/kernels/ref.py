@@ -73,6 +73,143 @@ def pairwise_dissim_ref(X: torch.Tensor, Y: torch.Tensor | None = None, *,
     return torch.clamp(1.0 - cross / denom, 0.0, 2.0)
 
 
+def metric_aux_ref(X: torch.Tensor, *, metric: str = "euclidean"
+                   ) -> torch.Tensor:
+    """Per-point auxiliary vector the Gram-form pivot row needs.
+
+    Args:
+      X: (n, d) float — data points.
+      metric: one of ``METRICS``.
+
+    Returns:
+      (n,) float32 — squared norms for euclidean/sqeuclidean (under either
+      form: the pruning slack of the persistent engine reads ``max(aux)``),
+      norms for cosine, zeros for manhattan.
+    """
+    check_metric(metric)
+    Xf = X.float()
+    if metric in ("euclidean", "sqeuclidean"):
+        return torch.sum(Xf * Xf, dim=-1)
+    if metric == "cosine":
+        return torch.sqrt(torch.sum(Xf * Xf, dim=-1))
+    return torch.zeros(Xf.shape[:-1], dtype=torch.float32, device=X.device)
+
+
+def _as_index(q, device) -> torch.Tensor:
+    """A vertex index (int or integer tensor) as a 1-element int64 tensor."""
+    return torch.as_tensor(q, dtype=torch.int64, device=device).view(1)
+
+
+def pivot_row_ref(X: torch.Tensor, aux: torch.Tensor, q, *,
+                  metric: str = "euclidean",
+                  form: str = "gram") -> torch.Tensor:
+    """Row q of the pairwise dissimilarity matrix, never materializing it.
+
+    The same decomposition per ``form`` as ``pairwise_dissim_ref``.
+
+    Args:
+      X: (n, d) float — data points.
+      aux: (n,) float32 — ``metric_aux_ref(X, metric=metric)``.
+      q: the pivot row index (int or integer tensor; a tensor stays on its
+        device, so no host sync).
+      metric: one of ``METRICS``.
+      form: "gram" (default) or "direct".
+
+    Returns:
+      (n,) float32 — dissimilarity of every point to point q; the
+      self-entry [q] is computed, not forced to zero.
+    """
+    check_metric(metric)
+    check_form(form)
+    Xf = X.float()
+    qi = _as_index(q, X.device)
+    xq = Xf.index_select(0, qi)[0]
+    if metric == "manhattan":
+        return torch.sum(torch.abs(Xf - xq[None, :]), dim=-1)
+    if form == "direct" and metric != "cosine":
+        diff = Xf - xq[None, :]
+        sq = torch.sum(diff * diff, dim=-1)
+        return torch.sqrt(sq) if metric == "euclidean" else sq
+    cross = Xf @ xq
+    aq = aux.index_select(0, qi)[0]
+    if metric == "cosine":
+        denom = torch.clamp_min(aux * aq, 1e-12)
+        return torch.clamp(1.0 - cross / denom, 0.0, 2.0)
+    sq = torch.clamp_min(aux + aq - 2.0 * cross, 0.0)
+    return torch.sqrt(sq) if metric == "euclidean" else sq
+
+
+#: "No distance folded yet" sentinel of the persistent engine's in-band
+#: frontier (+inf = selected): the largest finite f32, so any real
+#: dissimilarity folds below it.
+UNSEEN = float(torch.finfo(torch.float32).max)
+
+
+def prim_persist_ref(X: torch.Tensor, aux: torch.Tensor, i0, *,
+                     metric: str = "euclidean", form: str = "gram"):
+    """The whole Prim traversal, eager: the persistent engine's plain
+    version.
+
+    Selected lanes live in-band as ``mind = +inf``; unvisited lanes start
+    at ``UNSEEN``.  Each step folds the pivot's row into every lane that is
+    not +inf, takes the minimum and its first index (``torch.argmin``
+    returns the first minimal index), and marks the winner +inf.
+
+    Args:
+      X: (n, d) float — data points.
+      aux: (n,) float32 — ``metric_aux_ref`` of X.
+      i0: the seed vertex (int or integer tensor).
+      metric: one of ``METRICS``.
+      form: "gram" (default) or "direct".
+
+    Returns:
+      (order (n,) int64, edges (n,) float32) — the VAT visit order and each
+      visit's MST edge weight (edges[0] = 0).
+    """
+    check_metric(metric)
+    n = X.shape[0]
+    dev = X.device
+    q = _as_index(i0, dev)
+    mind = torch.full((n,), UNSEEN, dtype=torch.float32, device=dev)
+    mind.index_fill_(0, q, torch.inf)
+    order = torch.zeros(n, dtype=torch.int64, device=dev)
+    order[0:1] = q
+    edges = torch.zeros(n, dtype=torch.float32, device=dev)
+    for t in range(1, n):
+        row = pivot_row_ref(X, aux, q, metric=metric, form=form)
+        mind = torch.where(torch.isinf(mind), torch.inf,
+                           torch.minimum(mind, row))
+        q = torch.argmin(mind).view(1)
+        edges[t:t + 1] = mind.index_select(0, q)
+        mind.index_fill_(0, q, torch.inf)
+        order[t:t + 1] = q
+    return order, edges
+
+
+def prim_stream_step_ref(X: torch.Tensor, aux: torch.Tensor, q,
+                         mind: torch.Tensor, selected: torch.Tensor, *,
+                         metric: str = "euclidean", form: str = "gram"):
+    """One matrix-free Prim step: fold pivot q's row into the frontier,
+    then the masked first-index argmin over the updated frontier.
+
+    Args:
+      X: (n, d) float — data points.
+      aux: (n,) float32 — ``metric_aux_ref`` of X.
+      q: the pivot the previous step selected (int or integer tensor).
+      mind: (n,) float32 — frontier before folding in q's row.
+      selected: (n,) bool — True lanes are already visited (q included).
+      metric: one of ``METRICS``.
+      form: "gram" (default) or "direct".
+
+    Returns:
+      (new_mind (n,) f32, edge f32 0-d, next int64 0-d).
+    """
+    row = pivot_row_ref(X, aux, q, metric=metric, form=form)
+    new_mind = torch.minimum(mind, row)
+    edge, nxt = masked_argmin_ref(new_mind, selected)
+    return new_mind, edge, nxt
+
+
 def masked_argmin_ref(vals: torch.Tensor, mask: torch.Tensor):
     """(min value, argmin index) of vals where mask is False.
 

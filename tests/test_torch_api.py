@@ -115,8 +115,8 @@ def test_invalid_input_reasons_match_reference(case):
 
 
 def test_auto_above_small_n_names_the_missing_rung():
-    X = np.random.default_rng(0).normal(size=(registry.SMALL_N + 1, 2))
-    with pytest.raises(NotImplementedError, match="'flashvat'"):
+    X = np.random.default_rng(0).normal(size=(registry.MEDIUM_N + 1, 2))
+    with pytest.raises(NotImplementedError, match="'approx'"):
         repro_torch.FastVAT(device="cpu").fit(X.astype(np.float32))
     with pytest.raises(NotImplementedError, match="'approx'"):
         repro_torch.FastVAT(method="approx", device="cpu")

@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.vat import vat
-from repro_torch.kernels import ref
+from repro_torch import core
+from repro_torch.core.vat import _streamed_seed_pivot, vat, vat_order
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
-from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
+                                              pairwise_dist_cuda)
+from repro_torch.kernels.prim_persist import prim_persist_cuda
+from repro_torch.kernels.prim_stream import prim_stream_step_cuda
 from repro_torch.kernels.prim_update import masked_argmin_cuda
 
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -120,7 +124,9 @@ def test_cuda_fit_launches_every_kernel(cuda):
     fv = FastVAT(method="ivat").fit(X)
     assert _build.launch_counts() == {"pairwise_dist": 1,
                                       "masked_argmin": 199,
-                                      "ivat_from_vat": 1}
+                                      "ivat_from_vat": 1,
+                                      "prim_persist": 0,
+                                      "prim_stream_step": 0}
     assert fv.result.meta.device.startswith("cuda")
     assert fv.result.order.is_cuda and fv.result.ivat_image.is_cuda
     rep = fv.assess()
@@ -144,3 +150,166 @@ def test_cuda_fit_on_a_device_that_is_not_current(cuda):
     np.testing.assert_array_equal(fv.image(use_ivat=True),
                                   here.image(use_ivat=True))
     assert fv.assess().k_est == here.assess().k_est == 2
+
+
+# ------------------------------------------------------ the Prim kernels ----
+
+def _contig_blobs(n, d=3, k=4, seed=1, sep=40.0, offset=0.0):
+    """Clusters on adjacent indices, so tiles are coherent and pruning has
+    something to prune; ``offset`` moves them far from the origin."""
+    rng = np.random.default_rng(seed)
+    centers = sep * rng.normal(size=(k, d))
+    lab = np.sort(rng.integers(0, k, size=n))
+    return (centers[lab] + rng.normal(size=(n, d)) + offset).astype(
+        np.float32)
+
+
+def _frontier_minima(R, order):
+    """edges[t] of a Prim ordering read off the matrix: the least entry of
+    row order[t] over the earlier vertices."""
+    Rs = R.index_select(0, order).index_select(1, order)
+    n = R.shape[0]
+    earlier = torch.ones(n, n, dtype=torch.bool, device=R.device).tril(-1)
+    return torch.amin(torch.where(earlier, Rs, torch.inf)[1:], dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_prim_stream_step_against_plain(cuda, metric, form):
+    """The step kernel's frontier is the plain fold within the pairwise
+    tolerance, and its pair is the plain argmin of its own frontier, bit
+    for bit (several CTAs at n = 1,000)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    X = torch.randn(1000, 19, device=cuda, generator=gen)
+    aux = metric_aux_cuda(X, metric=metric)
+    mind = torch.rand(1000, device=cuda, generator=gen) * 4.0
+    sel = torch.rand(1000, device=cuda, generator=gen) < 0.3
+    q = torch.tensor(17, device=cuda)
+    want, _, _ = ref.prim_stream_step_ref(X, aux, q, mind.clone(), sel,
+                                          metric=metric, form=form)
+    got, ev, nq = prim_stream_step_cuda(X, aux, q, mind, sel, metric=metric,
+                                        form=form)
+    tol = _tolerance(metric, form, X, None, want)
+    assert float(torch.amax(torch.abs(got - want))) <= tol
+    pv, pi = ref.masked_argmin_ref(got, sel)
+    assert int(nq) == int(pi) and torch.equal(ev.view(1), pv.view(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 257, 1024])
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_flashvat_three_way_bitwise(cuda, metric, n):
+    """Persistent == stepwise == vat_order on the pairwise kernel's matrix,
+    order and edges bit for bit, and the edges are that matrix's frontier
+    minima."""
+    X = torch.randn(n, 3 + n % 5, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(n))
+    R = ops.pairwise_dist(X, metric=metric)
+    want = vat_order(R)
+    turbo = core.vat_matrix_free(X, metric=metric)
+    stepw = core.vat_matrix_free(X, metric=metric, turbo=False)
+    assert torch.equal(turbo.order, want)
+    assert torch.equal(stepw.order, want)
+    assert torch.equal(turbo.edges, stepw.edges)
+    assert torch.equal(turbo.edges[1:], _frontier_minima(R, want))
+    assert int(_streamed_seed_pivot(X, metric=metric)) == int(want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3100, 3101])
+def test_cuda_flashvat_wide_rows(cuda, d):
+    """Rows too wide to stage in shared memory (d > 3,070): the persistent
+    kernel reads pivot rows from global memory, float4 or not, and still
+    equals the stepwise engine and the materialized order."""
+    X = torch.randn(300, d, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(d))
+    want = vat_order(ops.pairwise_dist(X))
+    turbo = core.vat_matrix_free(X, block=64)
+    stepw = core.vat_matrix_free(X, turbo=False)
+    assert torch.equal(turbo.order, want) and torch.equal(stepw.order, want)
+    assert torch.equal(turbo.edges, stepw.edges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean", "manhattan"])
+def test_cuda_pruning_is_bitwise_sound_and_cuts_traffic(cuda, metric):
+    """prune=True vs prune=False in the same kernel: the same order and
+    edges for every block length; the eager schedule folds at most
+    (n - 1)·nblk tiles, the pruned one far fewer on contiguous clusters;
+    both evaluate exactly n·(n - 1)/2 pairs."""
+    n = 700
+    X = torch.from_numpy(_contig_blobs(n)).to(cuda)
+    aux = metric_aux_cuda(X, metric=metric)
+    i0 = _streamed_seed_pivot(X, metric=metric)
+    first = None
+    for block in (64, 256, 1024):
+        o1, e1, s1 = prim_persist_cuda(X, aux, i0, metric=metric, block=block)
+        o0, e0, s0 = prim_persist_cuda(X, aux, i0, metric=metric, block=block,
+                                       prune=False)
+        assert torch.equal(o1, o0) and torch.equal(e1, e0)
+        nblk = -(-n // block)
+        assert int(s0[0]) <= (n - 1) * nblk
+        assert int(s0[2]) == int(s1[2]) == n * (n - 1) // 2
+        if block == 64:
+            assert int(s1[0]) < int(s0[0]) * 2 // 3, (s1, s0)
+        first = (o1, e1) if first is None else first
+        assert torch.equal(o1, first[0]) and torch.equal(e1, first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [100.0, 1000.0])
+@pytest.mark.parametrize("form", FORMS)
+def test_cuda_pruning_sound_on_uncentered_data(cuda, form, offset):
+    """Far from the origin the gram rows carry absolute error ~eps·max|x|²;
+    the slack debit keeps pruned == eager in both forms."""
+    X = torch.from_numpy(_contig_blobs(500, sep=5.0, offset=offset)).to(cuda)
+    for metric in ("euclidean", "sqeuclidean"):
+        aux = metric_aux_cuda(X, metric=metric)
+        i0 = _streamed_seed_pivot(X, metric=metric, form=form)
+        o1, e1, _ = prim_persist_cuda(X, aux, i0, metric=metric, form=form,
+                                      block=64)
+        o0, e0, _ = prim_persist_cuda(X, aux, i0, metric=metric, form=form,
+                                      block=64, prune=False)
+        assert torch.equal(o1, o0) and torch.equal(e1, e0)
+
+
+@pytest.mark.cuda
+def test_cuda_prim_persist_against_plain(cuda):
+    """The kernel against ``ref.prim_persist_ref`` on the same tensors: the
+    plain rows come from cuBLAS, so the orders are held by spanning-tree
+    weight (EXCESS_F32 = 1e-5) and the edges by the pairwise tolerance."""
+    X = torch.from_numpy(_contig_blobs(600, d=5, sep=8.0)).to(cuda)
+    aux = metric_aux_cuda(X, metric="euclidean")
+    i0 = _streamed_seed_pivot(X, metric="euclidean")
+    order, edges, _ = prim_persist_cuda(X, aux, i0)
+    porder, pedges = ref.prim_persist_ref(X, aux, i0)
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(600, device=cuda))
+    R = torch.cdist(X.double(), X.double())
+    wk = float(torch.sum(_frontier_minima(R, order)))
+    wp = float(torch.sum(_frontier_minima(R, porder)))
+    assert abs(wk - wp) / wp <= 1e-5
+    assert float(torch.amax(torch.abs(torch.sort(edges).values
+                                      - torch.sort(pedges).values))) <= \
+        _tolerance("euclidean", "gram", X, None, edges)
+
+
+@pytest.mark.cuda
+def test_cuda_flashvat_fit_launches_its_kernels(cuda):
+    from repro_torch import FastVAT
+    from repro_torch.kernels import _build
+    X = _contig_blobs(3000, d=6)
+    _build.reset_launch_counts()
+    fv = FastVAT().fit(X)
+    counts = _build.launch_counts()
+    assert fv.method_resolved == "flashvat"
+    assert counts["prim_persist"] == 1 and counts["prim_stream_step"] == 0
+    assert counts["masked_argmin"] == 255 and counts["ivat_from_vat"] == 1
+    assert counts["pairwise_dist"] == 4 + 1   # 2 x 2 seed blocks + render
+    step = FastVAT(method="flashvat", turbo=False).fit(X)
+    np.testing.assert_array_equal(step.order(), fv.order())
+    assert fv.image().shape == (256, 256)
+    assert fv.sample_indices().shape == (256,)
+    rep = fv.assess()
+    assert rep.k_est == 4 and rep.clustered

@@ -157,7 +157,9 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.ivat_from_vat(R)
     assert _build.launch_counts() == {"pairwise_dist": 0,
                                       "masked_argmin": 0,
-                                      "ivat_from_vat": 0}
+                                      "ivat_from_vat": 0,
+                                      "prim_persist": 0,
+                                      "prim_stream_step": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -183,7 +185,8 @@ def test_build_needs_nvcc(monkeypatch):
 def test_build_hash_covers_every_source():
     names = {p.name for p in _build.sources()}
     assert {"pairwise_dist.cu", "prim_update.cu", "ivat_update.cu",
-            "argmin_key.cuh"} <= names
+            "prim_persist.cu", "prim_stream.cu", "argmin_key.cuh",
+            "dissim.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     for src in _build.CSRC.glob("*.cu"):
