@@ -9,12 +9,17 @@ It builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
 drives the port's paths — ``FastVAT().fit(X)`` then ``order()``,
 ``image()``, ``image(use_ivat=True)`` and ``assess()`` at n = 2,048 (the
-``vat`` rung) and at n = 50,000 (the ``flashvat`` rung, and its stepwise
-engine), and the ``ivat`` rung at n = 2,048 and 16,384 — checks what comes
-out and that every kernel of each path was launched, holds the flashvat
-engines bit for bit against each other and against the materialized
-ordering, times each kernel beside its plain version, one PyTorch library
-call where there is one and the card's bound, and prints:
+``vat`` rung), at n = 50,000 (the ``flashvat`` rung, and its stepwise
+engine) and at n = 1,000,000 (the ``approx`` rung, anchored kNN), the
+``ivat`` rung at n = 2,048 and 16,384, and ``method="approx"`` at
+n = 32,768 (exact kNN) — checks what comes out and that every kernel of
+each path was launched, holds the flashvat engines bit for bit against
+each other and against the materialized ordering, the kNN kernel bit for
+bit against the pairwise kernel's sorted rows, Borůvka on the card against
+Borůvka on the CPU, and the approx order at k = n - 1 against the exact
+orders; runs the certification sweep (``numerics/certify.py``, 180 fits);
+times each kernel beside its plain version, one PyTorch library call
+where there is one and the card's bound, and prints:
 
   * one line per phase, the GPU's name and power limit (nvidia-smi), and a
     JSON line ``{"kernels": [...]}`` before the last;
@@ -701,6 +706,333 @@ def phase_flash_times(torch, ref, flash, prim_stream_step_cuda):
     return persist, step
 
 
+# ------------------------------------------------------ approx path ----
+
+def demo_blobs(n: int, k: int = 5, d: int = 8, seed: int = 0):
+    """The reference demo's data (examples/approx_demo.py::make_blobs,
+    copied): k Gaussian blobs, centres N(0, 20^2), built in blocks."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=20.0, size=(k, d)).astype(np.float32)
+    lab = rng.integers(0, k, size=n)
+    X = np.empty((n, d), np.float32)
+    for s in range(0, n, 100_000):
+        e = min(s + 100_000, n)
+        X[s:e] = centers[lab[s:e]] + rng.normal(
+            size=(e - s, d)).astype(np.float32)
+    return X, lab
+
+
+def knn_cost(n: int, d: int, k: int):
+    """X read once, the (n, k) lists written once (f32 + int64); one FMA
+    per feature for each pair, the pairs counted once (one triangle of the
+    symmetric matrix), as the pairwise row counts a self-matrix."""
+    return 4 * n * d + 12 * n * k, 2 * d * n * (n - 1) // 2
+
+
+def kernel_plain_knn(ref, pairwise_dist_cuda, Xq, Xc, qid, cid, k, metric,
+                     rows=2048):
+    """The kNN kernel's function from the pairwise kernel's entries: each
+    row block of the matrix masked, stably sorted by (value, id), first k.
+    Bit for bit what the kernel must return."""
+    import torch
+    parts = [ref.topk_from_dissim(
+        pairwise_dist_cuda(Xq[r0:r0 + rows], Xc, metric=metric),
+        qid[r0:r0 + rows], cid, k) for r0 in range(0, Xq.shape[0], rows)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def plain_tolerance(torch, metric, X, want):
+    """check_pairwise's tolerances: a sqrt of the gram cancellation floor
+    for euclidean, 1e-5 of the scale (+1e-6) otherwise."""
+    if metric == "euclidean":
+        return (16 * F32_EPS * float(torch.amax(torch.sum(X * X, 1)))) ** 0.5
+    finite = want[torch.isfinite(want)]
+    return 1e-5 * float(torch.amax(torch.abs(finite))) + 1e-6
+
+
+def phase_knn_kernel(torch, ref, ops, knn_topk_cuda, knn_topk_blocked,
+                     pairwise_dist_cuda, gen):
+    """The kNN kernel against its function on the card, bit for bit, at the
+    approx paths' shapes and ragged ones; and against the plain version
+    (cuBLAS rows) within the pairwise tolerance."""
+    from repro_torch.kernels import _build
+    require(_build.library().repro_knn_max_k() == 128, "kernel MAX_K")
+    cases = 0
+    for metric in ref.METRICS:
+        for n in (64, 257, 1024, 4099):
+            for d in (3, 64, 100):
+                X = torch.randn(n, d, device="cuda", generator=gen)
+                ids = torch.arange(n, device="cuda")
+                for k in (1, 15, 128):
+                    got = knn_topk_cuda(X, X, ids, ids, k=k, metric=metric)
+                    want = kernel_plain_knn(ref, pairwise_dist_cuda, X, X,
+                                            ids, ids, k, metric)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1]),
+                            f"knn kernel {metric} n={n} d={d} k={k}: not "
+                            "the pairwise kernel's sorted lists")
+                    cases += 1
+    # query/candidate form: sentinel query ids (the anchored assignment),
+    # padded candidates and cells with fewer valid candidates than k
+    for metric in ref.METRICS:
+        Xq = torch.randn(5000, 8, device="cuda", generator=gen)
+        Xc = torch.randn(1000, 8, device="cuda", generator=gen)
+        no_id = torch.full((5000,), -1, dtype=torch.int64, device="cuda")
+        cid = torch.arange(1000, device="cuda")
+        for k in (2, 15):
+            got = knn_topk_cuda(Xq, Xc, no_id, cid, k=k, metric=metric)
+            want = kernel_plain_knn(ref, pairwise_dist_cuda, Xq, Xc, no_id,
+                                    cid, k, metric)
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]),
+                    f"knn kernel {metric} query/candidate k={k} differs")
+        cell = torch.where(cid[:20] % 3 == 0, -1, cid[:20] * 7)
+        qid = torch.arange(5000, device="cuda")
+        got = knn_topk_cuda(Xq, Xc[:20], qid, cell, k=15, metric=metric)
+        want = kernel_plain_knn(ref, pairwise_dist_cuda, Xq, Xc[:20], qid,
+                                cell, 15, metric)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and bool((got[1][:, 13:] == -1).all()),
+                f"knn kernel {metric}: short cell lists differ")
+        blk = knn_topk_blocked(Xq, Xc, no_id, cid, k=15, metric=metric,
+                               rows=1024, cols=384)
+        got = knn_topk_cuda(Xq, Xc, no_id, cid, k=15, metric=metric)
+        require(torch.equal(blk[0], got[0]) and torch.equal(blk[1], got[1]),
+                f"knn blocked route {metric} differs from the kernel")
+        cases += 5
+    # the top of the exact-kNN window, in row blocks
+    n, d, k = 32_768, 64, 15
+    X = torch.randn(n, d, device="cuda", generator=gen)
+    ids = torch.arange(n, device="cuda")
+    got = ops.knn_graph(X, k=k)
+    want = kernel_plain_knn(ref, pairwise_dist_cuda, X, X, ids, ids, k,
+                            "euclidean")
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"knn kernel n={n}: not the pairwise kernel's sorted lists")
+    # the plain version on the same card tensors: rows from cuBLAS
+    errs = {}
+    for metric, Xm in (("euclidean", X), ("sqeuclidean", X[:4099]),
+                       ("manhattan", X[:4099]), ("cosine", X[:4099])):
+        kd, ki = ops.knn_graph(Xm, k=k, metric=metric)
+        pd, pi = ref.knn_graph_ref(Xm, k=k, metric=metric)
+        err = float(torch.amax(torch.abs(kd - pd)))
+        tol = plain_tolerance(torch, metric, Xm, pd)
+        require(err <= tol, f"knn kernel vs plain {metric} n="
+                f"{Xm.shape[0]}: {err} > {tol}")
+        errs[metric] = {"n": Xm.shape[0], "max_abs_err": err, "tol": tol,
+                        "equal_idx_share": float((ki == pi).float().mean())}
+    log("knn-kernel", kernel="knn_graph", bitwise_cases=cases,
+        bitwise_n32768=True, vs_plain=errs)
+    return X, errs["euclidean"]["max_abs_err"]
+
+
+def phase_approx_exact(torch, rt, ops, build, core):
+    """method="approx" at the top of the exact-kNN window, with the flash
+    fit of the same points as the exact reference."""
+    n, d = 32_768, 64
+    X = blobs(n, d, k=8, seed=0)
+    build.reset_launch_counts()
+    walls = {}
+    fa, walls["fit"] = wall_s(torch, lambda: rt.FastVAT(method="approx").fit(X))
+    order, walls["order"] = wall_s(torch, fa.order)
+    img, walls["image"] = wall_s(torch, fa.image)
+    img_iv, walls["image_ivat"] = wall_s(
+        torch, lambda: fa.image(use_ivat=True))
+    rep, walls["assess"] = wall_s(torch, fa.assess)
+    launches = build.launch_counts()
+    s = fa.result.meta.approx
+    require(s.mode == "exact" and s.k == 15, f"approx stats {s}")
+    for name in ("knn_graph", "pairwise_dist", "masked_argmin",
+                 "ivat_from_vat"):
+        require(launches[name] > 0, f"approx-exact did not launch {name}")
+    require(launches["prim_persist"] == 0 == launches["prim_stream_step"],
+            f"approx-exact launched a Prim kernel: {launches}")
+    require(np.array_equal(np.sort(order), np.arange(n)),
+            "approx order is not a permutation")
+    require(img.shape == (256, 256) and np.isfinite(img).all()
+            and np.isfinite(img_iv).all(), "bad approx image")
+    # Borůvka on the card == on the CPU, bit for bit, on the same graph
+    Xt = fa._X.float().contiguous()
+    dist, idx = ops.knn_graph(Xt, k=15)
+    radius = dist.amax(dim=1)
+    i0 = int(torch.argmax(radius))
+    card, t_card = wall_s(torch, lambda: core.boruvka_mst(idx, dist, X=Xt))
+    host, t_host = wall_s(torch, lambda: core.boruvka_mst(
+        idx.cpu(), dist.cpu(), X=Xt))
+    require(all(np.array_equal(a, b) for a, b in zip(card[0], host[0]))
+            and card[1:] == host[1:],
+            "Borůvka on the card differs from Borůvka on the CPU")
+    require(card[0].src.size == n - 1, "the tree has not n - 1 edges")
+    walk, t_walk = wall_s(torch, lambda: core.mst_vat_order(n, card[0], i0))
+    require(np.array_equal(walk[0], order),
+            "the fit's order is not mst_vat_order of its tree")
+    # against the exact MST of a flashvat fit of the same points, in the
+    # f64 geometry (the rung's one-sided error model)
+    ff, t_flash = wall_s(torch,
+                         lambda: rt.FastVAT(method="flashvat").fit(X))
+    require(ff.result.meta.numerics == fa.result.meta.numerics,
+            "approx and flashvat fits took different numerics plans")
+    w_approx = tree_weight(torch, Xt, fa.result.order)
+    w_exact = tree_weight(torch, Xt, ff.result.order)
+    ratio = w_approx / w_exact
+    require(ratio >= 1.0 - EXCESS_F32, f"kNN-MST weight below the exact "
+            f"MST: ratio {ratio}")
+    frep = ff.assess()
+    require(rep.k_est == frep.k_est, f"approx k_est {rep.k_est} != flashvat "
+            f"{frep.k_est}")
+    log("approx-exact", n=n, d=d, k=15, launches=launches, walls_s=walls,
+        stats=vars(s),
+        boruvka_card_s=t_card, boruvka_cpu_s=t_host, tree_walk_s=t_walk,
+        boruvka_card_equals_cpu=True, flash_fit_s=t_flash,
+        tree_weight_ratio=ratio, mst_weight_f32_sum=s.mst_weight,
+        k_est=rep.k_est, flash_k_est=frep.k_est,
+        same_order_as_flash=bool(np.array_equal(order, ff.order())))
+    return launches
+
+
+def phase_approx_full_k(torch, rt, ref, build):
+    """k = n-1: the approx order is exact Prim's, through the kernel
+    (n = 129) and the blocked route (n = 1,024), every metric."""
+    done = []
+    for metric in ref.METRICS:
+        for n in (129, 1024):
+            X = np.random.default_rng(n).normal(size=(n, 8)).astype(
+                np.float32)
+            build.reset_launch_counts()
+            fa = rt.FastVAT(method="approx", knn_k=n - 1,
+                            metric=metric).fit(X)
+            knn = build.launch_counts()["knn_graph"]
+            require(knn == (1 if n - 1 <= 128 else 0),
+                    f"full-k n={n}: {knn} kNN kernel launches")
+            ff = rt.FastVAT(method="flashvat", metric=metric).fit(X)
+            fv = rt.FastVAT(method="vat", metric=metric).fit(X)
+            require(np.array_equal(fa.order(), ff.order())
+                    and np.array_equal(fa.order(), fv.order()),
+                    f"full-k {metric} n={n}: approx order != exact order")
+            done.append(f"{metric}/{n}")
+    log("approx-full-k", bitwise=done)
+
+
+def phase_approx_path(torch, rt, ops, build, core, registry):
+    """FastVAT().fit(X) at a million points, auto: the approx rung with the
+    anchored kNN; then each stage timed alone on the same data."""
+    n, d = 1_000_000, 8
+    X, lab = demo_blobs(n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    walls = {}
+    fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit(X))
+    peak = torch.cuda.max_memory_allocated() - base
+    order, walls["order"] = wall_s(torch, fv.order)
+    img, walls["image"] = wall_s(torch, fv.image)
+    img_iv, walls["image_ivat"] = wall_s(
+        torch, lambda: fv.image(use_ivat=True))
+    rep, walls["assess"] = wall_s(torch, fv.assess)
+    launches = build.launch_counts()
+    s = fv.result.meta.approx
+    require(fv.method_resolved == "approx" and s.mode == "anchored",
+            f"auto at n={n}: {fv.method_resolved}, {s}")
+    require(launches["knn_graph"] > 0 and launches["pairwise_dist"] > 0,
+            f"approx path launch counts {launches}")
+    require(np.array_equal(np.sort(order), np.arange(n)),
+            "approx order is not a permutation")
+    require(img.shape == (256, 256) and np.isfinite(img).all()
+            and np.isfinite(img_iv).all(), "bad approx image")
+    # the demo's acceptance: each of the 5 blobs one contiguous run of the
+    # order.  assess()'s k_est counts only super-diagonal jumps above half
+    # the largest, and two of these centres lie close enough that the
+    # reference's own fit reads k_est = 4 here (5 runs).
+    runs = 1 + int(np.sum(lab[order][1:] != lab[order][:-1]))
+    require(runs == 5 and rep.clustered and 4 <= rep.k_est <= 5,
+            f"5 demo blobs gave {runs} runs, {rep}")
+    # the stages, each the core function on the fit's own data
+    stages = {}
+    Xt = fv._X.float().contiguous()
+    (dist, idx), stages["anchored_knn_s"] = wall_s(
+        torch, lambda: core.knn_graph_anchored(Xt, k=15))
+    finite = torch.isfinite(dist) & (idx >= 0)
+    i0 = int(torch.argmax(torch.where(finite, dist, -torch.inf).amax(1)))
+    rows = torch.arange(n, device=Xt.device)
+    idx = torch.where(finite, idx, rows[:, None])
+    dist = torch.where(finite, dist, 0.0)
+    (tree, passes, ncomp, _), stages["boruvka_s"] = wall_s(
+        torch, lambda: core.boruvka_mst(idx, dist, X=Xt))
+    require(tree.src.size == n - 1 and ncomp == s.components
+            and passes == s.n_passes, "refit tree differs from the fit's")
+    (worder, _), stages["tree_walk_s"] = wall_s(
+        torch, lambda: core.mst_vat_order(n, tree, i0))
+    require(np.array_equal(worder, order), "refit order differs")
+    opts = registry.RungOptions(num_form=fv.result.meta.numerics.form)
+    order_t = torch.as_tensor(worder.astype(np.int64), device=Xt.device)
+    _, stages["band_render_s"] = wall_s(
+        torch, lambda: registry._band_render(Xt, order_t, fv.result.meta,
+                                             opts))
+    log("approx-path", n=n, d=d, k=15, method=fv.method_resolved,
+        launches=launches, walls_s=walls, stages_s=stages,
+        peak_alloc_mib=peak / 2 ** 20, components=s.components,
+        repaired_edges=s.repaired_edges, repair_weight=s.repair_weight,
+        n_passes=s.n_passes, mst_weight=s.mst_weight, runs=runs,
+        hopkins=rep.hopkins, block_score=rep.block_score, k_est=rep.k_est)
+    return launches
+
+
+def phase_knn_times(torch, ref, knn_topk_cuda, X, launches, err):
+    """The kNN kernel beside its plain version, one library yardstick and
+    its bound, at the top of the exact-kNN window (n = 32,768, d = 64,
+    k = 15)."""
+    n, d = X.shape
+    k = 15
+    ids = torch.arange(n, device="cuda")
+
+    def library():   # cdist + topk in row blocks; a yardstick only
+        out = []
+        for r0 in range(0, n, 4096):
+            D = torch.cdist(X[r0:r0 + 4096], X)
+            rr = torch.arange(D.shape[0], device="cuda")
+            D[rr, rr + r0] = torch.inf
+            out.append(torch.topk(D, k, largest=False))
+        return out
+
+    row = {"kernel": "knn_graph", "n": n, "d": d, "k": k,
+           "ms": device_ms(torch, lambda: knn_topk_cuda(X, X, ids, ids, k=k),
+                           reps=5, label="knn_graph"),
+           "event_ms": event_ms(torch, lambda: knn_topk_cuda(X, X, ids, ids,
+                                                             k=k), reps=5),
+           "plain_ms": device_ms(torch, lambda: ref.knn_graph_ref(X, k=k),
+                                 reps=1, label="knn_graph plain"),
+           "library_ms": device_ms(torch, library, reps=2,
+                                   label="knn_graph library")}
+    row["bound_ms"], row["bound_by"] = bound_ms(*knn_cost(n, d, k))
+    log("time", **row)
+    return {"name": "knn_graph", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/knn_graph.cu",
+            "replaces": "src/repro/kernels/knn_graph.py:137",
+            "launches": launches["knn_graph"], "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
+
+
+def phase_certify(torch):
+    """The port's certification sweep on the card: 4 rungs x 3 conditioned
+    metrics x 3 policies x 5 generators, each fit scored against the f64
+    naive-Prim oracle."""
+    from repro_torch.numerics import certify
+    results, wall = wall_s(torch, certify.sweep)
+    print(certify.summarize(results), flush=True)
+    bad = [r for r in results if not r.ok]
+    require(len(results) == 180 and not bad,
+            f"certify: {len(bad)} of {len(results)} cells fail")
+    log("certify", cells=len(results), ok=len(results) - len(bad),
+        exact=sum(r.exact for r in results), wall_s=wall,
+        worst_excess={m: max(r.excess for r in results if r.method == m)
+                      for m in certify.DEFAULT_METHODS})
+
+
 def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
     """Kernel, plain version, library call and bound at both sizes.
 
@@ -786,7 +1118,9 @@ def main() -> int:
     from repro_torch.core.vat import _streamed_seed_pivot, vat_order
     from repro_torch.kernels import _build as build
     from repro_torch.kernels import ops, ref
+    from repro_torch.api import registry
     from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
+    from repro_torch.kernels.knn_graph import knn_topk_blocked, knn_topk_cuda
     from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
     from repro_torch.kernels.prim_persist import prim_persist_cuda
     from repro_torch.kernels.prim_stream import prim_stream_step_cuda
@@ -835,6 +1169,16 @@ def main() -> int:
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
+    Xk, knn_err = phase_knn_kernel(torch, ref, ops, knn_topk_cuda,
+                                   knn_topk_blocked, pairwise_dist_cuda, gen)
+    phase_approx_exact(torch, rt, ops, build, core)
+    phase_approx_full_k(torch, rt, ref, build)
+    approx_launches = phase_approx_path(torch, rt, ops, build, core, registry)
+    phase_profile(torch, rt, demo_blobs(1_000_000)[0],
+                  label="approx n=1000000")
+    rows.append(phase_knn_times(torch, ref, knn_topk_cuda, Xk,
+                                approx_launches, knn_err))
+    phase_certify(torch)
     log("done", total_s=time.perf_counter() - t0)
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -5,8 +5,9 @@ The same surface as ``repro.FastVAT`` for the rungs ported so far:
   n <= SMALL_N  (2_048)   exact ``vat``      — O(n^2) matrix fits easily
   n <= MEDIUM_N (50_000)  exact ``flashvat`` — matrix-free, persistent
                                                Prim kernel, banded render
-  larger                  the reference's ``approx`` — not ported yet:
-                          ``fit`` raises ``NotImplementedError``
+  larger                  ``approx``         — kNN-graph Borůvka MST
+                                               (kNN kernel), banded render;
+                                               error on ``meta.approx``
 
 plus the opt-in ``ivat`` rung.  The fit runs on ``device`` (default
 "cuda": the CUDA kernels of ``kernels/csrc``); ``device="cpu"`` runs the
@@ -66,11 +67,13 @@ class FastVAT:
                "precomputed" to pass ``fit`` an (n, n) matrix directly.
     seed:      the single seed every sampling path (device and host side)
                derives from — see ``ResultMeta``.
-    sample_size: m, the representatives flashvat's banded render draws
-               (its image and ``rstar`` are (m, m)).
+    sample_size: m, the representatives the banded render of flashvat and
+               approx draws (its image and ``rstar`` are (m, m)).
     turbo:     flashvat's traversal engine — None (default) or True the
                persistent kernel, False the stepwise engine (one fused step
                kernel per vertex); the same ordering either way.
+    knn_k:     the approx rung's error-bound knob — neighbours per point in
+               the kNN graph (default 15); exact at n - 1.
     validate:  admission-check inputs before they reach a kernel (finite
                values, real dtype, n >= 4, non-degenerate, no zero-norm
                rows under cosine) and fail with the typed
@@ -86,8 +89,8 @@ class FastVAT:
 
     def __init__(self, method: str = "auto", *, metric: str = "euclidean",
                  sample_size: int = 256, turbo: bool | None = None,
-                 seed: int = 0, validate: bool = True, numerics="auto",
-                 device="cuda"):
+                 knn_k: int = 15, seed: int = 0, validate: bool = True,
+                 numerics="auto", device="cuda"):
         if method in registry.UNPORTED:
             raise registry.not_ported(method)
         methods = registry.methods()
@@ -99,6 +102,7 @@ class FastVAT:
         self.metric = metric
         self.sample_size = sample_size
         self.turbo = turbo
+        self.knn_k = knn_k
         self.seed = seed
         self.validate = validate
         self.numerics = as_policy(numerics)
@@ -115,7 +119,9 @@ class FastVAT:
         m = result.meta
         fv = cls(method=m.method, metric=m.metric, seed=m.seed,
                  sample_size=(m.sample_size if m.sample_size is not None
-                              else 256), device=m.device)
+                              else 256),
+                 knn_k=m.approx.k if m.approx is not None else 15,
+                 device=m.device)
         fv.result = result
         fv.method_resolved = m.method
         fv._X = None if X is None else torch.tensor(
@@ -155,8 +161,6 @@ class FastVAT:
         n = int(data.shape[0])
         method = (self.method if self.method != "auto"
                   else select_method(n, precomputed=precomputed))
-        if method in registry.UNPORTED:
-            raise registry.not_ported(method, n)
         rung = registry.get_rung(method)
         if precomputed and not rung.supports_precomputed:
             raise ValueError(f"method {method!r} does not accept "
@@ -167,6 +171,7 @@ class FastVAT:
         with device_scope(dev):
             self.result = rung.fit(data, meta, RungOptions(
                 sample_size=self.sample_size, turbo=self.turbo,
+                knn_k=self.knn_k,
                 num_form=(num_report.form if num_report is not None
                           else "gram")))
         self.method_resolved = method

@@ -6,18 +6,19 @@ adapter that runs a ``repro_torch.core`` rung and wraps its output into
 the uniform ``TendencyResult``), its capability flags and its
 auto-selection threshold.
 
-The port registers the ``vat``, ``ivat`` and ``flashvat`` rungs.  The
-reference's other rungs are listed in ``UNPORTED`` with their
-auto-selection thresholds, so ``select_method`` still picks what the
-reference would pick — and ``FastVAT.fit`` raises ``NotImplementedError``
-naming that rung instead of quietly running another at a size the
-reference hands elsewhere.
+The port registers the ``vat``, ``ivat``, ``flashvat`` and ``approx``
+rungs, which cover every n under auto-selection.  The reference's other
+rungs (all opt-in) are listed in ``UNPORTED``: ``FastVAT`` raises
+``NotImplementedError`` naming the one asked for instead of quietly running
+another.
 
 >>> from repro_torch.api import registry
 >>> sorted(registry.registered())
-['flashvat', 'ivat', 'vat']
+['approx', 'flashvat', 'ivat', 'vat']
 >>> registry.select_method(100), registry.select_method(10_000)
 ('vat', 'flashvat')
+>>> registry.select_method(1_000_000)
+'approx'
 >>> registry.select_method(1_000_000, precomputed=True)   # matrix exists
 'vat'
 """
@@ -40,11 +41,9 @@ from repro_torch.kernels import ops as kops
 SMALL_N = 2_048
 MEDIUM_N = 50_000
 
-#: Rungs of the reference the port does not have yet -> their
-#: auto-selection threshold (None: opt-in only).  None of them accepts
-#: precomputed input.
-UNPORTED = {"approx": math.inf, "svat": None, "bigvat": None, "dvat": None,
-            "embed": None}
+#: Rungs of the reference the port does not have yet; all are opt-in (no
+#: auto-selection threshold), so auto-selection never reaches them.
+UNPORTED = ("svat", "bigvat", "dvat", "embed")
 
 
 class RungOptions(NamedTuple):
@@ -57,12 +56,17 @@ class RungOptions(NamedTuple):
     None also auto-shards across devices; the port has one card, so None
     and True are the same here.
 
+    ``knn_k`` is the approx rung's accuracy knob: neighbours kept per point
+    in the kNN graph whose spanning tree orders the data; the error it
+    leaves is reported on ``ResultMeta.approx``.
+
     ``num_form`` is the numerics shield's tile-form plan: "gram" (default
     — the ‖x‖²+‖y‖²−2x·y form) or "direct" (per-coordinate (x−y)², no
     cancellation).  The facade sets it from ``numerics.resolve``.
     """
     sample_size: int = 256
     turbo: bool | None = None
+    knn_k: int = 15
     num_form: str = "gram"
 
 
@@ -104,11 +108,10 @@ def register(rung: Rung, *, overwrite: bool = False) -> Rung:
     return rung
 
 
-def not_ported(name: str, n: int | None = None) -> NotImplementedError:
+def not_ported(name: str) -> NotImplementedError:
     """The error for a rung the reference has and the port does not yet."""
-    at = "" if n is None else f" (the reference's choice for n={n})"
     return NotImplementedError(
-        f"rung {name!r}{at} is not ported to repro_torch yet; ported rungs: "
+        f"rung {name!r} is not ported to repro_torch yet; ported rungs: "
         f"{registered()}")
 
 
@@ -137,9 +140,8 @@ def select_method(n: int, *, precomputed: bool = False,
                   strict: bool = False) -> str:
     """The auto-selection policy, data-driven over rung capabilities.
 
-    The candidates are the registered rungs and the ``UNPORTED`` ones, so
-    the choice is the reference's; the caller raises when it falls on an
-    unported rung.
+    The candidates are the registered rungs with a threshold, the same
+    auto-selectable rungs as the reference's, so the choice is its choice.
 
     Args:
       n: points per dataset.
@@ -155,8 +157,6 @@ def select_method(n: int, *, precomputed: bool = False,
     cands = [(r.auto_threshold, r.name) for r in _REGISTRY.values()
              if r.auto_threshold is not None
              and (r.supports_precomputed or not precomputed)]
-    if not precomputed:
-        cands += [(t, name) for name, t in UNPORTED.items() if t is not None]
     cands.sort()
     if not cands:
         raise LookupError(f"no auto-selectable rung matches "
@@ -241,7 +241,8 @@ def _band_render(Xf: torch.Tensor, order: torch.Tensor, meta: ResultMeta,
     ``TendencyResult.image`` expands it by the band sizes, so the picture
     shows all n points while only an (m, m) object exists.  The iVAT
     companion runs along the representatives' own Prim order
-    (``_rep_ivat``).
+    (``_rep_ivat``).  Shared by the flashvat (exact order) and approx
+    (kNN-MST order) rungs.
     """
     n, m = meta.n, min(opts.sample_size, meta.n)
     sizes, mids = _flash_groups(n, m)
@@ -269,6 +270,24 @@ def _fit_flashvat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     return _band_render(Xf, res.order, meta, opts)
 
 
+def _fit_approx(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
+    """Approx-VAT: the kNN-graph Borůvka MST ordering, then the banded
+    render.
+
+    The ordering is ``core.approx_vat``'s — a Prim walk of the minimum
+    spanning tree of the k-nearest-neighbour graph (exact kNN up to
+    ``EXACT_KNN_N``, anchored beyond) — exact whenever the kNN graph holds
+    the true MST (always at k = n-1).  The error it leaves is measured and
+    carried on ``ResultMeta.approx``.  The kNN stages and the repair use
+    the gram form; the render uses ``opts.num_form``.  No (n, n) object
+    at any stage; the points are cast to f32 first.
+    """
+    Xf = data.float().contiguous()
+    res = core.approx_vat(Xf, k=opts.knn_k, metric=meta.metric)
+    meta = dataclasses.replace(meta, approx=res.stats)
+    return _band_render(Xf, res.order, meta, opts)
+
+
 register(Rung(
     name="vat", fit=_fit_vat, supports_precomputed=True,
     auto_threshold=SMALL_N,
@@ -282,3 +301,8 @@ register(Rung(
     auto_threshold=MEDIUM_N,
     description="matrix-free exact VAT (Flash-VAT): persistent Prim kernel, "
                 "O(n·d) memory, no (n, n) object"))
+register(Rung(
+    name="approx", fit=_fit_approx, supports_precomputed=False,
+    auto_threshold=math.inf,
+    description="kNN-graph Borůvka MST ordering (kNN kernel), O(n·k) "
+                "memory, the million-point rung; error on meta.approx"))

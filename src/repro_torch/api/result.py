@@ -34,6 +34,7 @@ from typing import Any, ClassVar
 import numpy as np
 import torch
 
+from repro_torch.core.approx_mst import ApproxStats
 from repro_torch.core.bigvat import expand_image
 from repro_torch.core.ivat import ivat_from_vat
 from repro_torch.numerics.condition import NumericsReport
@@ -69,10 +70,11 @@ class ResultMeta:
       device: the device the fit ran on ("cuda", "cuda:0", "cpu").  On a
         CUDA device every kernel of the fit was the CUDA kernel; on the
         CPU every one was its plain PyTorch version.
-      sample_size: representatives the banded render draws (flashvat's
-        m); the facade's ``sample_size``.
-      approx: the approx rung's error report; always None until that rung
-        is ported.
+      sample_size: representatives the banded render draws (the m of
+        flashvat and approx); the facade's ``sample_size``.
+      approx: the approx rung's error report (``core.ApproxStats``: k,
+        kNN mode, Borůvka passes, components before repair, repaired edges
+        and their weight, tree weight); None for every other rung.
       numerics: the numerics shield's plan for this fit
         (``numerics.NumericsReport``): condition estimate κ, policy mode,
         tile form, storage dtype, whether the conditioning transform ran,
@@ -85,7 +87,7 @@ class ResultMeta:
     seed: int = 0
     device: str = "cuda"
     sample_size: int | None = None
-    approx: None = None
+    approx: ApproxStats | None = None
     numerics: NumericsReport | None = None
 
     def generator(self, salt: int = SALT_FIT) -> torch.Generator:
@@ -111,16 +113,18 @@ class TendencyResult:
     Attributes:
       order: (n,) int64 VAT ordering of all n points.
       rstar: reordered dissimilarity image — (n, n) for vat/ivat, the
-        (m, m) matrix of the representatives in band order for flashvat.
+        (m, m) matrix of the representatives in band order for flashvat
+        and approx.
       ivat_image: geodesic (iVAT) image where the rung computed one (ivat,
-        flashvat), else None; ``image(use_ivat=True)`` derives it on demand
-        from ``rstar`` when absent.
-      sample_idx: dataset rows of the representatives (flashvat), else
-        None.
-      extension_labels: (n,) band id of every point (flashvat), else None.
+        flashvat, approx), else None; ``image(use_ivat=True)`` derives it
+        on demand from ``rstar`` when absent.
+      sample_idx: dataset rows of the representatives (flashvat, approx),
+        else None.
+      extension_labels: (n,) band id of every point (flashvat, approx),
+        else None.
       meta: static fit metadata (method, metric, n, seed, device, ...).
-      group_sizes: (m,) points per band of a banded render (flashvat);
-        None for vat/ivat.
+      group_sizes: (m,) points per band of a banded render (flashvat,
+        approx); None for vat/ivat.
     """
 
     order: torch.Tensor

@@ -1,10 +1,13 @@
-"""Fast-VAT core on PyTorch: the ``vat``, ``ivat`` and ``flashvat`` rungs'
-modules.
+"""Fast-VAT core on PyTorch: the ``vat``, ``ivat``, ``flashvat`` and
+``approx`` rungs' modules, and the pure-Python oracle ``naive``.
 
 The user-facing facade with automatic method selection is
-``repro_torch.api.FastVAT``; the sampled and approximate rungs of
-``repro.core`` are later slices of the port.
+``repro_torch.api.FastVAT``; the sampled rungs of ``repro.core`` are later
+slices of the port.
 """
+from repro_torch.core.approx_mst import (ApproxStats, ApproxVATResult,
+                                         MSTEdges, approx_vat, boruvka_mst,
+                                         knn_graph_anchored, mst_vat_order)
 from repro_torch.core.bigvat import expand_image
 from repro_torch.core.hopkins import hopkins, hopkins_draws, hopkins_from_draws
 from repro_torch.core.ivat import ivat, ivat_from_vat
@@ -17,4 +20,6 @@ __all__ = [
     "vat_matrix_free", "FlashVATResult",
     "block_structure_score", "ivat", "ivat_from_vat", "hopkins",
     "hopkins_draws", "hopkins_from_draws", "expand_image",
+    "approx_vat", "ApproxVATResult", "ApproxStats", "MSTEdges",
+    "boruvka_mst", "mst_vat_order", "knn_graph_anchored",
 ]

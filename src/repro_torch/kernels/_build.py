@@ -51,11 +51,15 @@ SIGNATURES = {
     # X, aux, q, mind, selected, n, d, kind, partial, out, stream
     "repro_prim_stream_step": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "repro_prim_stream_lanes": (),
+    # Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, kind, out_d, out_i, stream
+    "repro_knn_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                       _P),
+    "repro_knn_max_k": (),
 }
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts``.
 LAUNCHES = {"pairwise_dist": 0, "masked_argmin": 0, "ivat_from_vat": 0,
-            "prim_persist": 0, "prim_stream_step": 0}
+            "prim_persist": 0, "prim_stream_step": 0, "knn_graph": 0}
 
 _LIB = None
 

@@ -254,3 +254,131 @@ def ivat_from_vat_ref(rstar: torch.Tensor) -> torch.Tensor:
         Dp[r, :] = newrow
         Dp[:, r] = newrow
     return Dp
+
+
+#: The id of an empty top-k slot while lists are merged: it sorts after
+#: every real candidate id, so a masked candidate never displaces one.
+NO_ID = torch.iinfo(torch.int64).max
+
+
+def lex_smallest(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """The k smallest (value, id) pairs of each row, lexicographically.
+
+    A stable sort by id, then a stable sort by value: ties in value keep
+    the lower id first, whatever order the columns came in.  Rows with
+    fewer than k columns are padded with (+inf, ``NO_ID``).
+
+    Args:
+      vals: (r, c) float32 — candidate values (+inf for masked ones).
+      ids: (r, c) int64 — candidate ids, ``NO_ID`` for masked ones.
+      k: entries to keep per row.
+
+    Returns:
+      (vals (r, k) f32, ids (r, k) int64), ascending by (value, id), with
+      ``NO_ID`` left in empty slots (``finish_topk`` turns them into -1).
+    """
+    r, c = vals.shape
+    if c < k:
+        vals = torch.cat([vals, vals.new_full((r, k - c), torch.inf)], 1)
+        ids = torch.cat([ids, ids.new_full((r, k - c), NO_ID)], 1)
+    o = torch.argsort(ids, dim=1, stable=True)
+    vals, ids = vals.gather(1, o), ids.gather(1, o)
+    o = torch.argsort(vals, dim=1, stable=True)[:, :k]
+    return vals.gather(1, o), ids.gather(1, o)
+
+
+def finish_topk(vals: torch.Tensor, ids: torch.Tensor):
+    """Empty slots of a ``lex_smallest`` list become (+inf, -1)."""
+    empty = ids == NO_ID
+    return vals.masked_fill(empty, torch.inf), ids.masked_fill(empty, -1)
+
+
+def mask_candidates(D: torch.Tensor, qid: torch.Tensor, cid: torch.Tensor):
+    """(values, ids) of a (r, c) dissimilarity block for ``lex_smallest``:
+    a candidate with ``cid < 0``, or with ``cid == qid`` of its row, is
+    masked to (+inf, ``NO_ID``)."""
+    qid = qid.to(torch.int64)
+    cid = cid.to(torch.int64)
+    bad = (cid[None, :] < 0) | (cid[None, :] == qid[:, None])
+    ids = torch.where(bad, NO_ID, cid[None, :].expand(D.shape[0], -1))
+    return D.float().masked_fill(bad, torch.inf), ids
+
+
+def topk_from_dissim(D: torch.Tensor, qid: torch.Tensor, cid: torch.Tensor,
+                     k: int):
+    """The k nearest candidates of each row of a dissimilarity block.
+
+    Args:
+      D: (r, c) float — dissimilarity of query row i to candidate j.
+      qid: (r,) integer — the queries' ids (a sentinel such as -1 for
+        queries that are no candidate).
+      cid: (c,) integer — the candidates' ids; ``cid < 0`` marks padding.
+      k: neighbours per row.
+
+    Returns:
+      (dist (r, k) f32, idx (r, k) int64): ascending by (value, candidate
+      id); masked candidates never appear, and a slot no valid candidate
+      fills holds (+inf, -1).
+    """
+    return finish_topk(*lex_smallest(*mask_candidates(D, qid, cid), k))
+
+
+#: Query rows per block of ``knn_topk_ref``: bounds its dissimilarity block
+#: to (2,048, nc) f32.
+KNN_QUERY_BLOCK = 2048
+
+
+def knn_topk_ref(Xq: torch.Tensor, Xc: torch.Tensor, qid: torch.Tensor,
+                 cid: torch.Tensor, *, k: int, metric: str = "euclidean"):
+    """k nearest candidates of every query — the kNN kernel's plain version.
+
+    The gram-form dissimilarity (``pairwise_dissim_ref``) of each query to
+    every candidate, masking and selection by ``topk_from_dissim``.  Every
+    row depends on its own query only, so queries go in blocks of
+    ``KNN_QUERY_BLOCK`` rows and no larger block of the (nq, nc) matrix
+    exists.
+    It also stands in for the reference's per-cell ``_cell_topk``
+    (``repro/core/approx_mst.py``).
+
+    Args:
+      Xq: (nq, d) float — query points.
+      Xc: (nc, d) float — candidate points.
+      qid: (nq,) integer — query ids.
+      cid: (nc,) integer — candidate ids; < 0 marks padding.
+      k: neighbours per query (k > nc leaves (+inf, -1) slots).
+      metric: one of ``METRICS``.
+
+    Returns:
+      (dist (nq, k) f32, idx (nq, k) int64), ascending by (value, id).
+    """
+    check_metric(metric)
+    b = KNN_QUERY_BLOCK
+    parts = [topk_from_dissim(
+        pairwise_dissim_ref(Xq[r0:r0 + b], Xc, metric=metric),
+        qid[r0:r0 + b], cid, k) for r0 in range(0, Xq.shape[0], b)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def knn_graph_ref(X: torch.Tensor, *, k: int, metric: str = "euclidean"):
+    """k nearest neighbours of every point — the materializing oracle.
+
+    The gram-form matrix of ``pairwise_dissim_ref`` with the diagonal at
+    +inf, the k smallest per row ascending by (value, index): the lower
+    index wins a tie, the contract every kNN path of the port shares
+    (``torch.topk``'s tie order is unspecified, so stable sorts are used).
+
+    Args:
+      X: (n, d) float — data points.
+      k: neighbours per point; 1 <= k <= n - 1.
+      metric: one of ``METRICS``.
+
+    Returns:
+      (dist (n, k) f32 ascending per row, idx (n, k) int64) — idx[i, 0] is
+      i's nearest neighbour; no point is its own neighbour.
+    """
+    n = X.shape[0]
+    if not 1 <= k <= n - 1:
+        raise ValueError(f"k must satisfy 1 <= k <= n-1 = {n - 1}, got {k}")
+    ids = torch.arange(n, device=X.device)
+    return knn_topk_ref(X, X, ids, ids, k=k, metric=metric)

@@ -4,6 +4,8 @@
 condition estimate κ, the isometry-safe conditioning transform, the
 ``fast | safe | auto`` policy resolution and the bf16 storage
 certification — host-side numpy, as in ``repro/numerics/condition.py``.
+``certify.py``, the adversarial certification harness, runs fits through
+the API layer, so this package root does not import it.
 """
 from repro_torch.numerics.condition import (CONDITIONED_METRICS, KAPPA_BF16,
                                             KAPPA_SAFE, ConditionStats,

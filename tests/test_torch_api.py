@@ -115,11 +115,14 @@ def test_invalid_input_reasons_match_reference(case):
 
 
 def test_auto_above_small_n_names_the_missing_rung():
-    X = np.random.default_rng(0).normal(size=(registry.MEDIUM_N + 1, 2))
-    with pytest.raises(NotImplementedError, match="'approx'"):
-        repro_torch.FastVAT(device="cpu").fit(X.astype(np.float32))
-    with pytest.raises(NotImplementedError, match="'approx'"):
-        repro_torch.FastVAT(method="approx", device="cpu")
+    # auto covers every n with ported rungs; an opt-in rung of the
+    # reference that is not ported yet raises by name
+    assert registry.select_method(10 ** 9) == "approx"
+    for name in registry.UNPORTED:
+        with pytest.raises(NotImplementedError, match=f"'{name}'"):
+            repro_torch.FastVAT(method=name, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"'{name}'"):
+            registry.get_rung(name)
     # precomputed input keeps the reference's exact-rung fallback
     assert registry.select_method(10 ** 6, precomputed=True) == "vat"
 

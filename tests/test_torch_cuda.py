@@ -12,8 +12,10 @@ import torch
 
 from repro_torch import core
 from repro_torch.core.vat import _streamed_seed_pivot, vat, vat_order
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
+from repro_torch.kernels.knn_graph import (MAX_K, knn_topk_blocked,
+                                          knn_topk_cuda)
 from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
                                               pairwise_dist_cuda)
 from repro_torch.kernels.prim_persist import prim_persist_cuda
@@ -126,7 +128,8 @@ def test_cuda_fit_launches_every_kernel(cuda):
                                       "masked_argmin": 199,
                                       "ivat_from_vat": 1,
                                       "prim_persist": 0,
-                                      "prim_stream_step": 0}
+                                      "prim_stream_step": 0,
+                                      "knn_graph": 0}
     assert fv.result.meta.device.startswith("cuda")
     assert fv.result.order.is_cuda and fv.result.ivat_image.is_cuda
     rep = fv.assess()
@@ -311,5 +314,124 @@ def test_cuda_flashvat_fit_launches_its_kernels(cuda):
     np.testing.assert_array_equal(step.order(), fv.order())
     assert fv.image().shape == (256, 256)
     assert fv.sample_indices().shape == (256,)
+    rep = fv.assess()
+    assert rep.k_est == 4 and rep.clustered
+
+
+# ------------------------------------------------------ the kNN kernel ----
+
+def _plain_knn(Xq, Xc, qid, cid, k, metric):
+    """The kNN kernel's plain version on the card: the pairwise kernel's
+    block, masked, stably sorted by (value, id), first k."""
+    return ref.topk_from_dissim(pairwise_dist_cuda(Xq, Xc, metric=metric),
+                                qid, cid, k)
+
+
+def _assert_same_lists(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_knn_kernel_bitwise_against_plain(cuda, metric):
+    """Self form (the exact kNN graph) at ragged n and d, k in {1, 15, 128}
+    (k = 128 > n - 1 at n = 64 leaves (+inf, -1) slots), and integer data
+    full of exact ties, where the lower id must win."""
+    assert _build.library().repro_knn_max_k() == MAX_K
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for n, d in ((64, 3), (257, 64), (1024, 100)):
+        for X in (torch.randn(n, d, device=cuda, generator=gen),
+                  torch.randint(-2, 3, (n, d), device=cuda,
+                                generator=gen).float()):
+            ids = torch.arange(n, device=cuda)
+            for k in (1, 15, 128):
+                got = knn_topk_cuda(X, X, ids, ids, k=k, metric=metric)
+                _assert_same_lists(got, _plain_knn(X, X, ids, ids, k,
+                                                   metric))
+            _assert_same_lists(ops.knn_graph(X, k=15, metric=metric),
+                               knn_topk_cuda(X, X, ids, ids, k=15,
+                                             metric=metric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_knn_kernel_query_candidate_form(cuda, metric):
+    """Sentinel query ids (no self mask), padded candidates (cid < 0), a
+    cell with fewer valid candidates than k, and the blocked route
+    (k > MAX_K) giving the kernel's lists on the same tile values."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    Xq = torch.randn(300, 7, device=cuda, generator=gen)
+    Xc = torch.randn(90, 7, device=cuda, generator=gen)
+    no_id = torch.full((300,), -1, dtype=torch.int64, device=cuda)
+    cid = torch.arange(90, device=cuda)
+    for k in (2, 15, 128):
+        _assert_same_lists(knn_topk_cuda(Xq, Xc, no_id, cid, k=k,
+                                         metric=metric),
+                           _plain_knn(Xq, Xc, no_id, cid, k, metric))
+    padded = torch.where(cid % 4 == 0, -1, cid + 1000)
+    qid = torch.arange(1000, 1300, device=cuda)     # some match a candidate
+    got = knn_topk_cuda(Xq, Xc, qid, padded, k=128, metric=metric)
+    _assert_same_lists(got, _plain_knn(Xq, Xc, qid, padded, 128, metric))
+    assert bool((got[1][:, 67:] == -1).all())        # 67 valid at most
+    assert bool(torch.isinf(got[0][:, 67:]).all())
+    for k in (15, 100):
+        _assert_same_lists(
+            knn_topk_blocked(Xq, Xc, qid, padded, k=k, metric=metric,
+                             rows=64, cols=32),
+            knn_topk_cuda(Xq, Xc, qid, padded, k=k, metric=metric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("connected", [True, False])
+def test_cuda_boruvka_equals_cpu_boruvka(cuda, connected):
+    """The passes on the card and on the CPU, fed the same (idx, dist),
+    give the same tree bit for bit (the repair uses the same X)."""
+    X = (np.random.default_rng(0).random((3000, 5)).astype(np.float32)
+         if connected else _contig_blobs(3000, d=5, k=6, sep=4000.0))
+    X = torch.from_numpy(X).to(cuda)
+    dist, idx = ops.knn_graph(X, k=10 if connected else 3)
+    got = core.boruvka_mst(idx, dist, X=X)
+    want = core.boruvka_mst(idx.cpu(), dist.cpu(), X=X)
+    for a, b in zip(got[0], want[0]):
+        np.testing.assert_array_equal(a, b)
+    assert got[1:] == want[1:]
+    assert (got[2] == 1) == connected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_full_k_approx_equals_flashvat_and_vat(cuda, metric):
+    """k = n-1: the approx order is exact Prim's on the card, bit for bit —
+    through the kernel at n = 129 and the blocked route at n = 1,024."""
+    from repro_torch import FastVAT
+    for n in (129, 1024):
+        X = np.random.default_rng(n).normal(size=(n, 6)).astype(np.float32)
+        _build.reset_launch_counts()
+        fa = FastVAT(method="approx", knn_k=n - 1, metric=metric).fit(X)
+        launched = _build.launch_counts()["knn_graph"]
+        assert launched == (1 if n - 1 <= MAX_K else 0)
+        ff = FastVAT(method="flashvat", metric=metric).fit(X)
+        fv = FastVAT(method="vat", metric=metric).fit(X)
+        np.testing.assert_array_equal(fa.order(), ff.order())
+        np.testing.assert_array_equal(fa.order(), fv.order())
+        assert fa.result.meta.approx.components == 1
+
+
+@pytest.mark.cuda
+def test_cuda_approx_fit_launches_its_kernels(cuda):
+    from repro_torch import FastVAT
+    X = _contig_blobs(3000, d=6)
+    _build.reset_launch_counts()
+    fv = FastVAT(method="approx").fit(X)
+    counts = _build.launch_counts()
+    s = fv.result.meta.approx
+    assert s.mode == "exact" and s.k == 15
+    assert counts["knn_graph"] == 1 and counts["prim_persist"] == 0
+    assert counts["prim_stream_step"] == 0
+    assert counts["masked_argmin"] == 255 and counts["ivat_from_vat"] == 1
+    # the band render, and the repair's one matrix if the graph split
+    assert counts["pairwise_dist"] == 1 + (s.components > 1)
+    assert fv.result.order.is_cuda
+    assert sorted(fv.order().tolist()) == list(range(3000))
     rep = fv.assess()
     assert rep.k_est == 4 and rep.clustered

@@ -17,6 +17,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
+from repro_torch.kernels.knn_graph import knn_topk_cuda
 from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
 from repro_torch.kernels.prim_update import masked_argmin_cuda
 from repro_torch.numerics.condition import _quantize_bf16
@@ -155,18 +156,22 @@ def test_cpu_dispatch_launches_no_kernel():
     R = ops.pairwise_dist(X)
     ops.masked_argmin(R[0], torch.zeros(20, dtype=torch.bool))
     ops.ivat_from_vat(R)
+    ops.knn_graph(X, k=3)
     assert _build.launch_counts() == {"pairwise_dist": 0,
                                       "masked_argmin": 0,
                                       "ivat_from_vat": 0,
                                       "prim_persist": 0,
-                                      "prim_stream_step": 0}
+                                      "prim_stream_step": 0,
+                                      "knn_graph": 0}
 
 
 @pytest.mark.parametrize("call", [
     lambda: pairwise_dist_cuda(torch.zeros(4, 2)),
     lambda: masked_argmin_cuda(torch.zeros(4), torch.zeros(4, dtype=bool)),
     lambda: ivat_from_vat_cuda(torch.zeros(4, 4)),
-], ids=["pairwise_dist", "masked_argmin", "ivat_from_vat"])
+    lambda: knn_topk_cuda(torch.zeros(4, 2), torch.zeros(4, 2),
+                          torch.arange(4), torch.arange(4), k=2),
+], ids=["pairwise_dist", "masked_argmin", "ivat_from_vat", "knn_graph"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises; it never computes on the
     CPU itself."""
@@ -185,8 +190,8 @@ def test_build_needs_nvcc(monkeypatch):
 def test_build_hash_covers_every_source():
     names = {p.name for p in _build.sources()}
     assert {"pairwise_dist.cu", "prim_update.cu", "ivat_update.cu",
-            "prim_persist.cu", "prim_stream.cu", "argmin_key.cuh",
-            "dissim.cuh"} <= names
+            "prim_persist.cu", "prim_stream.cu", "knn_graph.cu",
+            "argmin_key.cuh", "dissim.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     for src in _build.CSRC.glob("*.cu"):
