@@ -11,13 +11,17 @@ drives the port's paths — ``FastVAT().fit(X)`` then ``order()``,
 ``image()``, ``image(use_ivat=True)`` and ``assess()`` at n = 2,048 (the
 ``vat`` rung), at n = 50,000 (the ``flashvat`` rung, and its stepwise
 engine) and at n = 1,000,000 (the ``approx`` rung, anchored kNN), the
-``ivat`` rung at n = 2,048 and 16,384, and ``method="approx"`` at
-n = 32,768 (exact kNN) — checks what comes out and that every kernel of
+``ivat`` rung at n = 2,048 and 16,384, ``method="approx"`` at
+n = 32,768 (exact kNN), and the batched fits ``FastVAT().fit_many(Xs)`` of
+8 datasets at n = 2,048 (``vat``; also ``ivat`` and precomputed) and of 4
+at n = 50,000 (``flashvat``, both engines), and ``ops.knn_graph_batch`` of
+4 at n = 32,768 — checks what comes out and that every kernel of
 each path was launched, holds the flashvat engines bit for bit against
 each other and against the materialized ordering, the kNN kernel bit for
 bit against the pairwise kernel's sorted rows, Borůvka on the card against
-Borůvka on the CPU, and the approx order at k = n - 1 against the exact
-orders; runs the certification sweep (``numerics/certify.py``, 180 fits);
+Borůvka on the CPU, the approx order at k = n - 1 against the exact
+orders, and every batched lane bit for bit against its solo kernel and
+solo fit; runs the certification sweep (``numerics/certify.py``, 180 fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
 
@@ -90,6 +94,15 @@ def kernel_device_ms(prof) -> dict:
             by_name[e.key] = by_name.get(e.key, 0.0) \
                 + e.self_device_time_total / 1e3
     return by_name
+
+
+def device_launches(prof) -> int:
+    """Operations the card ran in a torch.profiler run: kernels and copies
+    (a 0-d device-to-device write is a memcpy, a strided one a kernel)."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total)
 
 
 def device_ms(torch, fn, *, reps: int, label: str = "") -> float:
@@ -436,15 +449,17 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
     return launches, walls, rstars
 
 
-def phase_profile(torch, rt, X, label="vat n=2048"):
-    """Device busy share of one main-path fit, from torch.profiler: the
-    kernels' device time over the fit's wall time (tracing slows the host,
-    so the share is a lower bound), and the kernels that take most."""
+def phase_profile(torch, rt, X, label="vat n=2048", many=False):
+    """Device busy share of one main-path fit (a ``fit_many`` of the stack X
+    when ``many``), from torch.profiler: the kernels' device time over the
+    fit's wall time (tracing slows the host, so the share is a lower
+    bound), and the kernels that take most."""
     from torch.profiler import ProfilerActivity, profile
+    fit = rt.FastVAT().fit_many if many else rt.FastVAT().fit
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = wall_s(torch, lambda: rt.FastVAT().fit(X))
+        _, wall = wall_s(torch, lambda: fit(X))
     by_name = kernel_device_ms(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -1103,6 +1118,458 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
     return out
 
 
+# ------------------------------------------------------- batched fits ----
+
+def check_batch_kernels(torch, ref, gen, card):
+    """The batched kernels and the two lane axes against their plain
+    versions and, lane by lane, against the single kernels, bit for bit, at
+    the batched paths' shapes (fit_many's (8, 2,048, 64) matrices and
+    (b, 256) renders, the stepwise engine's (4, 50,000, 64) step)."""
+    from repro_torch.kernels.pairwise_dist import (pairwise_dist_batch_cuda,
+                                                  pairwise_dist_cuda)
+    from repro_torch.kernels.prim_persist import prim_persist_cuda
+    from repro_torch.kernels.prim_stream import (prim_stream_step_batch_cuda,
+                                                prim_stream_step_cuda)
+    from repro_torch.kernels.prim_update import masked_argmin_cuda
+    from repro_torch.kernels import ops
+    from repro_torch.core.vat import _streamed_seed_pivot
+    errs = {}
+    worst = 0.0
+    for b, n, d in ((8, 2048, 64), (4, 256, 64), (3, 2047, 3)):
+        X = torch.randn(b, n, d, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            Xc = X.to(dtype)
+            sq_max = float(torch.amax(torch.sum(Xc.float() ** 2, dim=-1)))
+            for metric in ref.METRICS:
+                for form in ("gram", "direct"):
+                    K = pairwise_dist_batch_cuda(Xc, metric=metric,
+                                                 form=form)
+                    P = ref.pairwise_dissim_batch_ref(Xc, metric=metric,
+                                                      form=form)
+                    torch.diagonal(P, dim1=-2, dim2=-1).zero_()
+                    err = float(torch.amax(torch.abs(K - P)))
+                    if metric == "euclidean" and form == "gram":
+                        tol = (16 * F32_EPS * sq_max) ** 0.5
+                    else:
+                        tol = 1e-5 * float(torch.amax(torch.abs(P))) + 1e-6
+                    worst = max(worst, err)
+                    require(err <= tol, f"pairwise_dist_batch {metric}/"
+                            f"{form} {(b, n, d)} {dtype}: err {err} > {tol}")
+                    require(not bool(torch.diagonal(K, dim1=1, dim2=2).any()),
+                            "pairwise_dist_batch diagonal is not zero")
+                    for z in range(b):
+                        S = pairwise_dist_cuda(Xc[z], metric=metric,
+                                               form=form)
+                        S.fill_diagonal_(0.0)
+                        require(torch.equal(K[z], S), f"pairwise_dist_batch "
+                                f"lane {z} {metric}/{form} {(b, n, d)} "
+                                f"{dtype} != the single kernel's matrix")
+    errs["pairwise_dist_batch"] = worst
+    log("kernel-check", card=card, kernel="pairwise_dist_batch",
+        max_abs_err=worst,
+        shapes=[[8, 2048, 64], [4, 256, 64], [3, 2047, 3]],
+        lanes_equal_single_kernel=True)
+
+    for b, n in ((8, 2048), (4, 256), (3, 20000)):
+        vals = torch.randint(-20, 50, (b, n), device="cuda",
+                             generator=gen).float()     # many ties
+        mask = torch.rand(b, n, device="cuda", generator=gen) < 0.5
+        mask[-1] = True                                 # a fully masked lane
+        kv, ki = masked_argmin_cuda(vals, mask)
+        pv, pi = ref.masked_argmin_ref(vals, mask)
+        require(torch.equal(ki, pi) and torch.equal(kv, pv),
+                f"masked_argmin {(b, n)}: kernel != plain")
+        for z in range(b):
+            sv, si = masked_argmin_cuda(vals[z], mask[z])
+            require(int(si) == int(ki[z]) and torch.equal(sv, kv[z]),
+                    f"masked_argmin lane {z} of {(b, n)} != single launch")
+    log("kernel-check", card=card, kernel="masked_argmin", lane_axis=True,
+        shapes=[[8, 2048], [4, 256], [3, 20000]], bitwise=True)
+
+    b, n, d = 4, 50_000, 64
+    X = torch.randn(b, n, d, device="cuda", generator=gen)
+    step_err = 0.0
+    for metric in ref.METRICS:
+        for form in ("gram", "direct"):
+            aux = ops.metric_aux(X, metric=metric)
+            mind = torch.rand(b, n, device="cuda", generator=gen) * 50.0
+            sel = torch.rand(b, n, device="cuda", generator=gen) < 0.5
+            q = torch.randint(0, n, (b,), device="cuda", generator=gen)
+            want, _, _ = ref.prim_stream_step_batch_ref(
+                X, aux, q, mind.clone(), sel, metric=metric, form=form)
+            solo = [prim_stream_step_cuda(X[z], aux[z], q[z:z + 1],
+                                          mind[z].clone(), sel[z],
+                                          metric=metric, form=form)
+                    for z in range(b)]
+            got, ev, nq = prim_stream_step_batch_cuda(
+                X, aux, q, mind, sel, metric=metric, form=form)
+            err = float(torch.amax(torch.abs(got - want)))
+            tol = plain_tolerance(torch, metric, X.view(b * n, d), want) \
+                if form == "gram" else \
+                1e-5 * float(torch.amax(torch.abs(want))) + 1e-6
+            pv, pi = ref.masked_argmin_ref(got, sel)
+            require(err <= tol and torch.equal(nq, pi) and torch.equal(ev, pv),
+                    f"prim_stream_step_batch {metric}/{form}: err {err} "
+                    f"(tol {tol}) or its pairs differ from the plain argmin")
+            for z, (sm, se, sq) in enumerate(solo):
+                require(torch.equal(got[z], sm) and torch.equal(ev[z], se)
+                        and int(nq[z]) == int(sq),
+                        f"prim_stream_step_batch lane {z} {metric}/{form} "
+                        "!= the single step kernel")
+            if metric == "euclidean" and form == "gram":
+                step_err = err
+    errs["prim_stream_step_batch"] = step_err
+    log("kernel-check", card=card, kernel="prim_stream_step_batch", b=b,
+        n=n, d=d,
+        max_abs_err=step_err, pairs_bitwise=True,
+        lanes_equal_single_kernel=True)
+
+    b, n = 4, 4096
+    Xp = torch.from_numpy(np.stack([blobs(n, 64, k=8, seed=s)
+                                    for s in range(b)])).cuda()
+    for metric in ref.METRICS:
+        aux = ops.metric_aux(Xp, metric=metric)
+        i0 = torch.stack([_streamed_seed_pivot(x, metric=metric)
+                          for x in Xp])
+        for prune in (True, False):
+            order, edges, stats = prim_persist_cuda(Xp, aux, i0,
+                                                    metric=metric,
+                                                    prune=prune)
+            for z in range(b):
+                so, se, ss = prim_persist_cuda(Xp[z], aux[z], i0[z],
+                                               metric=metric, prune=prune)
+                require(torch.equal(order[z], so) and torch.equal(
+                    edges[z], se) and torch.equal(stats[z], ss),
+                    f"prim_persist lane {z} {metric} prune={prune} != a "
+                    "single launch")
+    aux = ops.metric_aux(Xp)
+    i0 = torch.stack([_streamed_seed_pivot(x, metric="euclidean")
+                      for x in Xp])
+    order, _, _ = prim_persist_cuda(Xp, aux, i0)
+    porder, _ = ref.prim_persist_batch_ref(Xp, aux, i0)
+    excess = max(abs(tree_weight(torch, Xp[z], order[z])
+                     - tree_weight(torch, Xp[z], porder[z]))
+                 / tree_weight(torch, Xp[z], porder[z]) for z in range(b))
+    require(excess <= EXCESS_F32, f"prim_persist lanes vs plain: tree "
+            f"weight excess {excess} > {EXCESS_F32}")
+    log("kernel-check", card=card, kernel="prim_persist", lane_axis=True,
+        b=b, n=n,
+        lanes_equal_single_launch=["pruned", "eager"],
+        plain_tree_weight_rel_excess=excess)
+    return errs
+
+
+def phase_batch_vat(torch, rt, ops, build, card):
+    """FastVAT().fit_many(Xs) at the top of the batched vat window (b = 8,
+    n = 2,048, d = 64), then method="ivat" and metric="precomputed" on the
+    same stack; every lane against its solo fit, bit for bit."""
+    b, n, d = 8, 2048, 64
+    Xs = np.stack([blobs(n, d, k=8, seed=s) for s in range(b)])
+    build.reset_launch_counts()
+    walls = {}
+    fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit_many(Xs))
+    order, walls["order"] = wall_s(torch, fv.order)
+    img, walls["image"] = wall_s(torch, fv.image)
+    img_iv, walls["image_ivat"] = wall_s(
+        torch, lambda: fv.image(use_ivat=True))
+    reps, walls["assess"] = wall_s(torch, fv.assess)
+    launches = build.launch_counts()
+    _, walls["fit_again"] = wall_s(torch, lambda: rt.FastVAT().fit_many(Xs))
+    require(fv.method_resolved == "vat" and fv.batched,
+            f"auto fit_many picked {fv.method_resolved!r} at n={n}")
+    require(fv.result.meta.device.startswith("cuda"), "fit did not run on cuda")
+    require(launches["pairwise_dist_batch"] == 1
+            and launches["masked_argmin"] == n - 1
+            and launches["ivat_from_vat"] == 1
+            and launches["prim_persist"] == launches["prim_stream_step"]
+            == launches["prim_stream_step_batch"] == 0
+            and launches["knn_graph"] == launches["knn_graph_batch"] == 0,
+            f"batch-vat launch counts {launches}")
+    require(order.shape == (b, n) and img.shape == (b, n, n)
+            and np.isfinite(img).all() and np.isfinite(img_iv).all(),
+            "bad batched images")
+    require(np.array_equal(img_iv, np.swapaxes(img_iv, 1, 2))
+            and not np.diagonal(img_iv, axis1=1, axis2=2).any()
+            and bool((img_iv <= img).all()),
+            "batched iVAT images not symmetric, zero-diagonal, below VAT")
+    require([r.batch_index for r in reps] == list(range(b))
+            and all(r.k_est == 8 and r.clustered and 0 < r.hopkins < 1
+                    for r in reps), f"batched reports {reps}")
+    # a batched Prim step costs the launches of one solo step, not b times
+    from torch.profiler import ProfilerActivity, profile
+    kernels = {}
+    for label, fit in (("solo", lambda: rt.FastVAT().fit(Xs[0])),
+                       ("batched", lambda: rt.FastVAT().fit_many(Xs))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fit()
+            torch.cuda.synchronize()
+        kernels[label] = device_launches(prof)
+    require(kernels["batched"] <= kernels["solo"] * 1.05 + 64,
+            f"the batched vat fit ran {kernels['batched']} device "
+            f"operations, a solo fit {kernels['solo']}: a Prim step should "
+            "cost the same")
+    solo_s = 0.0
+    for z in range(b):
+        s, w = wall_s(torch, lambda: rt.FastVAT().fit(Xs[z]))
+        solo_s += w
+        srep = s.assess()
+        require(np.array_equal(order[z], s.order())
+                and torch.equal(fv.result.rstar[z], s.result.rstar)
+                and np.array_equal(img_iv[z], s.image(use_ivat=True))
+                and (reps[z].block_score, reps[z].k_est)
+                == (srep.block_score, srep.k_est),
+                f"batch-vat lane {z} differs from its solo fit")
+    build.reset_launch_counts()
+    fi, wall_ivat = wall_s(torch,
+                           lambda: rt.FastVAT(method="ivat").fit_many(Xs))
+    ivat_launches = build.launch_counts()
+    require(ivat_launches["pairwise_dist_batch"] == 1
+            and ivat_launches["masked_argmin"] == n - 1
+            and ivat_launches["ivat_from_vat"] == 1,
+            f"ivat fit_many launch counts {ivat_launches}")
+    require(np.array_equal(fi.order(), order)
+            and np.array_equal(fi.image(), img_iv),
+            "ivat fit_many differs from the vat fit_many's iVAT images")
+    Ds = ops.pairwise_dist_batch(
+        fv._X, form=fv.result.meta.numerics.form).cpu().numpy()
+    build.reset_launch_counts()
+    fp, wall_pre = wall_s(torch, lambda: rt.FastVAT(
+        method="ivat", metric="precomputed").fit_many(Ds))
+    pre_launches = build.launch_counts()
+    require(pre_launches["pairwise_dist_batch"] == 0
+            and pre_launches["masked_argmin"] == n - 1
+            and pre_launches["ivat_from_vat"] == 1,
+            f"precomputed fit_many launch counts {pre_launches}")
+    require(np.array_equal(fp.order(), order)
+            and np.array_equal(fp.image(), img_iv),
+            "precomputed fit_many differs from the points' fit_many")
+    log("batch-vat", card=card, b=b, n=n, d=d, method=fv.method_resolved,
+        launches=launches, walls_s=walls, solo_fits_s=solo_s,
+        device_ops_per_fit=kernels,
+        ivat_fit_s=wall_ivat, ivat_launches=ivat_launches,
+        precomputed_fit_s=wall_pre, precomputed_launches=pre_launches,
+        lanes_equal_solo=True, k_est=[r.k_est for r in reps],
+        hopkins=[r.hopkins for r in reps])
+    return launches, fv._X
+
+
+def phase_batch_flash(torch, rt, build, card):
+    """fit_many at the top of the batched auto window (b = 4, n = 50,000,
+    d = 64): the persistent engine (one launch of four CTAs), the stepwise
+    engine (n - 1 batched steps), bit for bit against each other and lane 0
+    against a solo fit; every lane against its solo fit at n = 16,384."""
+    b, n, d = 4, 50_000, 64
+    Xs = np.stack([blobs(n, d, k=8, seed=s) for s in range(b)])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    walls = {}
+    fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit_many(Xs))
+    peak = torch.cuda.max_memory_allocated() - base
+    order, walls["order"] = wall_s(torch, fv.order)
+    img, walls["image"] = wall_s(torch, fv.image)
+    img_iv, walls["image_ivat"] = wall_s(
+        torch, lambda: fv.image(use_ivat=True))
+    reps, walls["assess"] = wall_s(torch, fv.assess)
+    launches = build.launch_counts()
+    require(fv.method_resolved == "flashvat" and fv.batched,
+            f"auto fit_many picked {fv.method_resolved!r} at n={n}")
+    require(launches["prim_persist"] == 1
+            and launches["prim_stream_step_batch"] == 0
+            and launches["prim_stream_step"] == 0
+            and launches["pairwise_dist_batch"] == 1
+            and launches["masked_argmin"] == 255
+            and launches["ivat_from_vat"] == 1,
+            f"batch-flash launch counts {launches}")
+    require(peak < 1024 * 2 ** 20, f"the batched flashvat fit allocated "
+            f"{peak} bytes on the card, over 1 GiB")
+    require(all(np.array_equal(np.sort(o), np.arange(n)) for o in order),
+            "a batched flashvat order is not a permutation")
+    require(img.shape == img_iv.shape == (b, 256, 256)
+            and np.isfinite(img).all() and np.isfinite(img_iv).all(),
+            "bad batched flashvat images")
+    require(all(r.k_est == 8 and r.clustered for r in reps),
+            f"batched flashvat reports {reps}")
+    build.reset_launch_counts()
+    fs, walls["fit_stepwise"] = wall_s(
+        torch, lambda: rt.FastVAT(turbo=False).fit_many(Xs))
+    step_launches = build.launch_counts()
+    require(step_launches["prim_stream_step_batch"] == n - 1
+            and step_launches["prim_persist"] == 0
+            and step_launches["prim_stream_step"] == 0,
+            f"batched stepwise launch counts {step_launches}")
+    require(np.array_equal(fs.order(), order)
+            and torch.equal(fs.result.rstar, fv.result.rstar)
+            and np.array_equal(fs.image(use_ivat=True), img_iv),
+            "batched stepwise and persistent engines differ")
+    s0, walls["solo_fit_lane0"] = wall_s(torch,
+                                         lambda: rt.FastVAT().fit(Xs[0]))
+    require(np.array_equal(s0.order(), order[0])
+            and torch.equal(s0.result.rstar, fv.result.rstar[0])
+            and np.array_equal(s0.image(use_ivat=True), img_iv[0]),
+            "batched flashvat lane 0 differs from its solo fit")
+    n2, d2 = 16_384, 32
+    X2 = np.stack([blobs(n2, d2, k=8, seed=10 + s) for s in range(b)])
+    f2, walls["fit_16384"] = wall_s(
+        torch, lambda: rt.FastVAT(method="flashvat").fit_many(X2))
+    solo2 = 0.0
+    for z in range(b):
+        s, w = wall_s(torch,
+                      lambda: rt.FastVAT(method="flashvat").fit(X2[z]))
+        solo2 += w
+        require(np.array_equal(s.order(), f2.order()[z])
+                and torch.equal(s.result.ivat_image, f2.result.ivat_image[z]),
+                f"batched flashvat n={n2} lane {z} differs from its solo fit")
+    walls["solo_fits_16384"] = solo2
+    log("batch-flash", card=card, b=b, n=n, d=d, method=fv.method_resolved,
+        launches=launches, step_launches=step_launches, walls_s=walls,
+        peak_alloc_mib=peak / 2 ** 20, engines_bitwise=True,
+        lane0_equals_solo=True, lanes_equal_solo_n16384=True,
+        k_est=[r.k_est for r in reps], hopkins=[r.hopkins for r in reps])
+    return step_launches, Xs
+
+
+def phase_knn_batch(torch, ref, build, gen, card):
+    """ops.knn_graph_batch at the top of the exact-kNN window, four lanes:
+    each lane the single kNN kernel's lists, bit for bit; the plain version
+    within the pairwise tolerance; then its times and bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.knn_graph import (knn_graph_batch_cuda,
+                                              knn_topk_cuda)
+    b, n, d, k = 4, 32_768, 64, 15
+    X = torch.randn(b, n, d, device="cuda", generator=gen)
+    ids = torch.arange(n, device="cuda")
+    build.reset_launch_counts()
+    (dist, idx), wall = wall_s(torch, lambda: ops.knn_graph_batch(X, k=k))
+    launches = build.launch_counts()["knn_graph_batch"]
+    require(launches == 1, f"knn_graph_batch launched {launches} times")
+    for z in range(b):
+        sd, si = knn_topk_cuda(X[z], X[z], ids, ids, k=k)
+        require(torch.equal(dist[z], sd) and torch.equal(idx[z], si),
+                f"knn_graph_batch lane {z} != the single kNN kernel")
+    pd, pi = ref.knn_graph_batch_ref(X, k=k)
+    err = float(torch.amax(torch.abs(dist - pd)))
+    tol = plain_tolerance(torch, "euclidean", X.view(b * n, d), pd)
+    require(err <= tol, f"knn_graph_batch vs plain: {err} > {tol}")
+
+    def library():   # cdist + topk per lane in row blocks; a yardstick only
+        out = []
+        for z in range(b):
+            for r0 in range(0, n, 4096):
+                D = torch.cdist(X[z, r0:r0 + 4096], X[z])
+                rr = torch.arange(D.shape[0], device="cuda")
+                D[rr, rr + r0] = torch.inf
+                out.append(torch.topk(D, k, largest=False))
+        return out
+
+    row = {"kernel": "knn_graph_batch", "b": b, "n": n, "d": d, "k": k,
+           "ms": device_ms(torch, lambda: knn_graph_batch_cuda(X, k=k),
+                           reps=3, label="knn_graph_batch"),
+           "event_ms": event_ms(torch, lambda: knn_graph_batch_cuda(X, k=k),
+                                reps=3),
+           "plain_ms": device_ms(torch, lambda: ref.knn_graph_batch_ref(
+               X, k=k), reps=1, label="knn_graph_batch plain"),
+           "library_ms": device_ms(torch, library, reps=1,
+                                   label="knn_graph_batch library")}
+    nbytes, nops = knn_cost(n, d, k)
+    row["bound_ms"], row["bound_by"] = bound_ms(b * nbytes, b * nops)
+    log("knn-batch", card=card, b=b, n=n, d=d, k=k, launches=launches,
+        wall_s=wall,
+        lanes_equal_single_kernel=True, plain_max_abs_err=err, plain_tol=tol,
+        equal_idx_share=float((idx == pi).float().mean()))
+    log("time", card=card, **row)
+    return {"name": "knn_graph_batch", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/knn_graph.cu",
+            "replaces": "src/repro/kernels/knn_graph.py:187",
+            "launches": launches, "max_abs_err": err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
+def phase_batch_times(torch, ref, ops, Xv, Xf, errs, vat_launches,
+                      step_launches, card):
+    """The batched pairwise kernel at batch-vat's shape (8, 2,048, 64) and
+    the batched step at batch-flash's (4, 50,000, 64), beside their plain
+    versions, one library call where there is one, and their bounds."""
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_batch_cuda
+    from repro_torch.kernels.prim_stream import prim_stream_step_batch_cuda
+    Xv = Xv.float().contiguous()
+    b, n, d = Xv.shape
+    nbytes, nops = pairwise_cost(n, None, d)
+    pw = {"kernel": "pairwise_dist_batch", "b": b, "n": n, "d": d,
+          "ms": device_ms(torch, lambda: pairwise_dist_batch_cuda(Xv),
+                          reps=20, label="pairwise_dist_batch"),
+          "event_ms": event_ms(torch, lambda: pairwise_dist_batch_cuda(Xv),
+                               reps=20),
+          "plain_ms": device_ms(torch, lambda: ref.pairwise_dissim_batch_ref(
+              Xv), reps=20, label="pairwise_dist_batch plain"),
+          "library_ms": device_ms(torch, lambda: torch.cdist(Xv, Xv),
+                                  reps=20, label="pairwise_dist_batch cdist")}
+    pw["bound_ms"], pw["bound_by"] = bound_ms(b * nbytes, b * nops)
+    log("time", card=card, **pw)
+    from repro_torch.kernels.prim_update import masked_argmin_cuda
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vals = torch.rand(b, n, device="cuda", generator=gen)
+    mask = torch.rand(b, n, device="cuda", generator=gen) < 0.5
+    am = {"kernel": "masked_argmin", "lane_axis": True, "b": b, "n": n,
+          "ms": device_ms(torch, lambda: masked_argmin_cuda(vals, mask),
+                          reps=200, label="masked_argmin (b, n)"),
+          "event_ms": event_ms(torch, lambda: masked_argmin_cuda(vals, mask),
+                               reps=200),
+          "plain_ms": device_ms(torch, lambda: ref.masked_argmin_ref(
+              vals, mask), reps=200, label="masked_argmin (b, n) plain"),
+          "library_ms": device_ms(torch, lambda: torch.argmin(
+              vals.masked_fill(mask, torch.inf), dim=1), reps=200,
+              label="masked_argmin (b, n) library")}
+    am["bound_ms"], am["bound_by"] = bound_ms(b * argmin_cost(n)[0],
+                                              b * argmin_cost(n)[1])
+    log("time", card=card, **am)
+    Xs = torch.from_numpy(Xf).cuda()
+    b2, n2, d2 = Xs.shape
+    aux = ops.metric_aux(Xs)
+    mind = torch.full((b2, n2), torch.inf, device="cuda")
+    sel = torch.zeros((b2, n2), dtype=torch.bool, device="cuda")
+    q = torch.arange(b2, device="cuda")
+    sel.scatter_(1, q.view(b2, 1), True)
+    nbytes, nops = stream_step_cost(n2, d2)
+    st = {"kernel": "prim_stream_step_batch", "b": b2, "n": n2, "d": d2,
+          "ms": device_ms(torch, lambda: prim_stream_step_batch_cuda(
+              Xs, aux, q, mind, sel), reps=200,
+              label="prim_stream_step_batch"),
+          "event_ms": event_ms(torch, lambda: prim_stream_step_batch_cuda(
+              Xs, aux, q, mind, sel), reps=200),
+          "plain_ms": device_ms(torch, lambda: ref.prim_stream_step_batch_ref(
+              Xs, aux, q, mind, sel), reps=20,
+              label="prim_stream_step_batch plain"),
+          "library_ms": None}
+    st["bound_ms"], st["bound_by"] = bound_ms(b2 * nbytes, b2 * nops)
+    log("time", card=card, **st)
+    return [
+        # its stream time: two launches of ~0.2 ms back to back are
+        # device-bound, and torch.profiler has read it at 40 % of that
+        {"name": "pairwise_dist_batch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
+         "replaces": "src/repro/kernels/pairwise_dist.py:179",
+         "launches": vat_launches["pairwise_dist_batch"],
+         "max_abs_err": errs["pairwise_dist_batch"], "ms": pw["event_ms"],
+         "timer": "cuda events", "profiler_ms": pw["ms"],
+         "plain_ms": pw["plain_ms"], "bound_ms": pw["bound_ms"],
+         "bound_by": pw["bound_by"], "library_ms": pw["library_ms"]},
+        {"name": "prim_stream_step_batch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/prim_stream.cu",
+         "replaces": "src/repro/kernels/prim_stream.py:265",
+         "launches": step_launches["prim_stream_step_batch"],
+         "max_abs_err": errs["prim_stream_step_batch"], "ms": st["ms"],
+         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+         "bound_by": st["bound_by"], "library_ms": None,
+         "library_ms_why": "no single PyTorch call folds a row into b "
+                           "frontiers and takes their masked argmins"},
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1178,6 +1645,16 @@ def main() -> int:
                   label="approx n=1000000")
     rows.append(phase_knn_times(torch, ref, knn_topk_cuda, Xk,
                                 approx_launches, knn_err))
+    del Xk
+    # the batched path: fit_many through the batched kernels
+    errs.update(check_batch_kernels(torch, ref, gen, card))
+    vat_launches, Xv = phase_batch_vat(torch, rt, ops, build, card)
+    step_launches, Xf = phase_batch_flash(torch, rt, build, card)
+    phase_profile(torch, rt, Xf, label="flashvat fit_many b=4 n=50000",
+                  many=True)
+    rows.append(phase_knn_batch(torch, ref, build, gen, card))
+    rows += phase_batch_times(torch, ref, ops, Xv, Xf, errs, vat_launches,
+                              step_launches, card)
     phase_certify(torch)
     log("done", total_s=time.perf_counter() - t0)
     print(card)

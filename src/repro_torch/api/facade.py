@@ -26,6 +26,16 @@ plain PyTorch versions.  Without a GPU the default device raises
 >>> rep = fv.assess()                    # TendencyReport, dict-like
 >>> (rep["method"], rep["k_est"], rep["clustered"])
 ('vat', 2, True)
+
+``fit_many`` assesses a (b, n, d) stack of datasets in the launches of one
+fit, each lane bit for bit its solo fit (rungs ``vat``, ``ivat`` and
+``flashvat``; auto picks among them and refuses n past 50,000):
+
+>>> fm = FastVAT(device="cpu").fit_many(np.stack([X, X[::-1].copy()]))
+>>> fm.batched, fm.order().shape, fm.image().shape
+(True, (2, 60), (2, 60, 60))
+>>> [(r["batch_index"], r["k_est"]) for r in fm.assess()]
+[(0, 2), (1, 2)]
 """
 from __future__ import annotations
 
@@ -111,6 +121,11 @@ class FastVAT:
         self.result: TendencyResult | None = None
         self._X: torch.Tensor | None = None
 
+    @property
+    def batched(self) -> bool:
+        """True after ``fit_many`` (the result carries a batch axis)."""
+        return self.result is not None and self.result.is_batched
+
     @classmethod
     def from_result(cls, result: TendencyResult, X=None) -> "FastVAT":
         """Adopt an externally produced fit (e.g. ``TendencyResult.
@@ -130,6 +145,51 @@ class FastVAT:
 
     # ------------------------------------------------------------- fit ----
 
+    def _admit(self, X, *, batched: bool = False):
+        """Admission, the numerics pre-pass and the move to the fit's
+        device, for one dataset or a (b, ...) stack: (data tensor,
+        ``NumericsReport`` or None for precomputed input)."""
+        dev = _device(self.device)
+        if isinstance(X, torch.Tensor):
+            X = X.detach().cpu().numpy()
+        if self.metric == "precomputed":
+            if self.validate:
+                validate_dissimilarity(X)
+            return torch.tensor(as_dissimilarity(X, batched=batched),
+                                device=dev), None
+        if self.validate:
+            validate_points(X, batched=batched, metric=self.metric)
+        if batched:
+            X = np.asarray(X, np.float32)
+            if X.ndim != 3:
+                raise ValueError(f"fit_many wants a (b, n, d) stack, got "
+                                 f"shape {X.shape}")
+        Xr, num_report = resolve_numerics(X, metric=self.metric,
+                                          policy=self.numerics,
+                                          batched=batched)
+        data = torch.tensor(Xr, device=dev)
+        if num_report.dtype == "bf16":  # exact: Xr is bf16-quantized
+            data = data.to(torch.bfloat16)
+        return data, num_report
+
+    def _run(self, fitter, data, method: str, num_report,
+             batch: int | None) -> "FastVAT":
+        """Run a rung's fitter on admitted data and keep the result."""
+        dev = data.device
+        meta = ResultMeta(method=method, metric=self.metric,
+                          n=int(data.shape[0 if batch is None else 1]),
+                          batch=batch, seed=self.seed, device=str(dev),
+                          sample_size=self.sample_size, numerics=num_report)
+        with device_scope(dev):
+            self.result = fitter(data, meta, RungOptions(
+                sample_size=self.sample_size, turbo=self.turbo,
+                knn_k=self.knn_k,
+                num_form=(num_report.form if num_report is not None
+                          else "gram")))
+        self.method_resolved = method
+        self._X = data
+        return self
+
     def fit(self, X) -> "FastVAT":
         """Run the resolved rung on one dataset.
 
@@ -141,23 +201,8 @@ class FastVAT:
         Returns:
           self; ``self.result`` is the rung's ``TendencyResult``.
         """
-        dev = _device(self.device)
-        if isinstance(X, torch.Tensor):
-            X = X.detach().cpu().numpy()
+        data, num_report = self._admit(X)
         precomputed = self.metric == "precomputed"
-        num_report = None
-        if precomputed:
-            if self.validate:
-                validate_dissimilarity(X)
-            data = torch.tensor(as_dissimilarity(X), device=dev)
-        else:
-            if self.validate:
-                validate_points(X, metric=self.metric)
-            Xr, num_report = resolve_numerics(X, metric=self.metric,
-                                              policy=self.numerics)
-            data = torch.tensor(Xr, device=dev)
-            if num_report.dtype == "bf16":  # exact: Xr is bf16-quantized
-                data = data.to(torch.bfloat16)
         n = int(data.shape[0])
         method = (self.method if self.method != "auto"
                   else select_method(n, precomputed=precomputed))
@@ -165,18 +210,57 @@ class FastVAT:
         if precomputed and not rung.supports_precomputed:
             raise ValueError(f"method {method!r} does not accept "
                              "metric='precomputed'")
-        meta = ResultMeta(method=method, metric=self.metric, n=n,
-                          seed=self.seed, device=str(dev),
-                          sample_size=self.sample_size, numerics=num_report)
-        with device_scope(dev):
-            self.result = rung.fit(data, meta, RungOptions(
-                sample_size=self.sample_size, turbo=self.turbo,
-                knn_k=self.knn_k,
-                num_form=(num_report.form if num_report is not None
-                          else "gram")))
-        self.method_resolved = method
-        self._X = data
-        return self
+        return self._run(rung.fit, data, method, num_report, None)
+
+    def fit_many(self, Xs) -> "FastVAT":
+        """Assess a stack of datasets in the launches of one fit.
+
+        Args:
+          Xs: (b, n, d) array-like — b independent datasets of n points
+            each (a list of equal-shape (n, d) arrays also works); with
+            ``metric="precomputed"`` a (b, n, n) dissimilarity stack.
+
+        Returns:
+          self.  ``order()`` then gives (b, n), ``image()`` a (b, ·, ·)
+          stack and ``assess()`` a list of b reports.
+
+        Only rungs with a batched fitter batch (``vat``, ``ivat``,
+        ``flashvat``); "auto" resolves among them and refuses n past the
+        largest batching threshold (50,000).  The kernels take the lane as
+        an axis, so the stack costs about the launches of one fit, and
+        each lane's result is its solo ``fit`` bit for bit.  For larger n,
+        loop ``fit()`` per dataset.
+        """
+        data, num_report = self._admit(Xs, batched=True)
+        precomputed = self.metric == "precomputed"
+        b, n = int(data.shape[0]), int(data.shape[1])
+        method = self.method
+        if method == "auto":
+            try:
+                # precomputed input may exceed the exact rung's threshold:
+                # the O(n^2) matrix already exists, so fall back to it
+                method = select_method(n, precomputed=precomputed,
+                                       batched=True, strict=not precomputed)
+            except LookupError:
+                cap = max(r.auto_threshold for r in
+                          map(registry.get_rung, registry.registered())
+                          if r.supports_batch
+                          and r.auto_threshold is not None)
+                raise ValueError(
+                    f"fit_many batches the exact rungs only (n <= {cap}),"
+                    f" got per-dataset n={n}; loop fit() per dataset for"
+                    " the approx rung") from None
+        rung = registry.get_rung(method)
+        if not rung.supports_batch:
+            batchable = [r for r in registry.registered()
+                         if registry.get_rung(r).supports_batch]
+            raise ValueError(
+                f"fit_many supports methods with a batched fitter "
+                f"({batchable} or 'auto'), got {self.method!r}")
+        if precomputed and not rung.supports_precomputed:
+            raise ValueError(f"method {method!r} does not accept "
+                             "metric='precomputed'")
+        return self._run(rung.fit_batch, data, method, num_report, b)
 
     # --------------------------------------------------------- queries ----
 
@@ -186,7 +270,8 @@ class FastVAT:
         return self.result
 
     def order(self) -> np.ndarray:
-        """VAT ordering of all n points, as a host array."""
+        """VAT ordering of all n points, as a host array ((b, n) after
+        ``fit_many``)."""
         return self._require_fit().order.cpu().numpy()
 
     def sample_indices(self) -> np.ndarray | None:
@@ -212,31 +297,49 @@ class FastVAT:
                                                          replace=False))
         return X.index_select(0, torch.as_tensor(idx, device=X.device)).float()
 
-    def assess(self, generator: torch.Generator | None = None
-               ) -> TendencyReport:
+    def _assess_one(self, rstar: torch.Tensor, X: torch.Tensor,
+                    generator: torch.Generator, meta: ResultMeta,
+                    batch_index: int | None) -> TendencyReport:
+        """Score one (rstar, X) pair: Hopkins + block structure."""
+        score, k_est = core.block_structure_score(rstar)
+        score = float(score)
+        if meta.metric == "precomputed":
+            # no point coordinates to probe — Hopkins is undefined
+            h, clustered = float("nan"), score > 0.3
+        else:
+            Xh = self._hopkins_subsample(X, meta)
+            h = float(core.hopkins(Xh, generator))
+            clustered = h > 0.75 and score > 0.3
+        return TendencyReport(method=meta.method, metric=meta.metric,
+                              n=meta.n, hopkins=h, block_score=score,
+                              k_est=int(k_est), clustered=bool(clustered),
+                              batch_index=batch_index)
+
+    def assess(self, generator: torch.Generator | None = None):
         """Machine-checkable tendency report: Hopkins + block structure.
+
+        Returns one ``TendencyReport`` after ``fit`` and a list of b of them
+        after ``fit_many``, with ``batch_index`` 0..b-1.
 
         Args:
           generator: source of the Hopkins probes, on the fit's device;
-            None derives one from the fit's seed (``meta.generator``).
+            None derives one from the fit's seed (``meta.generator``), for
+            lane i of a batched fit its own from (seed, salt, i).  A given
+            generator serves the lanes in turn.
         """
         res = self._require_fit()
         meta = res.meta
         with device_scope(res.rstar.device):
-            score, k_est = core.block_structure_score(res.rstar)
-            score = float(score)
-            if meta.metric == "precomputed":
-                # no point coordinates to probe — Hopkins is undefined
-                h, clustered = float("nan"), score > 0.3
-            else:
+            if meta.batch is None:
                 if generator is None:
                     generator = meta.generator(SALT_ASSESS)
-                Xh = self._hopkins_subsample(self._X, meta)
-                h = float(core.hopkins(Xh, generator))
-                clustered = h > 0.75 and score > 0.3
-        return TendencyReport(method=meta.method, metric=meta.metric,
-                              n=meta.n, hopkins=h, block_score=score,
-                              k_est=int(k_est), clustered=bool(clustered))
+                return self._assess_one(res.rstar, self._X, generator, meta,
+                                        None)
+            return [self._assess_one(
+                res.rstar[i], None if self._X is None else self._X[i],
+                generator if generator is not None
+                else meta.generator(SALT_ASSESS, i), meta, i)
+                for i in range(meta.batch)]
 
 
 def assess_tendency(X, **kwargs) -> TendencyReport:

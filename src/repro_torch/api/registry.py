@@ -21,6 +21,10 @@ another.
 'approx'
 >>> registry.select_method(1_000_000, precomputed=True)   # matrix exists
 'vat'
+>>> [r for r in registry.registered() if registry.get_rung(r).supports_batch]
+['vat', 'ivat', 'flashvat']
+>>> registry.select_method(10_000, batched=True)
+'flashvat'
 """
 from __future__ import annotations
 
@@ -81,6 +85,8 @@ class Rung:
       name: the ``method=`` string.
       fit: solo fitter — (X_or_D tensor on the fit's device, meta,
         options) -> TendencyResult.
+      fit_batch: batched fitter over a (b, n, d) stack (or a (b, n, n)
+        precomputed stack); None means the rung doesn't batch.
       supports_precomputed: accepts metric="precomputed" input.
       auto_threshold: largest n ``select_method`` hands this rung
         (math.inf = unbounded fallback); None = never auto-selected.
@@ -89,9 +95,14 @@ class Rung:
 
     name: str
     fit: Fitter
+    fit_batch: Fitter | None = None
     supports_precomputed: bool = False
     auto_threshold: float | None = None
     description: str = ""
+
+    @property
+    def supports_batch(self) -> bool:
+        return self.fit_batch is not None
 
 
 _REGISTRY: dict[str, Rung] = {}
@@ -137,7 +148,7 @@ def methods() -> tuple[str, ...]:
 
 
 def select_method(n: int, *, precomputed: bool = False,
-                  strict: bool = False) -> str:
+                  batched: bool = False, strict: bool = False) -> str:
     """The auto-selection policy, data-driven over rung capabilities.
 
     The candidates are the registered rungs with a threshold, the same
@@ -146,6 +157,7 @@ def select_method(n: int, *, precomputed: bool = False,
     Args:
       n: points per dataset.
       precomputed: restrict to rungs accepting metric="precomputed".
+      batched: restrict to rungs with a batched fitter.
       strict: raise LookupError when no candidate's threshold covers n
         instead of falling back to the largest-threshold candidate (the
         fallback serves precomputed input, where the O(n^2) matrix
@@ -156,11 +168,12 @@ def select_method(n: int, *, precomputed: bool = False,
     """
     cands = [(r.auto_threshold, r.name) for r in _REGISTRY.values()
              if r.auto_threshold is not None
-             and (r.supports_precomputed or not precomputed)]
+             and (r.supports_precomputed or not precomputed)
+             and (r.supports_batch or not batched)]
     cands.sort()
     if not cands:
         raise LookupError(f"no auto-selectable rung matches "
-                          f"(precomputed={precomputed})")
+                          f"(precomputed={precomputed}, batched={batched})")
     for threshold, name in cands:
         if n <= threshold:
             return name
@@ -179,8 +192,22 @@ def _vat_result(data, meta: ResultMeta, opts: RungOptions) -> core.VATResult:
     return core.vat(data, metric=meta.metric, form=opts.num_form)
 
 
+def _vat_result_batch(data, meta: ResultMeta,
+                      opts: RungOptions) -> core.VATResult:
+    if meta.metric == "precomputed":
+        return core.vat_batch_from_dist(data)
+    return core.vat_batch(data, metric=meta.metric, form=opts.num_form)
+
+
 def _fit_vat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     res = _vat_result(data, meta, opts)
+    return TendencyResult(order=res.order, rstar=res.rstar, ivat_image=None,
+                          sample_idx=None, extension_labels=None, meta=meta)
+
+
+def _fit_vat_batch(data, meta: ResultMeta,
+                   opts: RungOptions) -> TendencyResult:
+    res = _vat_result_batch(data, meta, opts)
     return TendencyResult(order=res.order, rstar=res.rstar, ivat_image=None,
                           sample_idx=None, extension_labels=None, meta=meta)
 
@@ -188,6 +215,14 @@ def _fit_vat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
 def _fit_ivat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     res = _vat_result(data, meta, opts)
     iv = core.ivat_from_vat(res.rstar)
+    return TendencyResult(order=res.order, rstar=res.rstar, ivat_image=iv,
+                          sample_idx=None, extension_labels=None, meta=meta)
+
+
+def _fit_ivat_batch(data, meta: ResultMeta,
+                    opts: RungOptions) -> TendencyResult:
+    res = _vat_result_batch(data, meta, opts)
+    iv = core.ivat_from_vat(res.rstar)     # (b, n, n): one launch
     return TendencyResult(order=res.order, rstar=res.rstar, ivat_image=iv,
                           sample_idx=None, extension_labels=None, meta=meta)
 
@@ -213,8 +248,17 @@ def _rep_ivat(Rrep: torch.Tensor) -> torch.Tensor:
     matrix it runs on, and band order (representatives sorted by their
     position in the full-n ordering) is generally not one — so the
     geodesics run along the representatives' own Prim order
-    (``vat_from_dist``) and are permuted back to band order.
+    (``vat_from_dist``) and are permuted back to band order.  A (b, m, m)
+    stack runs lane by lane in the launches of one matrix
+    (``vat_batch_from_dist``, the (b, m, m) iVAT launch, two gathers).
     """
+    if Rrep.dim() == 3:
+        sres = core.vat_batch_from_dist(Rrep)
+        iv_s = core.ivat_from_vat(sres.rstar)
+        rank = torch.empty_like(sres.order)
+        rank.scatter_(1, sres.order, torch.arange(
+            Rrep.shape[1], device=Rrep.device).expand_as(sres.order))
+        return core.reorder_batch(iv_s, rank)
     sres = core.vat_from_dist(Rrep)
     iv_s = core.ivat_from_vat(sres.rstar)
     m = Rrep.shape[0]
@@ -270,6 +314,38 @@ def _fit_flashvat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     return _band_render(Xf, res.order, meta, opts)
 
 
+def _fit_flashvat_batch(data, meta: ResultMeta,
+                        opts: RungOptions) -> TendencyResult:
+    """Batched Flash-VAT: each lane's exact matrix-free ordering (one
+    persistent launch of b CTAs, or n - 1 batched steps), then the banded
+    render of every lane in the launches of one: the (b, m, m)
+    representatives' matrices (one ``pairwise_dist_batch`` launch) and
+    their iVAT images (``_rep_ivat`` on the stack).  Each lane equals the
+    solo ``_fit_flashvat`` of its dataset bit for bit; no (b, n, n) object
+    exists."""
+    Xf = data.float().contiguous()
+    res = core.vat_matrix_free_batch(Xf, metric=meta.metric,
+                                     form=opts.num_form,
+                                     turbo=opts.turbo is not False)
+    b, n, d = Xf.shape
+    m = min(opts.sample_size, n)
+    sizes, mids = _flash_groups(n, m)
+    dev = Xf.device
+    rep_idx = res.order[:, torch.as_tensor(mids, device=dev)]       # (b, m)
+    prot = torch.gather(Xf, 1, rep_idx[:, :, None].expand(b, m, d))
+    Rrep = kops.pairwise_dist_batch(prot, metric=meta.metric,
+                                    form=opts.num_form)
+    iv = _rep_ivat(Rrep)
+    gid = torch.as_tensor(np.repeat(np.arange(m, dtype=np.int64), sizes),
+                          device=dev)
+    labels = torch.empty((b, n), dtype=torch.int64, device=dev)
+    labels.scatter_(1, res.order, gid.expand(b, n))
+    return TendencyResult(order=res.order, rstar=Rrep, ivat_image=iv,
+                          sample_idx=rep_idx, extension_labels=labels,
+                          group_sizes=torch.as_tensor(sizes, device=dev),
+                          meta=meta)
+
+
 def _fit_approx(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     """Approx-VAT: the kNN-graph Borůvka MST ordering, then the banded
     render.
@@ -289,16 +365,16 @@ def _fit_approx(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
 
 
 register(Rung(
-    name="vat", fit=_fit_vat, supports_precomputed=True,
-    auto_threshold=SMALL_N,
+    name="vat", fit=_fit_vat, fit_batch=_fit_vat_batch,
+    supports_precomputed=True, auto_threshold=SMALL_N,
     description="exact VAT — O(n^2) matrix fits easily"))
 register(Rung(
-    name="ivat", fit=_fit_ivat, supports_precomputed=True,
-    auto_threshold=None,
+    name="ivat", fit=_fit_ivat, fit_batch=_fit_ivat_batch,
+    supports_precomputed=True, auto_threshold=None,
     description="exact VAT + geodesic (iVAT) image; opt-in"))
 register(Rung(
-    name="flashvat", fit=_fit_flashvat, supports_precomputed=False,
-    auto_threshold=MEDIUM_N,
+    name="flashvat", fit=_fit_flashvat, fit_batch=_fit_flashvat_batch,
+    supports_precomputed=False, auto_threshold=MEDIUM_N,
     description="matrix-free exact VAT (Flash-VAT): persistent Prim kernel, "
                 "O(n·d) memory, no (n, n) object"))
 register(Rung(

@@ -6,9 +6,10 @@ ivat rungs both return it, so downstream code reads ``result.order`` /
 fields are tensors on the device the fit ran on.
 
 ``ResultMeta`` is the single seed source: every sampling path — on the
-device (the Hopkins probes, through ``generator(salt)``) and on the host
-(the Hopkins subsample, through ``host_rng(salt)``) — derives from
-``meta.seed``, which makes a fit reproducible from its meta alone.
+device (the Hopkins probes, through ``generator(salt)``, per lane of a
+batched fit ``generator(salt, lane)``) and on the host (the Hopkins
+subsample, through ``host_rng(salt)``) — derives from ``meta.seed``, which
+makes a fit reproducible from its meta alone.
 
 ``TendencyReport`` is ``assess()``'s stable shape, with dict-like access.
 
@@ -66,6 +67,8 @@ class ResultMeta:
       metric: dissimilarity metric the fit used ("precomputed" means the
         caller handed the matrix in).
       n: points per dataset.
+      batch: lanes of a ``fit_many`` (the result's arrays then carry a
+        leading batch axis); None for a solo fit.
       seed: the single seed every sampling path derives from.
       device: the device the fit ran on ("cuda", "cuda:0", "cpu").  On a
         CUDA device every kernel of the fit was the CUDA kernel; on the
@@ -84,17 +87,23 @@ class ResultMeta:
     method: str
     metric: str = "euclidean"
     n: int = 0
+    batch: int | None = None
     seed: int = 0
     device: str = "cuda"
     sample_size: int | None = None
     approx: ApproxStats | None = None
     numerics: NumericsReport | None = None
 
-    def generator(self, salt: int = SALT_FIT) -> torch.Generator:
+    def generator(self, salt: int = SALT_FIT,
+                  lane: int | None = None) -> torch.Generator:
         """``torch.Generator`` on the fit's device, seeded from
         (seed, salt) — the port's counterpart of the reference's
-        ``jax_key(salt)``."""
-        seed = int(np.random.SeedSequence([self.seed, salt])
+        ``jax_key(salt)`` — or, for lane i of a batched fit, from
+        (seed, salt, i), where the reference splits its key b ways (JAX's
+        split draws cannot be reproduced in torch, so the lanes' streams
+        are derived, not split)."""
+        entropy = [self.seed, salt] + ([] if lane is None else [lane])
+        seed = int(np.random.SeedSequence(entropy)
                    .generate_state(1, np.uint64)[0] >> np.uint64(1))
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -111,7 +120,9 @@ class TendencyResult:
     """What every rung returns: ordering + images, one shape.
 
     Attributes:
-      order: (n,) int64 VAT ordering of all n points.
+      order: (n,) int64 VAT ordering of all n points; (b, n) after
+        ``fit_many``, as every array below gains a leading batch axis
+        (``group_sizes`` excepted: one band layout serves every lane).
       rstar: reordered dissimilarity image — (n, n) for vat/ivat, the
         (m, m) matrix of the representatives in band order for flashvat
         and approx.
@@ -139,13 +150,19 @@ class TendencyResult:
     def n(self) -> int:
         return self.meta.n
 
+    @property
+    def is_batched(self) -> bool:
+        return self.meta.batch is not None
+
     @classmethod
     def from_arrays(cls, order, rstar, ivat_image, meta: ResultMeta, *,
                     sample_idx=None, extension_labels=None,
                     group_sizes=None) -> "TendencyResult":
         """A result from host arrays — e.g. the fields of a reference
         ``TendencyResult`` as numpy arrays — placed on ``meta.device``, so
-        ``image()`` and ``assess()`` can be run on a fit made elsewhere."""
+        ``image()`` and ``assess()`` can be run on a fit made elsewhere.  A
+        batched fit's arrays come with their batch axis and ``meta.batch``
+        set."""
         def put(a, dtype):
             return None if a is None else torch.tensor(
                 np.asarray(a), dtype=dtype, device=meta.device)
@@ -166,7 +183,8 @@ class TendencyResult:
         ``use_ivat=False`` forces the plain reordered dissimilarities.
         Results carrying ``group_sizes`` are expanded to ``resolution``
         pixels by group size; everything else returns the image at its
-        native size, as a host numpy array.
+        native size, as a host numpy array.  A batched result gives the
+        (b, ·, ·) stack of its lanes' images.
         """
         want_ivat = (self.ivat_image is not None if use_ivat is None
                      else bool(use_ivat))

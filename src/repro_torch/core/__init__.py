@@ -10,15 +10,21 @@ from repro_torch.core.approx_mst import (ApproxStats, ApproxVATResult,
                                          knn_graph_anchored, mst_vat_order)
 from repro_torch.core.bigvat import expand_image
 from repro_torch.core.hopkins import hopkins, hopkins_draws, hopkins_from_draws
-from repro_torch.core.ivat import ivat, ivat_from_vat
+from repro_torch.core.ivat import (ivat, ivat_batch, ivat_batch_from_dist,
+                                   ivat_batch_from_vat, ivat_from_vat)
 from repro_torch.core.vat import (FlashVATResult, VATResult,
-                                  block_structure_score, reorder, vat,
-                                  vat_from_dist, vat_matrix_free, vat_order)
+                                  block_structure_score, reorder,
+                                  reorder_batch, vat, vat_batch,
+                                  vat_batch_from_dist, vat_from_dist,
+                                  vat_matrix_free, vat_matrix_free_batch,
+                                  vat_order, vat_order_batch)
 
 __all__ = [
     "vat", "vat_from_dist", "vat_order", "reorder", "VATResult",
-    "vat_matrix_free", "FlashVATResult",
-    "block_structure_score", "ivat", "ivat_from_vat", "hopkins",
+    "vat_batch", "vat_batch_from_dist", "vat_order_batch", "reorder_batch",
+    "vat_matrix_free", "vat_matrix_free_batch", "FlashVATResult",
+    "block_structure_score", "ivat", "ivat_from_vat", "ivat_batch",
+    "ivat_batch_from_dist", "ivat_batch_from_vat", "hopkins",
     "hopkins_draws", "hopkins_from_draws", "expand_image",
     "approx_vat", "ApproxVATResult", "ApproxStats", "MSTEdges",
     "boruvka_mst", "mst_vat_order", "knn_graph_anchored",

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.vat import VATResult, vat_from_dist
+from repro_torch.core.vat import (VATResult, vat_batch_from_dist,
+                                  vat_from_dist)
 from repro_torch.kernels import ops as kops
 
 
@@ -19,12 +20,13 @@ def ivat_from_vat(rstar: torch.Tensor) -> torch.Tensor:
 
     Args:
       rstar: (n, n) float32 — VAT-ordered dissimilarity matrix (the
-        ``rstar`` field of a ``VATResult``). Must be VAT-ordered: the
+        ``rstar`` field of a ``VATResult``), or a (b, n, n) stack of them
+        (one launch for the stack on the card). Must be VAT-ordered: the
         recurrence below is only valid along a recorded Prim traversal.
 
     Returns:
-      (n, n) float32 — D', the max-min path ("geodesic") distance matrix,
-      symmetric with zero diagonal.
+      float32 of rstar's shape — D', the max-min path ("geodesic")
+      distance matrix, symmetric with zero diagonal.
 
     The Havens & Bezdek (2012) recurrence: with D = R* VAT-ordered,
     D'[0, 0] = 0, and for each r = 1 .. n-1 in order,
@@ -55,3 +57,32 @@ def ivat(R: torch.Tensor) -> tuple[torch.Tensor, VATResult]:
     """
     res = vat_from_dist(R)
     return ivat_from_vat(res.rstar), res
+
+
+def ivat_batch(X: torch.Tensor, *, metric: str = "euclidean",
+               form: str = "gram") -> tuple[torch.Tensor, VATResult]:
+    """Batched iVAT: a stack of datasets -> a stack of geodesic images.
+
+    Args:
+      X: (b, n, d) float — raw data, unlike ``ivat``, which takes a matrix;
+        for a (b, n, n) dissimilarity stack use ``ivat_batch_from_dist``.
+      metric: one of ``kernels.ref.METRICS``.
+      form: "gram" (default) or "direct".
+
+    Returns:
+      ((b, n, n) float32 iVAT stack, batched VATResult).  Lane z equals
+      ``ivat(kernels.ops.pairwise_dist(X[z]))`` bit for bit.
+    """
+    R = kops.pairwise_dist_batch(X, metric=metric, form=form)
+    return ivat_batch_from_dist(R)
+
+
+def ivat_batch_from_dist(R: torch.Tensor) -> tuple[torch.Tensor, VATResult]:
+    """Batched ``ivat``: a precomputed (b, n, n) dissimilarity stack in."""
+    res = vat_batch_from_dist(R)
+    return ivat_from_vat(res.rstar), res
+
+
+def ivat_batch_from_vat(rstar: torch.Tensor) -> torch.Tensor:
+    """Geodesic transform of an already VAT-ordered (b, n, n) stack."""
+    return ivat_from_vat(rstar)

@@ -36,30 +36,47 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # X, Y, norms_x, norms_y, out, n, m, d, kind, is_bf16, y_is_x, stream
     "repro_pairwise_dist": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # vals, mask, n, partial, out, stream
-    "repro_masked_argmin": (_P, _P, _I, _P, _P, _P),
+    # X, norms, out, b, n, d, kind, is_bf16, stream
+    "repro_pairwise_dist_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # vals, mask, b, n, partial, out, stream
+    "repro_masked_argmin": (_P, _P, _I, _I, _P, _P, _P),
     "repro_masked_argmin_chunk": (),
     "repro_cuda_error_string": (_I,),
     # rstar, out, b, n, stream
     "repro_ivat_from_vat": (_P, _P, _I, _I, _P),
     # X, n, d, take_sqrt, is_bf16, out, stream
     "repro_metric_aux": (_P, _I, _I, _I, _I, _P, _P),
-    # X, aux, i0, cent, rad, slack, margin, n, d, block, kind, prune,
+    # X, aux, i0, cent, rad, slack, margin, b, n, d, block, kind, prune,
     # mind, tmin, pend, nfold, live, order, edges, stats, stream
     "repro_prim_persist": (_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I,
-                           _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                           _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P),
     # X, aux, q, mind, selected, n, d, kind, partial, out, stream
     "repro_prim_stream_step": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # X, aux, q, mind, selected, b, n, d, kind, partial, out, stream
+    "repro_prim_stream_step_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                     _P, _P),
     "repro_prim_stream_lanes": (),
     # Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, kind, out_d, out_i, stream
     "repro_knn_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                        _P),
+    # X, aux, ids, b, n, d, k, kind, out_d, out_i, stream
+    "repro_knn_topk_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "repro_knn_max_k": (),
 }
 
-#: Kernel launches per wrapper since the last ``reset_launch_counts``.
+#: Kernel launches per wrapper since the last ``reset_launch_counts``.  A
+#: lane axis launches once for the whole batch: ``masked_argmin`` and
+#: ``prim_persist`` count (b, n) calls under their own names, the batched
+#: entries of the other kernels under ``*_batch``.
 LAUNCHES = {"pairwise_dist": 0, "masked_argmin": 0, "ivat_from_vat": 0,
-            "prim_persist": 0, "prim_stream_step": 0, "knn_graph": 0}
+            "prim_persist": 0, "prim_stream_step": 0, "knn_graph": 0,
+            "pairwise_dist_batch": 0, "prim_stream_step_batch": 0,
+            "knn_graph_batch": 0}
+
+#: Most lanes one batched launch takes: the lane is a grid axis
+#: (``blockIdx.y`` or ``blockIdx.z``), whose extent CUDA caps at 65,535.
+MAX_LANES = 65_535
 
 _LIB = None
 

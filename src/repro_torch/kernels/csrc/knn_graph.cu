@@ -2,7 +2,9 @@
 // the approx rung.
 //
 // Replaces: src/repro/kernels/knn_graph.py::knn_graph_pallas (the TPU
-// kernel, pallas_call at :164; its running top-k fold is _fold_topk, :65).
+// kernel, pallas_call at :164; its running top-k fold is _fold_topk, :65),
+// and with repro_knn_topk_batch knn_graph_pallas_batch (:187, pallas_call at
+// :211), the same fold per lane of a (b, n, d) stack.
 // In query/candidate form it also does the work of the reference's per-cell
 // _cell_topk (src/repro/core/approx_mst.py:354) and of the anchored
 // assignment's pairwise tiles + lax.top_k (approx_mst.py:424).
@@ -27,7 +29,8 @@
 // TF32 and the tensor cores are ruled out, as for every kernel of the port:
 // numerics/condition.py derives KAPPA_SAFE from the f32 epsilon.  Splitting
 // the Gram tiles over mma in split-f32, one triangle of tiles, and a
-// warp-per-row top-k are later work.
+// warp-per-row top-k are later work.  A batch of b = 4 graphs at that size
+// needs b times the flops: 4.1 ms.
 //
 // Design: the TPU kernel keeps a (BM, k) best slab resident while its grid's
 // last axis sweeps the column tiles in order, and gets the lower-index tie
@@ -55,6 +58,10 @@
 //     inserts the marked candidates into its list, re-checking each against
 //     the list's current k-th key.  A stale threshold only lets more
 //     candidates through, never fewer.
+// The batch: a grid (n / 64, b), lane z = blockIdx.y; the points, their aux,
+// and the outputs sit at the lane's stride, the ids (0..n-1, lane-local) are
+// shared.  Each lane runs exactly the single graph's code, so its lists are
+// the single call's bits.  gridDim.y caps a batch at 65,535 lanes.
 #include <cuda_runtime.h>
 
 #include "argmin_key.cuh"
@@ -103,6 +110,16 @@ knn_topk_kernel(const float* __restrict__ Xq, const float* __restrict__ Xc,
     unsigned long long* marks = kth + BM;                    // [BM]
     long long* ids = reinterpret_cast<long long*>(marks + BM);  // [BN]
     float* vals = reinterpret_cast<float*>(ids + BN);        // [BM][BN + 1]
+
+    // The lane of a batch (0 for one graph): points, aux and outputs at its
+    // stride; the ids are the lane's own 0..n-1, shared by every lane.
+    const size_t lane = blockIdx.y;
+    Xq += lane * nq * d;
+    Xc += lane * nc * d;
+    if (aq != nullptr) aq += lane * nq;
+    if (ac != nullptr) ac += lane * nc;
+    out_d += lane * nq * k;
+    out_i += lane * nq * k;
 
     const int tx = threadIdx.x % (BN / TN);
     const int ty = threadIdx.x / (BN / TN);
@@ -234,16 +251,44 @@ knn_topk_kernel(const float* __restrict__ Xq, const float* __restrict__ Xc,
 template <int KIND>
 cudaError_t launch(const float* Xq, const float* Xc, const float* aq,
                    const float* ac, const long long* qid,
-                   const long long* cid, int nq, int nc, int d, int k,
+                   const long long* cid, int b, int nq, int nc, int d, int k,
                    float* out_d, long long* out_i, cudaStream_t stream) {
     const size_t smem = smem_bytes(k);
     cudaError_t err = cudaFuncSetAttribute(
         knn_topk_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    knn_topk_kernel<KIND><<<(nq + BM - 1) / BM, THREADS, smem, stream>>>(
+    const dim3 grid((nq + BM - 1) / BM, b);
+    knn_topk_kernel<KIND><<<grid, THREADS, smem, stream>>>(
         Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, out_d, out_i);
     return cudaGetLastError();
+}
+
+int dispatch(const float* Xq, const float* Xc, const float* aq,
+             const float* ac, const long long* qid, const long long* cid,
+             int b, int nq, int nc, int d, int k, int kind, float* out_d,
+             long long* out_i, cudaStream_t s) {
+    if (k < 1 || k > MAX_K || nq < 1 || nc < 1 || d < 1 || b < 1
+            || b > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+    switch (kind) {
+        case GRAM_SQEUCLIDEAN:
+            err = launch<GRAM_SQEUCLIDEAN>(Xq, Xc, aq, ac, qid, cid, b, nq, nc, d, k, out_d, out_i, s);
+            break;
+        case GRAM_EUCLIDEAN:
+            err = launch<GRAM_EUCLIDEAN>(Xq, Xc, aq, ac, qid, cid, b, nq, nc, d, k, out_d, out_i, s);
+            break;
+        case COSINE:
+            err = launch<COSINE>(Xq, Xc, aq, ac, qid, cid, b, nq, nc, d, k, out_d, out_i, s);
+            break;
+        case MANHATTAN:
+            err = launch<MANHATTAN>(Xq, Xc, aq, ac, qid, cid, b, nq, nc, d, k, out_d, out_i, s);
+            break;
+        default:
+            err = cudaErrorInvalidValue;
+    }
+    return static_cast<int>(err);
 }
 
 }  // namespace
@@ -262,25 +307,17 @@ extern "C" int repro_knn_topk(const float* Xq, const float* Xc,
                               const long long* qid, const long long* cid,
                               int nq, int nc, int d, int k, int kind,
                               float* out_d, long long* out_i, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (k < 1 || k > MAX_K || nq < 1 || nc < 1 || d < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err;
-    switch (kind) {
-        case GRAM_SQEUCLIDEAN:
-            err = launch<GRAM_SQEUCLIDEAN>(Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, out_d, out_i, s);
-            break;
-        case GRAM_EUCLIDEAN:
-            err = launch<GRAM_EUCLIDEAN>(Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, out_d, out_i, s);
-            break;
-        case COSINE:
-            err = launch<COSINE>(Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, out_d, out_i, s);
-            break;
-        case MANHATTAN:
-            err = launch<MANHATTAN>(Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, out_d, out_i, s);
-            break;
-        default:
-            err = cudaErrorInvalidValue;
-    }
-    return static_cast<int>(err);
+    return dispatch(Xq, Xc, aq, ac, qid, cid, 1, nq, nc, d, k, kind, out_d,
+                    out_i, static_cast<cudaStream_t>(stream));
+}
+
+// The batch: X (b, n, d) f32, aux (b, n) (null for manhattan), ids (n,) int64
+// = 0..n-1, each lane's graph over its own points; out_d (b, n, k) f32 and
+// out_i (b, n, k) int64, lane-local ids.  1 <= b <= 65,535, 1 <= k <= MAX_K.
+extern "C" int repro_knn_topk_batch(const float* X, const float* aux,
+                                    const long long* ids, int b, int n, int d,
+                                    int k, int kind, float* out_d,
+                                    long long* out_i, void* stream) {
+    return dispatch(X, X, aux, aux, ids, ids, b, n, n, d, k, kind, out_d,
+                    out_i, static_cast<cudaStream_t>(stream));
 }

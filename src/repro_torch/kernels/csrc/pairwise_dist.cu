@@ -2,7 +2,9 @@
 // sm_90a.
 //
 // Replaces: src/repro/kernels/pairwise_dist.py::pairwise_dist_pallas (the
-// TPU kernel, tile math in _tile_dissim).  Same four metrics and two forms:
+// TPU kernel, tile math in _tile_dissim), and with repro_pairwise_dist_batch
+// pairwise_dist_pallas_batch (:179, its (b, n/BM, n/BN) grid of per-lane
+// self-matrices).  Same four metrics and two forms:
 //   gram   euclidean / sqeuclidean  max(|x|^2 + |y|^2 - 2 x.y, 0) (sqrt)
 //          cosine                   clip(1 - x.y / max(|x||y|, 1e-12), 0, 2)
 //   direct euclidean / sqeuclidean  sum_k (x_k - y_k)^2            (sqrt)
@@ -16,6 +18,9 @@
 // tile, the full 2*n*n*d; computing one triangle of tiles and mirroring it
 // is later work.  Hopkins' rectangular calls (m = 204 probes against
 // n = 2,048 points) are about even, 0.8 us of FMAs against 0.7 us of bytes.
+// The batched self-matrices of fit_many (b = 8 lanes, n = 2,048, d = 64) are
+// bound the same way: 134 MB of output, 40 us at 3.35 TB/s, against 2.2
+// GFLOP for the eight lanes' triangles (32 us at 67 TFLOP/s).
 // TF32 tensor cores are ruled out: numerics/condition.py derives KAPPA_SAFE
 // from the f32 epsilon, and a 10-bit mantissa in the cross term would void
 // that derivation.
@@ -35,6 +40,15 @@
 // R[i, j] == R[j, i] whichever tile computes it, and a matrix-free Prim row
 // equals the matrix's row bit for bit.  Inputs are f32 or bf16
 // storage; accumulation is always f32 and the output is f32.
+//
+// The batch ("slab of one", as the TPU kernel's batch grid): lane z of a
+// (b, n, d) stack is blockIdx.z, and every operand of the tile kernel sits at
+// that lane's stride, so a lane runs exactly the single matrix's code and
+// its matrix equals the single call on that lane bit for bit.  The row-norm
+// pre-pass runs over all b n rows in one launch (row-wise, so the same bits
+// per row), and the batch writes each lane's diagonal as exactly 0 in the
+// epilogue.  gridDim.z caps a batch at 65,535 lanes; the wrapper raises
+// above it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -69,9 +83,16 @@ __global__ void __launch_bounds__(THREADS)
 pairwise_tile_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                      const float* __restrict__ nx,
                      const float* __restrict__ ny, float* __restrict__ out,
-                     int n, int m, int d) {
+                     int n, int m, int d, int zero_diag) {
     __shared__ __align__(16) float xs[BK][BM + PAD];
     __shared__ __align__(16) float ys[BK][BN + PAD];
+    // The lane of a batch (0 for one matrix): every operand at its stride.
+    const size_t lane = blockIdx.z;
+    X += lane * n * d;
+    Y += lane * m * d;
+    if (nx != nullptr) nx += lane * n;
+    if (ny != nullptr) ny += lane * m;
+    out += lane * n * m;
     const int tx = threadIdx.x % (BN / TN);
     const int ty = threadIdx.x / (BN / TN);
     const int row0 = blockIdx.y * BM;
@@ -124,7 +145,8 @@ pairwise_tile_kernel(const T* __restrict__ X, const T* __restrict__ Y,
         for (int j = 0; j < TN; ++j) {
             const int c = c0 + j;
             const float nc = (ny != nullptr && c < m) ? ny[c] : 0.0f;
-            v[j] = finish<KIND>(acc[i][j], nr, nc);
+            v[j] = (zero_diag && c == r) ? 0.0f
+                                          : finish<KIND>(acc[i][j], nr, nc);
         }
         float* dst = out + static_cast<size_t>(r) * m + c0;
         if (vec_store && c0 + TN <= m) {
@@ -139,12 +161,12 @@ pairwise_tile_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 
 template <typename T, int KIND>
 cudaError_t launch_tiles(const void* X, const void* Y, const float* nx,
-                         const float* ny, float* out, int n, int m, int d,
-                         cudaStream_t stream) {
-    const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
+                         const float* ny, float* out, int b, int n, int m,
+                         int d, int zero_diag, cudaStream_t stream) {
+    const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM, b);
     pairwise_tile_kernel<T, KIND><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(X), static_cast<const T*>(Y), nx, ny, out, n, m,
-        d);
+        d, zero_diag);
     return cudaGetLastError();
 }
 
@@ -158,39 +180,42 @@ cudaError_t launch_norms(const void* X, int n, int d, int take_sqrt,
     return cudaGetLastError();
 }
 
+// b lanes of (n, d) X against (m, d) Y (b = 1 for one matrix; a batch is
+// always a self-matrix, Y = X); the norms of all b n rows in one pre-pass.
 template <typename T>
 cudaError_t run(const void* X, const void* Y, float* norms_x, float* norms_y,
-                float* out, int n, int m, int d, int kind, int y_is_x,
-                cudaStream_t stream) {
+                float* out, int b, int n, int m, int d, int kind, int y_is_x,
+                int zero_diag, cudaStream_t stream) {
     const bool needs_norms =
         kind == GRAM_SQEUCLIDEAN || kind == GRAM_EUCLIDEAN || kind == COSINE;
     const float* nx = nullptr;
     const float* ny = nullptr;
     if (needs_norms) {
         const int take_sqrt = kind == COSINE;
-        cudaError_t err = launch_norms<T>(X, n, d, take_sqrt, norms_x, stream);
+        cudaError_t err = launch_norms<T>(X, b * n, d, take_sqrt, norms_x,
+                                          stream);
         if (err != cudaSuccess) return err;
         nx = norms_x;
         ny = norms_x;
         if (!y_is_x) {
-            err = launch_norms<T>(Y, m, d, take_sqrt, norms_y, stream);
+            err = launch_norms<T>(Y, b * m, d, take_sqrt, norms_y, stream);
             if (err != cudaSuccess) return err;
             ny = norms_y;
         }
     }
     switch (kind) {
         case GRAM_SQEUCLIDEAN:
-            return launch_tiles<T, GRAM_SQEUCLIDEAN>(X, Y, nx, ny, out, n, m, d, stream);
+            return launch_tiles<T, GRAM_SQEUCLIDEAN>(X, Y, nx, ny, out, b, n, m, d, zero_diag, stream);
         case GRAM_EUCLIDEAN:
-            return launch_tiles<T, GRAM_EUCLIDEAN>(X, Y, nx, ny, out, n, m, d, stream);
+            return launch_tiles<T, GRAM_EUCLIDEAN>(X, Y, nx, ny, out, b, n, m, d, zero_diag, stream);
         case COSINE:
-            return launch_tiles<T, COSINE>(X, Y, nx, ny, out, n, m, d, stream);
+            return launch_tiles<T, COSINE>(X, Y, nx, ny, out, b, n, m, d, zero_diag, stream);
         case DIRECT_SQEUCLIDEAN:
-            return launch_tiles<T, DIRECT_SQEUCLIDEAN>(X, Y, nx, ny, out, n, m, d, stream);
+            return launch_tiles<T, DIRECT_SQEUCLIDEAN>(X, Y, nx, ny, out, b, n, m, d, zero_diag, stream);
         case DIRECT_EUCLIDEAN:
-            return launch_tiles<T, DIRECT_EUCLIDEAN>(X, Y, nx, ny, out, n, m, d, stream);
+            return launch_tiles<T, DIRECT_EUCLIDEAN>(X, Y, nx, ny, out, b, n, m, d, zero_diag, stream);
         case MANHATTAN:
-            return launch_tiles<T, MANHATTAN>(X, Y, nx, ny, out, n, m, d, stream);
+            return launch_tiles<T, MANHATTAN>(X, Y, nx, ny, out, b, n, m, d, zero_diag, stream);
         default:
             return cudaErrorInvalidValue;
     }
@@ -213,8 +238,22 @@ extern "C" int repro_pairwise_dist(const void* X, const void* Y,
                                    int y_is_x, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const cudaError_t err = is_bf16
-        ? run<__nv_bfloat16>(X, Y, norms_x, norms_y, out, n, m, d, kind, y_is_x, s)
-        : run<float>(X, Y, norms_x, norms_y, out, n, m, d, kind, y_is_x, s);
+        ? run<__nv_bfloat16>(X, Y, norms_x, norms_y, out, 1, n, m, d, kind, y_is_x, 0, s)
+        : run<float>(X, Y, norms_x, norms_y, out, 1, n, m, d, kind, y_is_x, 0, s);
+    return static_cast<int>(err);
+}
+
+// X (b, n, d) row-major, f32 or bf16; out (b, n, n) f32, lane z the
+// self-matrix of X[z] with an exactly-zero diagonal.  norms (b n,) f32
+// scratch for the gram and cosine kinds.  1 <= b <= 65,535.
+extern "C" int repro_pairwise_dist_batch(const void* X, float* norms,
+                                         float* out, int b, int n, int d,
+                                         int kind, int is_bf16, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (b < 1 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = is_bf16
+        ? run<__nv_bfloat16>(X, X, norms, norms, out, b, n, n, d, kind, 1, 1, s)
+        : run<float>(X, X, norms, norms, out, b, n, n, d, kind, 1, 1, s);
     return static_cast<int>(err);
 }
 

@@ -52,6 +52,15 @@
 // receives.  The best candidate and the fold choice are one reduction of two
 // packed (value, tile) keys; the winner is found by scanning only the first
 // tile whose fresh tmin equals best.
+//
+// A batch of b traversals (the reference vmaps its XLA mirror there, since
+// its megakernel is solo-only) is one launch of b CTAs, one per lane:
+// lane z = blockIdx.x offsets every pointer of the state (X, aux, the tile
+// bounds, mind, tmin, pend, nfold, live, order, edges, stats) to its lane's
+// stride and reads its own seed and slack, so each CTA runs exactly the
+// single traversal's code and each lane's order and edges are the single
+// launch's bits.  The b lanes fill b of the 132 SMs at once instead of
+// running one after another.
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -203,12 +212,32 @@ __device__ __forceinline__ void fold_tile(const State& s, int T, int t,
     __syncthreads();
 }
 
+// Lane z's view of a batch's state: every array at its lane's stride.
+__device__ __forceinline__ State lane_state(State s, size_t z) {
+    s.X += z * s.n * s.d;
+    s.aux += z * s.n;
+    s.cent += z * s.nblk * s.d;
+    s.rad += z * s.nblk;
+    s.mind += z * s.n;
+    s.tmin += z * s.nblk;
+    s.pend += z * s.nblk;
+    s.nfold += z * s.nblk;
+    s.live += z * s.nblk;
+    s.order += z * s.n;
+    s.edges += z * s.n;
+    return s;
+}
+
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
-prim_persist_kernel(State s, const long long* __restrict__ i0p,
+prim_persist_kernel(State base, const long long* __restrict__ i0p,
                     const float* __restrict__ slack_p, float margin,
                     int prune, long long* __restrict__ stats) {
     __shared__ ArgKey scratch[64];
+    const State s = lane_state(base, blockIdx.x);   // one CTA per lane
+    i0p += blockIdx.x;
+    slack_p += blockIdx.x;
+    stats += 3 * static_cast<size_t>(blockIdx.x);
     extern __shared__ __align__(16) float dyn[];
     float* prow = dyn;                                  // pc * d (staged)
     float* paux = dyn + (s.staged ? s.pc * s.d : 0);    // pc
@@ -314,33 +343,35 @@ constexpr int CHUNK_BYTES = 48 * 1024;
 
 template <int KIND>
 cudaError_t launch(const State& s, const long long* i0, const float* slack,
-                   float margin, int prune, long long* stats,
+                   float margin, int prune, long long* stats, int b,
                    cudaStream_t stream) {
     const size_t smem = (s.staged ? static_cast<size_t>(s.pc) * s.d : 0) * 4
                         + static_cast<size_t>(s.pc) * 8;
-    prim_persist_kernel<KIND><<<1, THREADS, smem, stream>>>(
+    prim_persist_kernel<KIND><<<b, THREADS, smem, stream>>>(
         s, i0, slack, margin, prune, stats);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// X (n, d) f32 row-major; aux (n,) f32 (metric_aux); i0 a device int64
-// (read by the kernel, so nothing syncs before the launch); cent (nblk, d)
-// and rad (nblk,) the tile bounds; slack a device f32, the squared-unit
-// allowance lb_slack_ulps(form) * eps * max(aux).  Scratch: mind (n,),
-// tmin, pend (nblk,) f32, nfold, live (nblk,) int.  Out: order (n,) int64,
-// edges (n,) f32, stats (3,) int64.  kind as kernels/pairwise_dist.py's
-// _KINDS.
+// b lanes (b = 1 for one traversal), each at its stride in every array.
+// X (b, n, d) f32 row-major; aux (b, n) f32 (metric_aux); i0 (b,) device
+// int64 (read by the kernel, so nothing syncs before the launch); cent
+// (b, nblk, d) and rad (b, nblk) the tile bounds; slack (b,) device f32,
+// lane z's squared-unit allowance lb_slack_ulps(form) * eps * max(aux[z]).
+// Scratch: mind (b, n), tmin, pend (b, nblk) f32, nfold, live (b, nblk) int.
+// Out: order (b, n) int64, edges (b, n) f32, stats (b, 3) int64.  kind as
+// kernels/pairwise_dist.py's _KINDS.
 extern "C" int repro_prim_persist(const float* X, const float* aux,
                                   const long long* i0, const float* cent,
                                   const float* rad, const float* slack,
-                                  float margin, int n, int d, int block,
-                                  int kind, int prune, float* mind,
+                                  float margin, int b, int n, int d,
+                                  int block, int kind, int prune, float* mind,
                                   float* tmin, float* pend, int* nfold,
                                   int* live, long long* order, float* edges,
                                   long long* stats, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (b < 1) return static_cast<int>(cudaErrorInvalidValue);
     const int fit = CHUNK_BYTES / (4 * d + 8);
     const bool staged = fit >= 4;
     State s{X, aux, cent, rad, mind, tmin, pend, nfold, live, order, edges,
@@ -349,17 +380,17 @@ extern "C" int repro_prim_persist(const float* X, const float* aux,
             rows_are_vec4(X, d)};
     switch (kind) {
         case GRAM_SQEUCLIDEAN:
-            return launch<GRAM_SQEUCLIDEAN>(s, i0, slack, margin, prune, stats, st);
+            return launch<GRAM_SQEUCLIDEAN>(s, i0, slack, margin, prune, stats, b, st);
         case GRAM_EUCLIDEAN:
-            return launch<GRAM_EUCLIDEAN>(s, i0, slack, margin, prune, stats, st);
+            return launch<GRAM_EUCLIDEAN>(s, i0, slack, margin, prune, stats, b, st);
         case COSINE:
-            return launch<COSINE>(s, i0, slack, margin, prune, stats, st);
+            return launch<COSINE>(s, i0, slack, margin, prune, stats, b, st);
         case DIRECT_SQEUCLIDEAN:
-            return launch<DIRECT_SQEUCLIDEAN>(s, i0, slack, margin, prune, stats, st);
+            return launch<DIRECT_SQEUCLIDEAN>(s, i0, slack, margin, prune, stats, b, st);
         case DIRECT_EUCLIDEAN:
-            return launch<DIRECT_EUCLIDEAN>(s, i0, slack, margin, prune, stats, st);
+            return launch<DIRECT_EUCLIDEAN>(s, i0, slack, margin, prune, stats, b, st);
         case MANHATTAN:
-            return launch<MANHATTAN>(s, i0, slack, margin, prune, stats, st);
+            return launch<MANHATTAN>(s, i0, slack, margin, prune, stats, b, st);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }

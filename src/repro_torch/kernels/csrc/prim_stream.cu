@@ -3,7 +3,9 @@
 //
 // Replaces: src/repro/kernels/prim_stream.py::prim_stream_step_pallas (the
 // TPU kernel _prim_stream_kernel, through _stream_call, with the pivot
-// given by index).  For every lane j:
+// given by index), and with repro_prim_stream_step_batch
+// prim_stream_step_pallas_batch (:265, its (b, nblk) slab-of-one grid, the
+// batched stepwise engine of vat_matrix_free_batch).  For every lane j:
 //   mind[j] = min(mind[j], dissim(x_j, x_q))          (updated in place)
 // and out = the first-index (min, argmin) of mind over lanes with
 // selected[j] false, as kernels/prim_update.cu writes it.
@@ -12,6 +14,7 @@
 // 3.8 us at n = 50,000, d = 64) plus 9 bytes a lane of frontier, against
 // n d FMAs (0.1 us at 67 TFLOP/s): bytes.  At these sizes a step is also
 // near the launch latency, and n - 1 steps run in sequence from the host.
+// A batched step of b = 4 lanes at n = 50,000 reads 51 MB of X: 15 us.
 //
 // Design: one thread per lane, 256 lanes per CTA.  The pivot index q is
 // read from a device pointer (the previous step's output, or the seed), so
@@ -26,6 +29,12 @@
 // and their mind is folded like any other lane.  The pivot by value (the
 // sharded engine's prim_frontier_step) would be this kernel with x_q from a
 // pointer to a point; it is not ported yet.
+//
+// The batch: a grid (nblocks, b), lane z = blockIdx.y, every operand at its
+// lane's stride and the pivot read from q[z]; each lane's CTAs write their
+// keys to that lane's partials, and the second pass is one CTA per lane.  So
+// each lane runs exactly a single step's code and gives its bits, and the
+// host loop still never syncs.  gridDim.y caps a batch at 65,535 lanes.
 #include <cuda_runtime.h>
 
 #include "argmin_key.cuh"
@@ -58,7 +67,14 @@ prim_stream_step_kernel(const float* __restrict__ X,
                         ArgKey* __restrict__ partial,
                         long long* __restrict__ out) {
     __shared__ ArgKey scratch[THREADS / 32];
-    const int q = static_cast<int>(*qp);
+    const size_t lane = blockIdx.y;   // 0 for a single step
+    X += lane * n * d;
+    aux += lane * n;
+    mind += lane * n;
+    sel += lane * n;
+    partial += lane * gridDim.x;
+    out += 2 * lane;
+    const int q = static_cast<int>(qp[lane]);
     const bool vec4 = rows_are_vec4(X, d);
     const int j = blockIdx.x * THREADS + threadIdx.x;
     ArgKey key = kMaxKey;
@@ -81,9 +97,14 @@ prim_stream_step_kernel(const float* __restrict__ X,
 __global__ void __launch_bounds__(REDUCE_THREADS)
 reduce_partials_kernel(const ArgKey* __restrict__ partial, int nparts,
                        const float* __restrict__ mind,
-                       const unsigned char* __restrict__ sel,
+                       const unsigned char* __restrict__ sel, int n,
                        long long* __restrict__ out) {
     __shared__ ArgKey scratch[REDUCE_THREADS / 32];
+    const size_t lane = blockIdx.x;   // one CTA per lane
+    partial += lane * nparts;
+    mind += lane * n;
+    sel += lane * n;
+    out += 2 * lane;
     ArgKey key = kMaxKey;
     for (int i = threadIdx.x; i < nparts; i += REDUCE_THREADS)
         key = min_key(key, partial[i]);
@@ -93,16 +114,38 @@ reduce_partials_kernel(const ArgKey* __restrict__ partial, int nparts,
 
 template <int KIND>
 cudaError_t launch(const float* X, const float* aux, const long long* q,
-                   float* mind, const unsigned char* sel, int n, int d,
+                   float* mind, const unsigned char* sel, int b, int n, int d,
                    ArgKey* partial, long long* out, cudaStream_t stream) {
     const int nblocks = (n + THREADS - 1) / THREADS;
-    prim_stream_step_kernel<KIND><<<nblocks, THREADS, 0, stream>>>(
+    prim_stream_step_kernel<KIND><<<dim3(nblocks, b), THREADS, 0, stream>>>(
         X, aux, q, mind, sel, n, d, partial, out);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || nblocks == 1) return err;
-    reduce_partials_kernel<<<1, REDUCE_THREADS, 0, stream>>>(partial, nblocks,
-                                                             mind, sel, out);
+    reduce_partials_kernel<<<b, REDUCE_THREADS, 0, stream>>>(
+        partial, nblocks, mind, sel, n, out);
     return cudaGetLastError();
+}
+
+int dispatch(const float* X, const float* aux, const long long* q,
+             float* mind, const unsigned char* sel, int b, int n, int d,
+             int kind, ArgKey* partial, long long* out, cudaStream_t s) {
+    if (b < 1 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    switch (kind) {
+        case GRAM_SQEUCLIDEAN:
+            return launch<GRAM_SQEUCLIDEAN>(X, aux, q, mind, sel, b, n, d, partial, out, s);
+        case GRAM_EUCLIDEAN:
+            return launch<GRAM_EUCLIDEAN>(X, aux, q, mind, sel, b, n, d, partial, out, s);
+        case COSINE:
+            return launch<COSINE>(X, aux, q, mind, sel, b, n, d, partial, out, s);
+        case DIRECT_SQEUCLIDEAN:
+            return launch<DIRECT_SQEUCLIDEAN>(X, aux, q, mind, sel, b, n, d, partial, out, s);
+        case DIRECT_EUCLIDEAN:
+            return launch<DIRECT_EUCLIDEAN>(X, aux, q, mind, sel, b, n, d, partial, out, s);
+        case MANHATTAN:
+            return launch<MANHATTAN>(X, aux, q, mind, sel, b, n, d, partial, out, s);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 }  // namespace
@@ -119,21 +162,20 @@ extern "C" int repro_prim_stream_step(const float* X, const float* aux,
                                       const unsigned char* sel, int n, int d,
                                       int kind, unsigned long long* partial,
                                       long long* out, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (kind) {
-        case GRAM_SQEUCLIDEAN:
-            return launch<GRAM_SQEUCLIDEAN>(X, aux, q, mind, sel, n, d, partial, out, s);
-        case GRAM_EUCLIDEAN:
-            return launch<GRAM_EUCLIDEAN>(X, aux, q, mind, sel, n, d, partial, out, s);
-        case COSINE:
-            return launch<COSINE>(X, aux, q, mind, sel, n, d, partial, out, s);
-        case DIRECT_SQEUCLIDEAN:
-            return launch<DIRECT_SQEUCLIDEAN>(X, aux, q, mind, sel, n, d, partial, out, s);
-        case DIRECT_EUCLIDEAN:
-            return launch<DIRECT_EUCLIDEAN>(X, aux, q, mind, sel, n, d, partial, out, s);
-        case MANHATTAN:
-            return launch<MANHATTAN>(X, aux, q, mind, sel, n, d, partial, out, s);
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return dispatch(X, aux, q, mind, sel, 1, n, d, kind, partial, out,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The batched step: X (b, n, d) f32, aux (b, n), q (b,) device int64 (lane
+// z's pivot), mind (b, n) updated in place, sel (b, n) bool as bytes; out
+// (b, 2) int64, lane z's pair as above.  partial holds b ceil(n / lanes)
+// keys when n > lanes.  1 <= b <= 65,535.
+extern "C" int repro_prim_stream_step_batch(const float* X, const float* aux,
+                                            const long long* q, float* mind,
+                                            const unsigned char* sel, int b,
+                                            int n, int d, int kind,
+                                            unsigned long long* partial,
+                                            long long* out, void* stream) {
+    return dispatch(X, aux, q, mind, sel, b, n, d, kind, partial, out,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -12,13 +12,17 @@ launches on the current stream; ``kernels/ops.py`` sends CPU tensors to
 ``knn_topk_blocked`` is the counterpart of the reference's
 ``knn_graph_blocked``: the route ``ops.knn_topk`` takes on the card for
 k > ``MAX_K``, chosen by k before any launch.
+
+``knn_graph_batch_cuda`` is the port of ``knn_graph_pallas_batch``: the
+kNN graph of each lane of a (b, n, d) stack in one launch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.pairwise_dist import (check_cuda, metric_aux_cuda,
+from repro_torch.kernels.pairwise_dist import (check_cuda, check_lanes,
+                                              metric_aux_cuda,
                                               pairwise_dist_cuda)
 
 #: Largest k the kernel keeps per row (the reference's ``MAX_PALLAS_K``);
@@ -88,6 +92,46 @@ def knn_topk_cuda(Xq: torch.Tensor, Xc: torch.Tensor, qid: torch.Tensor,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "knn_graph")
     _build.LAUNCHES["knn_graph"] += 1
+    return dist, idx
+
+
+def knn_graph_batch_cuda(X: torch.Tensor, *, k: int,
+                         metric: str = "euclidean"):
+    """The exact kNN graph of each lane of a stack, on the card, in one
+    launch (one aux pre-pass over all b·n rows).  Lane z runs the code of
+    ``knn_topk_cuda(X[z], X[z], ids, ids)`` with ids = 0..n-1, so its lists
+    are that call's bits.
+
+    Args:
+      X: (b, n, d) contiguous float32 CUDA tensor, 1 <= b <= ``MAX_LANES``.
+      k: neighbours per point, 1 <= k <= min(``MAX_K``, n - 1).
+      metric: one of ``kernels.ref.METRICS`` (gram form).
+
+    Returns:
+      (dist (b, n, k) f32, idx (b, n, k) int64): per lane ascending by
+      (value, id), lane-local ids, a point never its own neighbour.
+    """
+    ref.check_metric(metric)
+    check_cuda(X, "X")
+    if X.dtype != torch.float32 or X.dim() != 3 or 0 in X.shape:
+        raise ValueError(f"want a non-empty (b, n, d) float32 X, got "
+                         f"{X.dtype} {tuple(X.shape)}")
+    b, n, d = X.shape
+    check_lanes(b)
+    if not 1 <= k <= min(MAX_K, n - 1):
+        raise ValueError(f"the kNN kernel keeps 1 <= k <= min({MAX_K}, n-1) "
+                         f"= {min(MAX_K, n - 1)} neighbours, got k={k}")
+    aux = None if metric == "manhattan" else metric_aux_cuda(X,
+                                                             metric=metric)
+    ids = torch.arange(n, device=X.device)
+    dist = torch.empty((b, n, k), dtype=torch.float32, device=X.device)
+    idx = torch.empty((b, n, k), dtype=torch.int64, device=X.device)
+    err = _build.library().repro_knn_topk_batch(
+        X.data_ptr(), 0 if aux is None else aux.data_ptr(), ids.data_ptr(),
+        b, n, d, k, _KINDS[metric], dist.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "knn_graph_batch")
+    _build.LAUNCHES["knn_graph_batch"] += 1
     return dist, idx
 
 

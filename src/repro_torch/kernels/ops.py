@@ -9,6 +9,12 @@ the kNN graph's, as in the reference: past ``MAX_K`` neighbours the card
 takes the blocked route (``knn_topk_blocked``), chosen by k before any
 launch.  ``launch_counts()`` reads how often
 each kernel was launched since ``reset_launch_counts()``.
+
+Batched fits (``fit_many``) take the same wrappers with a leading lane axis:
+``pairwise_dist_batch`` and ``knn_graph_batch`` for (b, n, d) stacks, and
+``masked_argmin``, ``metric_aux``, ``prim_stream_step`` and
+``prim_persist`` on (b, ...) operands.  Every lane's result equals the call
+on that lane alone, bit for bit, on either device.
 """
 from __future__ import annotations
 
@@ -17,17 +23,20 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
-from repro_torch.kernels.knn_graph import (MAX_K, knn_topk_blocked,
-                                          knn_topk_cuda)
+from repro_torch.kernels.knn_graph import (MAX_K, knn_graph_batch_cuda,
+                                          knn_topk_blocked, knn_topk_cuda)
 from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
+                                              pairwise_dist_batch_cuda,
                                               pairwise_dist_cuda)
 from repro_torch.kernels.prim_persist import DEFAULT_BLOCK, prim_persist_cuda
-from repro_torch.kernels.prim_stream import prim_stream_step_cuda
+from repro_torch.kernels.prim_stream import (prim_stream_step_batch_cuda,
+                                            prim_stream_step_cuda)
 from repro_torch.kernels.prim_update import masked_argmin_cuda
 
-__all__ = ["pairwise_dist", "masked_argmin", "ivat_from_vat", "metric_aux",
-           "prim_persist", "prim_stream_step", "knn_topk", "knn_graph",
-           "MAX_K", "launch_counts", "reset_launch_counts"]
+__all__ = ["pairwise_dist", "pairwise_dist_batch", "masked_argmin",
+           "ivat_from_vat", "metric_aux", "prim_persist", "prim_stream_step",
+           "knn_topk", "knn_graph", "knn_graph_batch", "MAX_K",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _dispatch_site(op: str, device: torch.device) -> None:
@@ -60,12 +69,39 @@ def pairwise_dist(X: torch.Tensor, Y: torch.Tensor | None = None, *,
     return R
 
 
+def pairwise_dist_batch(X: torch.Tensor, *, metric: str = "euclidean",
+                        form: str = "gram") -> torch.Tensor:
+    """Per-dataset self-dissimilarity matrices of a (b, n, d) stack; one
+    launch of the batched CUDA kernel on the card.
+
+    Args:
+      X: (b, n, d) float — b independent datasets.
+      metric: one of ``ref.METRICS``.
+      form: "gram" (default) or "direct" — the numerics-policy tile form.
+
+    Returns:
+      (b, n, n) float32 stack with exactly-zero diagonals; lane z equals
+      ``pairwise_dist(X[z])`` bit for bit.
+    """
+    _dispatch_site("pairwise_dist_batch", X.device)
+    if X.is_cuda:
+        return pairwise_dist_batch_cuda(X, metric=metric, form=form)
+    R = ref.pairwise_dissim_batch_ref(X, metric=metric, form=form)
+    torch.diagonal(R, dim1=-2, dim2=-1).zero_()
+    return R
+
+
 def masked_argmin(vals: torch.Tensor, mask: torch.Tensor):
     """(min, argmin) over unmasked entries (mask=True excludes).
 
+    Args:
+      vals: (n,) float32, or a (b, n) stack reduced row by row (one launch
+        for the stack on the card).
+      mask: bool of vals' shape.
+
     Returns:
-      (f32 0-d tensor, int64 0-d tensor) on vals' device, first-index
-      tie-breaking.
+      (f32, int64) on vals' device — 0-d, or (b,) for a stack —
+      first-index tie-breaking.
     """
     _dispatch_site("masked_argmin", vals.device)
     if vals.is_cuda:
@@ -92,8 +128,9 @@ def ivat_from_vat(rstar: torch.Tensor) -> torch.Tensor:
 
 def metric_aux(X: torch.Tensor, *, metric: str = "euclidean") -> torch.Tensor:
     """(n,) f32 aux vector of X for the Prim paths (``ref.metric_aux_ref``'s
-    values); on the card the pairwise kernel's own row norms, so a
-    matrix-free row equals the materialized row bit for bit."""
+    values; (b, n) for a (b, n, d) stack); on the card the pairwise kernel's
+    own row norms, so a matrix-free row equals the materialized row bit for
+    bit."""
     if X.is_cuda:
         return metric_aux_cuda(X, metric=metric)
     return ref.metric_aux_ref(X, metric=metric)
@@ -105,12 +142,14 @@ def prim_persist(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor, *,
     """The whole exact Prim traversal from seed ``i0``.
 
     On the card: the persistent kernel, one launch, lazily pruned tiles of
-    ``block`` lanes.  On the CPU: ``ref.prim_persist_ref``, the eager
-    schedule; ``block`` and ``prune`` change the work, never a bit of the
-    result, so the plain version ignores them.
+    ``block`` lanes; a (b, n, d) stack (aux (b, n), i0 (b,)) is one launch
+    of b persistent CTAs.  On the CPU: ``ref.prim_persist_ref`` (per lane
+    for a stack), the eager schedule; ``block`` and ``prune`` change the
+    work, never a bit of the result, so the plain version ignores them.
 
     Returns:
-      (order (n,) int64, edges (n,) f32) on X's device.
+      (order (n,) int64, edges (n,) f32) on X's device; (b, n) each for a
+      stack.
     """
     _dispatch_site("prim_persist", X.device)
     if X.is_cuda:
@@ -118,6 +157,9 @@ def prim_persist(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor, *,
                                             form=form, block=block,
                                             prune=prune)
         return order, edges
+    if X.dim() == 3:
+        return ref.prim_persist_batch_ref(X, aux, i0, metric=metric,
+                                          form=form)
     return ref.prim_persist_ref(X, aux, i0, metric=metric, form=form)
 
 
@@ -125,18 +167,24 @@ def prim_stream_step(X: torch.Tensor, aux: torch.Tensor, q: torch.Tensor,
                      mind: torch.Tensor, selected: torch.Tensor, *,
                      metric: str = "euclidean", form: str = "gram"):
     """One matrix-free Prim step: fold pivot q's row into ``mind``, then the
-    masked first-index (min, argmin).
+    masked first-index (min, argmin).  A (b, n, d) stack (aux, mind,
+    selected (b, n), q (b,)) steps every lane at once: on the card one
+    launch pair of the batched kernel.
 
     Returns:
-      (new_mind (n,) f32, edge f32 0-d, next int64 0-d).  On the card
-      ``new_mind`` is ``mind`` updated in place; on the CPU a new tensor.
+      (new_mind (n,) f32, edge f32 0-d, next int64 0-d); (b, n), (b,) and
+      (b,) for a stack.  On the card ``new_mind`` is ``mind`` updated in
+      place; on the CPU a new tensor.
     """
+    batched = X.dim() == 3
     _dispatch_site("prim_stream_step", X.device)
     if X.is_cuda:
-        return prim_stream_step_cuda(X, aux, q, mind, selected,
-                                     metric=metric, form=form)
-    return ref.prim_stream_step_ref(X, aux, q, mind, selected, metric=metric,
-                                    form=form)
+        step = prim_stream_step_batch_cuda if batched else \
+            prim_stream_step_cuda
+        return step(X, aux, q, mind, selected, metric=metric, form=form)
+    step = ref.prim_stream_step_batch_ref if batched else \
+        ref.prim_stream_step_ref
+    return step(X, aux, q, mind, selected, metric=metric, form=form)
 
 
 def knn_topk(Xq: torch.Tensor, Xc: torch.Tensor, qid: torch.Tensor,
@@ -195,3 +243,35 @@ def knn_graph(X: torch.Tensor, *, k: int, metric: str = "euclidean"):
         raise ValueError(f"k must satisfy 1 <= k <= n-1 = {n - 1}, got {k}")
     ids = torch.arange(n, device=X.device)
     return knn_topk(X, X, ids, ids, k=k, metric=metric)
+
+
+def knn_graph_batch(X: torch.Tensor, *, k: int, metric: str = "euclidean"):
+    """Per-dataset kNN graphs of a (b, n, d) stack.
+
+    On the card ``k <= MAX_K`` is one launch of the batched kNN kernel and
+    ``k > MAX_K`` takes ``knn_topk_blocked`` lane by lane, the rule on k
+    that ``knn_topk`` applies, chosen before any launch.  On the CPU:
+    ``ref.knn_graph_batch_ref``.
+
+    Args:
+      X: (b, n, d) float32 — b independent datasets.
+      k: neighbours per point, 1 <= k <= n - 1.
+      metric: one of ``ref.METRICS``.
+
+    Returns:
+      (dist (b, n, k) f32, idx (b, n, k) int64), lane z equal to
+      ``knn_graph(X[z])`` bit for bit; ids are lane-local.
+    """
+    _dispatch_site("knn_graph_batch", X.device)
+    n = X.shape[1]
+    if not 1 <= k <= n - 1:
+        raise ValueError(f"k must satisfy 1 <= k <= n-1 = {n - 1}, got {k}")
+    if not X.is_cuda:
+        return ref.knn_graph_batch_ref(X, k=k, metric=metric)
+    if k <= MAX_K:
+        return knn_graph_batch_cuda(X, k=k, metric=metric)
+    ids = torch.arange(n, device=X.device)
+    graphs = [knn_topk_blocked(x, x, ids, ids, k=k, metric=metric)
+              for x in X]
+    return (torch.stack([g[0] for g in graphs]),
+            torch.stack([g[1] for g in graphs]))

@@ -1,10 +1,12 @@
 """CUDA kernel: tiled pairwise dissimilarity matrix, metric-dispatched.
 
-The port of ``repro/kernels/pairwise_dist.py::pairwise_dist_pallas``.  The
-kernel is ``csrc/pairwise_dist.cu`` (its opening note gives the design and
-what bounds it); this module checks the inputs, allocates the output and
-the row-norm scratch, and launches on the current stream.  It has no plain
-fallback: ``kernels/ops.py`` sends CPU tensors to ``ref.py`` instead.
+The port of ``repro/kernels/pairwise_dist.py::pairwise_dist_pallas`` and,
+with a lane axis (``pairwise_dist_batch_cuda``), of
+``pairwise_dist_pallas_batch``.  The kernel is ``csrc/pairwise_dist.cu``
+(its opening note gives the design and what bounds it); this module checks
+the inputs, allocates the output and the row-norm scratch, and launches on
+the current stream.  It has no plain fallback: ``kernels/ops.py`` sends CPU
+tensors to ``ref.py`` instead.
 """
 from __future__ import annotations
 
@@ -90,8 +92,53 @@ def pairwise_dist_cuda(X: torch.Tensor, Y: torch.Tensor | None = None, *,
     return out
 
 
+def check_lanes(b: int) -> None:
+    """Raise unless 1 <= b <= ``MAX_LANES`` (the batch is a grid axis)."""
+    if not 1 <= b <= _build.MAX_LANES:
+        raise ValueError(f"a batched launch takes 1 to {_build.MAX_LANES} "
+                         f"lanes, got b={b}")
+
+
+def pairwise_dist_batch_cuda(X: torch.Tensor, *, metric: str = "euclidean",
+                             form: str = "gram") -> torch.Tensor:
+    """(b, n, n) f32 self-dissimilarity matrices of a (b, n, d) stack.
+
+    One launch (and one row-norm pre-pass over all b·n rows): lane z of the
+    grid computes X[z]'s matrix with the tile code of ``pairwise_dist_cuda``,
+    so lane z equals ``pairwise_dist_cuda(X[z])`` bit for bit off the
+    diagonal; the diagonal is written as exactly 0.
+
+    Args:
+      X: (b, n, d) contiguous CUDA tensor, float32 or bfloat16, with
+        1 <= b <= ``MAX_LANES``.
+      metric: one of ``ref.METRICS``.
+      form: "gram" or "direct".
+
+    Returns:
+      (b, n, n) float32 stack with exactly-zero diagonals.
+    """
+    check_metric(metric)
+    check_form(form)
+    check_cuda(X, "X")
+    if X.dtype not in _DTYPES or X.dim() != 3 or 0 in X.shape[1:]:
+        raise ValueError(f"want a (b, n, d) float32 or bfloat16 stack with "
+                         f"n, d >= 1, got {X.dtype} {tuple(X.shape)}")
+    b, n, d = X.shape
+    check_lanes(b)
+    out = torch.empty((b, n, n), dtype=torch.float32, device=X.device)
+    norms = torch.empty(b * n, dtype=torch.float32, device=X.device)
+    err = _build.library().repro_pairwise_dist_batch(
+        X.data_ptr(), norms.data_ptr(), out.data_ptr(), b, n, d,
+        _KINDS[(metric, form)], int(X.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "pairwise_dist_batch")
+    _build.LAUNCHES["pairwise_dist_batch"] += 1
+    return out
+
+
 def metric_aux_cuda(X: torch.Tensor, *, metric: str) -> torch.Tensor:
-    """(n,) f32 aux vector of X for the Prim kernels, on the card.
+    """(n,) f32 aux vector of X for the Prim kernels, on the card ((b, n)
+    for a (b, n, d) stack: row-wise, so each lane's are its own bits).
 
     Squared row norms for euclidean/sqeuclidean, norms for cosine, zeros
     for manhattan — the values ``kernels.ref.metric_aux_ref`` gives, but
@@ -102,13 +149,15 @@ def metric_aux_cuda(X: torch.Tensor, *, metric: str) -> torch.Tensor:
     """
     check_metric(metric)
     check_cuda(X, "X")
-    if X.dtype not in _DTYPES or X.dim() != 2 or 0 in X.shape:
-        raise ValueError(f"want a non-empty (n, d) float32 or bfloat16 X, "
-                         f"got {X.dtype} {tuple(X.shape)}")
-    n, d = X.shape
+    if X.dtype not in _DTYPES or X.dim() not in (2, 3) or 0 in X.shape:
+        raise ValueError(f"want a non-empty (n, d) or (b, n, d) float32 or "
+                         f"bfloat16 X, got {X.dtype} {tuple(X.shape)}")
+    d = X.shape[-1]
+    n = X.numel() // d    # a stack's rows, one pre-pass over all of them
     if metric == "manhattan":
-        return torch.zeros(n, dtype=torch.float32, device=X.device)
-    out = torch.empty(n, dtype=torch.float32, device=X.device)
+        return torch.zeros(X.shape[:-1], dtype=torch.float32,
+                           device=X.device)
+    out = torch.empty(X.shape[:-1], dtype=torch.float32, device=X.device)
     err = _build.library().repro_metric_aux(
         X.data_ptr(), n, d, int(metric == "cosine"),
         int(X.dtype == torch.bfloat16), out.data_ptr(),

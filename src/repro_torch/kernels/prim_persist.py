@@ -5,7 +5,9 @@ flashvat rung's default ("Turbo") engine.  The kernel is
 ``csrc/prim_persist.cu`` (its opening note gives the schedule, the bound
 and the design); this module computes the per-tile pruning geometry in
 plain PyTorch (``persist_tile_bounds``), the pruning slack, allocates the
-state, and launches on the current stream.
+state, and launches on the current stream.  A (b, n, d) stack is one
+launch of b persistent CTAs, one per lane, each with its own tile bounds,
+slack, state and stats.
 
 The reference's VMEM seam (``persist_supported``, ``persist_state_bytes``,
 ``PERSIST_VMEM_BUDGET``) is a TPU rule and has no counterpart: the state
@@ -18,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.pairwise_dist import _KINDS, check_cuda
+from repro_torch.kernels.pairwise_dist import (_KINDS, check_cuda,
+                                              check_lanes)
 from repro_torch.kernels.ref import check_metric
 from repro_torch.numerics.condition import _F32_EPS, check_form, lb_slack_ulps
 
@@ -76,14 +79,17 @@ def prim_persist_cuda(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor,
     """Exact VAT ordering of X in one launch, on the card.
 
     Args:
-      X: (n, d) contiguous float32 CUDA tensor, n >= 1.
-      aux: (n,) float32 — ``kernels.ops.metric_aux`` of X (on the card the
-        pairwise kernel's row norms, so rows match its matrix bit for bit).
-      i0: integer CUDA tensor of one element — the seed vertex; the kernel
-        reads it, so nothing waits on the host.
+      X: (n, d) contiguous float32 CUDA tensor, n >= 1; or a (b, n, d)
+        stack of b datasets, 1 <= b <= ``MAX_LANES``, traversed by b CTAs
+        of one launch, lane z exactly as the call on X[z] alone.
+      aux: (n,) float32 — ``kernels.ops.metric_aux`` of X ((b, n) for a
+        stack; on the card the pairwise kernel's row norms, so rows match
+        its matrix bit for bit).
+      i0: integer CUDA tensor of one element — the seed vertex ((b,) for a
+        stack); the kernel reads it, so nothing waits on the host.
       metric: one of ``kernels.ref.METRICS``.
       form: "gram" or "direct" — the tile form; the pruning slack is
-        ``lb_slack_ulps(form)·eps·max(aux)`` in squared units.
+        ``lb_slack_ulps(form)·eps·max(aux)`` in squared units, per lane.
       block: tile length (>= 1).
       prune: lazy tile pruning; False folds every live tile every step —
         the same order and edges bit for bit, more work.
@@ -95,40 +101,48 @@ def prim_persist_cuda(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor,
       evaluation is one (pivot, unselected lane) dissimilarity.  The eager
       schedule folds at most (n - 1)·nblk tiles, pruning fewer; both
       evaluate exactly n·(n - 1)/2 pairs, each lane against every earlier
-      pivot once.
+      pivot once.  A stack gives (b, n), (b, n) and (b, 3).
     """
     check_metric(metric)
     check_form(form)
     for t, name in ((X, "X"), (aux, "aux"), (i0, "i0")):
         check_cuda(t, name)
-    if X.dtype != torch.float32 or X.dim() != 2 or 0 in X.shape:
-        raise ValueError(f"want a non-empty (n, d) float32 X, got {X.dtype} "
-                         f"{tuple(X.shape)}")
-    n, d = X.shape
-    if aux.dtype != torch.float32 or aux.shape != (n,):
-        raise ValueError(f"want (n,) float32 aux, got {aux.dtype} "
-                         f"{tuple(aux.shape)}")
-    if i0.numel() != 1 or i0.dtype.is_floating_point:
-        raise ValueError(f"i0 must be one integer, got {i0.dtype} "
+    if X.dtype != torch.float32 or X.dim() not in (2, 3) or 0 in X.shape:
+        raise ValueError(f"want a non-empty (n, d) or (b, n, d) float32 X, "
+                         f"got {X.dtype} {tuple(X.shape)}")
+    batched = X.dim() == 3
+    b = X.shape[0] if batched else 1
+    check_lanes(b)
+    n, d = X.shape[-2:]
+    if aux.dtype != torch.float32 or aux.shape != X.shape[:-1]:
+        raise ValueError(f"want {tuple(X.shape[:-1])} float32 aux, got "
+                         f"{aux.dtype} {tuple(aux.shape)}")
+    if i0.numel() != b or i0.dtype.is_floating_point:
+        raise ValueError(f"i0 must be {b} integer(s), got {i0.dtype} "
                          f"{tuple(i0.shape)}")
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
     dev = X.device
-    i0 = i0.to(torch.int64).reshape(1).contiguous()
+    i0 = i0.to(torch.int64).reshape(b).contiguous()
     nblk = -(-n // block)
-    cent, rad = persist_tile_bounds(X, metric=metric, block=block)
-    slack = (lb_slack_ulps(form) * _F32_EPS) * torch.amax(aux).view(1)
+    # per lane, each lane's bounds are the single call's (same reductions)
+    bounds = [persist_tile_bounds(x, metric=metric, block=block)
+              for x in X.view(b, n, d)]
+    cent = torch.stack([c for c, _ in bounds])
+    rad = torch.stack([r for _, r in bounds])
+    slack = (lb_slack_ulps(form) * _F32_EPS) * torch.amax(
+        aux.view(b, n), dim=1)
     # kernel state, freed on return while the kernel may still run: the
     # caching allocator hands it out again only to later work on this stream
-    mind = torch.empty(n, dtype=torch.float32, device=dev)
-    tmin_pend = torch.empty((2, nblk), dtype=torch.float32, device=dev)
-    nfold_live = torch.empty((2, nblk), dtype=torch.int32, device=dev)
-    order = torch.empty(n, dtype=torch.int64, device=dev)
-    edges = torch.empty(n, dtype=torch.float32, device=dev)
-    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    mind = torch.empty((b, n), dtype=torch.float32, device=dev)
+    tmin_pend = torch.empty((2, b, nblk), dtype=torch.float32, device=dev)
+    nfold_live = torch.empty((2, b, nblk), dtype=torch.int32, device=dev)
+    order = torch.empty((b, n), dtype=torch.int64, device=dev)
+    edges = torch.empty((b, n), dtype=torch.float32, device=dev)
+    stats = torch.empty((b, 3), dtype=torch.int64, device=dev)
     err = _build.library().repro_prim_persist(
         X.data_ptr(), aux.data_ptr(), i0.data_ptr(), cent.data_ptr(),
-        rad.data_ptr(), slack.data_ptr(), _LB_MARGIN, n, d, block,
+        rad.data_ptr(), slack.data_ptr(), _LB_MARGIN, b, n, d, block,
         _KINDS[(metric, form)], int(prune), mind.data_ptr(),
         tmin_pend[0].data_ptr(), tmin_pend[1].data_ptr(),
         nfold_live[0].data_ptr(), nfold_live[1].data_ptr(), order.data_ptr(),
@@ -136,4 +150,6 @@ def prim_persist_cuda(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "prim_persist")
     _build.LAUNCHES["prim_persist"] += 1
-    return order, edges, stats
+    if batched:
+        return order, edges, stats
+    return order[0], edges[0], stats[0]

@@ -6,13 +6,18 @@ flashvat rung's stepwise engine (``turbo=False``).  The kernel is
 (in place), and a packed-key reduction gives the masked first-index (min,
 argmin).  The pivot comes in as a device index and the pair goes out into a
 device buffer, so a loop of steps never waits on the host.
+
+``prim_stream_step_batch_cuda`` is the port of
+``prim_stream_step_pallas_batch``, the batched stepwise engine: one step of
+b lanes in one launch pair, each lane's pivot by device index.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.pairwise_dist import _KINDS, check_cuda
+from repro_torch.kernels.pairwise_dist import (_KINDS, check_cuda,
+                                              check_lanes)
 from repro_torch.kernels.ref import check_metric
 from repro_torch.numerics.condition import check_form
 
@@ -69,3 +74,63 @@ def prim_stream_step_cuda(X: torch.Tensor, aux: torch.Tensor,
     _build.check(err, "prim_stream_step")
     _build.LAUNCHES["prim_stream_step"] += 1
     return mind, out[1:].view(torch.float32)[0], out[0]
+
+
+def prim_stream_step_batch_cuda(X: torch.Tensor, aux: torch.Tensor,
+                                q: torch.Tensor, mind: torch.Tensor,
+                                selected: torch.Tensor, *,
+                                metric: str = "euclidean",
+                                form: str = "gram"):
+    """One Prim step of each of b lanes on the card, in one launch pair:
+    ``mind[z] = min(mind[z], row q[z] of X[z])``, in place, then each lane's
+    first-index (min, argmin) over its unselected lanes.  Lane z runs the
+    code of ``prim_stream_step_cuda`` on its own operands, so it gives that
+    call's bits.
+
+    Args:
+      X: (b, n, d) contiguous float32 CUDA tensor, 1 <= b <= ``MAX_LANES``.
+      aux: (b, n) float32 — ``kernels.ops.metric_aux`` of X.
+      q: (b,) int64 CUDA tensor — each lane's pivot.
+      mind: (b, n) float32 frontiers, updated in place.
+      selected: (b, n) bool — True lanes are excluded from the argmin.
+      metric: one of ``kernels.ref.METRICS``.
+      form: "gram" or "direct".
+
+    Returns:
+      (mind, edge (b,) f32, next (b,) int64) — ``mind`` is the argument,
+      updated; edge and next are views of one (b, 2) device buffer.
+    """
+    check_metric(metric)
+    check_form(form)
+    for t, name in ((X, "X"), (aux, "aux"), (q, "q"), (mind, "mind"),
+                    (selected, "selected")):
+        check_cuda(t, name)
+    if X.dtype != torch.float32 or X.dim() != 3 or 0 in X.shape:
+        raise ValueError(f"want a non-empty (b, n, d) float32 X, got "
+                         f"{X.dtype} {tuple(X.shape)}")
+    b, n, d = X.shape
+    check_lanes(b)
+    if aux.dtype != torch.float32 or mind.dtype != torch.float32 \
+            or selected.dtype != torch.bool \
+            or not aux.shape == mind.shape == selected.shape == (b, n):
+        raise ValueError("want (b, n) float32 aux and mind and (b, n) bool "
+                         f"selected for (b, n) = {(b, n)}, got {aux.dtype} "
+                         f"{tuple(aux.shape)}, {mind.dtype} "
+                         f"{tuple(mind.shape)}, {selected.dtype} "
+                         f"{tuple(selected.shape)}")
+    if q.shape != (b,) or q.dtype != torch.int64:
+        raise ValueError(f"q must be (b,) int64, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    lib = _build.library()
+    lanes = _build.PRIM_STREAM_LANES
+    out = torch.empty((b, 2), dtype=torch.int64, device=X.device)
+    partial = (torch.empty(b * -(-n // lanes), dtype=torch.int64,
+                           device=X.device) if n > lanes else out)
+    err = lib.repro_prim_stream_step_batch(
+        X.data_ptr(), aux.data_ptr(), q.data_ptr(), mind.data_ptr(),
+        selected.data_ptr(), b, n, d, _KINDS[(metric, form)],
+        partial.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "prim_stream_step_batch")
+    _build.LAUNCHES["prim_stream_step_batch"] += 1
+    return mind, out.view(torch.float32)[:, 2], out[:, 0]

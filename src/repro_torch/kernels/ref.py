@@ -3,7 +3,9 @@
 Written straight from ``repro/kernels/ref.py``: the same formulas, on
 tensors.  ``kernels/ops.py`` takes them for CPU tensors; ``chip_smoke.py``
 holds each CUDA kernel against them on the card.  A CUDA tensor on the
-library's main path never comes here.
+library's main path never comes here.  The batched versions (``*_batch_ref``)
+are the single versions stacked lane by lane, as the reference vmaps its
+refs; ``masked_argmin_ref`` takes a leading axis as it is.
 
 Metric support: VAT is defined on an arbitrary pairwise *dissimilarity*
 matrix, so the distance versions are metric-dispatched.  ``METRICS`` is the
@@ -73,12 +75,21 @@ def pairwise_dissim_ref(X: torch.Tensor, Y: torch.Tensor | None = None, *,
     return torch.clamp(1.0 - cross / denom, 0.0, 2.0)
 
 
+def pairwise_dissim_batch_ref(X: torch.Tensor, *, metric: str = "euclidean",
+                              form: str = "gram") -> torch.Tensor:
+    """(b, n, n) f32 self-dissimilarity matrices of a (b, n, d) stack: the
+    plain version of ``pairwise_dist_batch``, lane by lane (diagonals as
+    computed; ``ops.pairwise_dist_batch`` writes the exact zeros)."""
+    return torch.stack([pairwise_dissim_ref(x, metric=metric, form=form)
+                        for x in X])
+
+
 def metric_aux_ref(X: torch.Tensor, *, metric: str = "euclidean"
                    ) -> torch.Tensor:
     """Per-point auxiliary vector the Gram-form pivot row needs.
 
     Args:
-      X: (n, d) float — data points.
+      X: (n, d) float — data points ((b, n, d) gives (b, n), row-wise).
       metric: one of ``METRICS``.
 
     Returns:
@@ -210,21 +221,47 @@ def prim_stream_step_ref(X: torch.Tensor, aux: torch.Tensor, q,
     return new_mind, edge, nxt
 
 
+def prim_stream_step_batch_ref(X: torch.Tensor, aux: torch.Tensor,
+                               q: torch.Tensor, mind: torch.Tensor,
+                               selected: torch.Tensor, *,
+                               metric: str = "euclidean",
+                               form: str = "gram"):
+    """``prim_stream_step_ref`` of each lane of a (b, n, d) stack: aux,
+    mind, selected (b, n), q (b,).  Returns (new_mind (b, n) f32, edge (b,)
+    f32, next (b,) int64)."""
+    steps = [prim_stream_step_ref(X[z], aux[z], q[z], mind[z], selected[z],
+                                  metric=metric, form=form)
+             for z in range(X.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*steps))
+
+
+def prim_persist_batch_ref(X: torch.Tensor, aux: torch.Tensor,
+                           i0: torch.Tensor, *, metric: str = "euclidean",
+                           form: str = "gram"):
+    """``prim_persist_ref`` of each lane of a (b, n, d) stack from its seed
+    i0[z]: (order (b, n) int64, edges (b, n) f32)."""
+    runs = [prim_persist_ref(X[z], aux[z], i0[z], metric=metric, form=form)
+            for z in range(X.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*runs))
+
+
 def masked_argmin_ref(vals: torch.Tensor, mask: torch.Tensor):
     """(min value, argmin index) of vals where mask is False.
 
     Args:
-      vals: (n,) float — candidate values (Prim frontier distances).
-      mask: (n,) bool — True means "excluded" (already selected).
+      vals: (n,) float — candidate values (Prim frontier distances); a
+        (b, n) stack is reduced along its last axis, row by row.
+      mask: bool, vals' shape — True means "excluded" (already selected).
 
     Returns:
-      (min value: f32 0-d tensor, argmin index: int64 0-d tensor) over
-      unmasked lanes, first-index tie-breaking (``torch.argmin`` returns
-      the first minimal index); a fully masked vector gives (+inf, 0).
+      (min value f32, argmin index int64) over unmasked lanes — 0-d for
+      one vector, (b,) for a stack — first-index tie-breaking
+      (``torch.argmin`` returns the first minimal index); a fully masked
+      row gives (+inf, 0).
     """
     masked = torch.where(mask, torch.inf, vals.float())
-    idx = torch.argmin(masked)
-    return masked[idx], idx
+    idx = torch.argmin(masked, dim=-1)
+    return masked.gather(-1, idx.unsqueeze(-1)).squeeze(-1), idx
 
 
 def ivat_from_vat_ref(rstar: torch.Tensor) -> torch.Tensor:
@@ -382,3 +419,12 @@ def knn_graph_ref(X: torch.Tensor, *, k: int, metric: str = "euclidean"):
         raise ValueError(f"k must satisfy 1 <= k <= n-1 = {n - 1}, got {k}")
     ids = torch.arange(n, device=X.device)
     return knn_topk_ref(X, X, ids, ids, k=k, metric=metric)
+
+
+def knn_graph_batch_ref(X: torch.Tensor, *, k: int,
+                        metric: str = "euclidean"):
+    """``knn_graph_ref`` of each lane of a (b, n, d) stack: (dist (b, n, k)
+    f32, idx (b, n, k) int64), lane-local ids."""
+    graphs = [knn_graph_ref(x, k=k, metric=metric) for x in X]
+    return (torch.stack([g[0] for g in graphs]),
+            torch.stack([g[1] for g in graphs]))

@@ -14,12 +14,14 @@ from repro_torch import core
 from repro_torch.core.vat import _streamed_seed_pivot, vat, vat_order
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
-from repro_torch.kernels.knn_graph import (MAX_K, knn_topk_blocked,
-                                          knn_topk_cuda)
+from repro_torch.kernels.knn_graph import (MAX_K, knn_graph_batch_cuda,
+                                          knn_topk_blocked, knn_topk_cuda)
 from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
+                                              pairwise_dist_batch_cuda,
                                               pairwise_dist_cuda)
 from repro_torch.kernels.prim_persist import prim_persist_cuda
-from repro_torch.kernels.prim_stream import prim_stream_step_cuda
+from repro_torch.kernels.prim_stream import (prim_stream_step_batch_cuda,
+                                            prim_stream_step_cuda)
 from repro_torch.kernels.prim_update import masked_argmin_cuda
 
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -129,7 +131,10 @@ def test_cuda_fit_launches_every_kernel(cuda):
                                       "ivat_from_vat": 1,
                                       "prim_persist": 0,
                                       "prim_stream_step": 0,
-                                      "knn_graph": 0}
+                                      "knn_graph": 0,
+                                      "pairwise_dist_batch": 0,
+                                      "prim_stream_step_batch": 0,
+                                      "knn_graph_batch": 0}
     assert fv.result.meta.device.startswith("cuda")
     assert fv.result.order.is_cuda and fv.result.ivat_image.is_cuda
     rep = fv.assess()
@@ -435,3 +440,168 @@ def test_cuda_approx_fit_launches_its_kernels(cuda):
     assert sorted(fv.order().tolist()) == list(range(3000))
     rep = fv.assess()
     assert rep.k_est == 4 and rep.clustered
+
+
+# ------------------------------------------------ the batched kernels ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_pairwise_batch_against_plain_and_solo(cuda, metric, form):
+    """b = 1, 3, 8 at odd n and n below one tile: within the pairwise
+    tolerance of the stacked plain version, zero diagonals, and each lane
+    the single kernel's matrix bit for bit (f32 and bf16 storage)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for b, n, d in ((1, 301, 7), (3, 17, 70), (8, 67, 3)):
+        X = torch.randn(b, n, d, device=cuda, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            Xc = X.to(dtype)
+            got = pairwise_dist_batch_cuda(Xc, metric=metric, form=form)
+            want = ref.pairwise_dissim_batch_ref(Xc, metric=metric,
+                                                 form=form)
+            tol = _tolerance(metric, form, Xc.float().view(b * n, d), None,
+                             want)
+            assert float(torch.amax(torch.abs(got - want))) <= tol
+            assert not bool(torch.diagonal(got, dim1=1, dim2=2).any())
+            for z in range(b):
+                assert torch.equal(got[z], ops.pairwise_dist(
+                    Xc[z], metric=metric, form=form))
+
+
+@pytest.mark.cuda
+def test_cuda_masked_argmin_lane_axis_bitwise(cuda):
+    """A (b, n) stack in one launch pair: each row the plain argmin and the
+    single kernel's pair, bit for bit, above and below one CTA's 4,096."""
+    for b in (1, 3, 8):
+        for n in (17, 4096, 4097, 20000):
+            rng = np.random.default_rng(b * n)
+            vals = torch.from_numpy(rng.integers(-5, 6, size=(b, n)).astype(
+                np.float32)).to(cuda)
+            mask = torch.from_numpy(rng.random((b, n)) < 0.5).to(cuda)
+            mask[-1] = True                        # a fully masked lane
+            kv, ki = masked_argmin_cuda(vals, mask)
+            pv, pi = ref.masked_argmin_ref(vals, mask)
+            assert torch.equal(ki, pi) and torch.equal(kv, pv)
+            for z in range(b):
+                sv, si = masked_argmin_cuda(vals[z], mask[z])
+                assert int(si) == int(ki[z]) and torch.equal(sv, kv[z])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_prim_stream_step_batch_against_plain_and_solo(cuda, metric,
+                                                            form):
+    """Each lane's frontier within the pairwise tolerance of the plain
+    step, its pair the plain argmin of its own frontier, and the whole
+    lane the single kernel's step bit for bit (one CTA at n = 17, several
+    at n = 1,000)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for b, n in ((1, 1000), (3, 17), (4, 1000)):
+        X = torch.randn(b, n, 19, device=cuda, generator=gen)
+        aux = metric_aux_cuda(X, metric=metric)
+        mind = torch.rand(b, n, device=cuda, generator=gen) * 4.0
+        sel = torch.rand(b, n, device=cuda, generator=gen) < 0.3
+        q = torch.randint(0, n, (b,), device=cuda, generator=gen)
+        want, _, _ = ref.prim_stream_step_batch_ref(X, aux, q, mind.clone(),
+                                                    sel, metric=metric,
+                                                    form=form)
+        solo = [prim_stream_step_cuda(X[z], aux[z], q[z:z + 1],
+                                      mind[z].clone(), sel[z], metric=metric,
+                                      form=form) for z in range(b)]
+        got, ev, nq = prim_stream_step_batch_cuda(X, aux, q, mind, sel,
+                                                  metric=metric, form=form)
+        tol = _tolerance(metric, form, X.view(b * n, -1), None, want)
+        assert float(torch.amax(torch.abs(got - want))) <= tol
+        pv, pi = ref.masked_argmin_ref(got, sel)
+        assert torch.equal(nq, pi) and torch.equal(ev, pv)
+        for z, (sm, se, sq) in enumerate(solo):
+            assert torch.equal(got[z], sm) and torch.equal(ev[z], se)
+            assert int(nq[z]) == int(sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_prim_persist_lanes_equal_solo_launches(cuda, metric):
+    """b persistent CTAs in one launch: every lane's order, edges and
+    stats equal a single launch on that lane, pruned and eager, for a
+    ragged and a below-one-tile n."""
+    for b, n, block in ((3, 500, 64), (1, 700, 1024), (4, 40, 64)):
+        X = torch.from_numpy(np.stack([_contig_blobs(n, seed=s)
+                                       for s in range(b)])).to(cuda)
+        aux = metric_aux_cuda(X, metric=metric)
+        i0 = torch.stack([_streamed_seed_pivot(x, metric=metric) for x in X])
+        for prune in (True, False):
+            order, edges, stats = prim_persist_cuda(
+                X, aux, i0, metric=metric, block=block, prune=prune)
+            assert order.shape == edges.shape == (b, n)
+            for z in range(b):
+                so, se, ss = prim_persist_cuda(X[z], aux[z], i0[z],
+                                               metric=metric, block=block,
+                                               prune=prune)
+                assert torch.equal(order[z], so) and torch.equal(edges[z], se)
+                assert torch.equal(stats[z], ss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_knn_batch_equals_solo_and_plain(cuda, metric):
+    """Each lane's lists are the single kernel's and the pairwise kernel's
+    sorted rows, bit for bit, at ragged n, n below one tile, and k up to
+    MAX_K; k > MAX_K takes the blocked route lane by lane."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for b, n, d, k in ((1, 257, 64, 15), (3, 40, 3, 39), (4, 300, 9, 128)):
+        X = torch.randn(b, n, d, device=cuda, generator=gen)
+        ids = torch.arange(n, device=cuda)
+        got = knn_graph_batch_cuda(X, k=k, metric=metric)
+        for z in range(b):
+            _assert_same_lists((got[0][z], got[1][z]),
+                               knn_topk_cuda(X[z], X[z], ids, ids, k=k,
+                                             metric=metric))
+            _assert_same_lists((got[0][z], got[1][z]),
+                               _plain_knn(X[z], X[z], ids, ids, k, metric))
+    X = torch.randn(2, 200, 5, device=cuda, generator=gen)
+    big = ops.knn_graph_batch(X, k=150, metric=metric)
+    for z in range(2):
+        _assert_same_lists((big[0][z], big[1][z]),
+                           ops.knn_graph(X[z], k=150, metric=metric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,turbo", [("vat", None), ("ivat", None),
+                                          ("flashvat", None),
+                                          ("flashvat", False)])
+def test_cuda_fit_many_lanes_equal_solo_fits(cuda, method, turbo):
+    """fit_many on the card: the batched kernels' launch counts, and every
+    lane's order, image and report the solo fit's, bit for bit."""
+    from repro_torch import FastVAT
+    b, n = 3, 300
+    Xs = np.stack([_contig_blobs(n, d=4, seed=s) for s in range(b)])
+    _build.reset_launch_counts()
+    fv = FastVAT(method=method, turbo=turbo, sample_size=64).fit_many(Xs)
+    counts = _build.launch_counts()
+    if method == "flashvat":
+        assert counts["prim_persist"] == (1 if turbo is None else 0)
+        assert counts["prim_stream_step_batch"] == (
+            0 if turbo is None else n - 1)
+        assert counts["pairwise_dist_batch"] == 1     # the render
+        assert counts["masked_argmin"] == 63 and counts["ivat_from_vat"] == 1
+    else:
+        assert counts["pairwise_dist_batch"] == 1
+        assert counts["masked_argmin"] == n - 1
+        assert counts["ivat_from_vat"] == (1 if method == "ivat" else 0)
+    assert fv.result.order.is_cuda and fv.batched
+    reps = fv.assess()
+    for z in range(b):
+        solo = FastVAT(method=method, turbo=turbo, sample_size=64).fit(Xs[z])
+        np.testing.assert_array_equal(fv.order()[z], solo.order())
+        np.testing.assert_array_equal(fv.image(use_ivat=True)[z],
+                                      solo.image(use_ivat=True))
+        srep = solo.assess()
+        assert (reps[z].block_score, reps[z].k_est) == (srep.block_score,
+                                                        srep.k_est)
+    if method in ("vat", "ivat"):
+        Ds = ops.pairwise_dist_batch(
+            fv._X, form=fv.result.meta.numerics.form).cpu().numpy()
+        fp = FastVAT(method=method, metric="precomputed").fit_many(Ds)
+        np.testing.assert_array_equal(fp.order(), fv.order())

@@ -162,7 +162,10 @@ def test_cpu_dispatch_launches_no_kernel():
                                       "ivat_from_vat": 0,
                                       "prim_persist": 0,
                                       "prim_stream_step": 0,
-                                      "knn_graph": 0}
+                                      "knn_graph": 0,
+                                      "pairwise_dist_batch": 0,
+                                      "prim_stream_step_batch": 0,
+                                      "knn_graph_batch": 0}
 
 
 @pytest.mark.parametrize("call", [
