@@ -721,6 +721,261 @@ def phase_flash_times(torch, ref, flash, prim_stream_step_cuda):
     return persist, step
 
 
+# ---------------------------------------------------- the sharded path ----
+
+def frontier_step_cost(n: int, d: int):
+    """One step of one rank's shard: X read once, the frontier read and
+    written (8 bytes a lane), aux (4 bytes a lane), the table slot and the
+    new slot; one FMA per feature and lane, a 4-op epilogue."""
+    width = 4 + 4 * -(-d // 4)
+    return 4 * n * d + 12 * n + 8 * width, 2 * n * d + 4 * n
+
+
+def check_frontier_kernel(torch, ref, prim_frontier_step_cuda, gen):
+    """The frontier kernel against its plain version on the same tensors:
+    six kinds at the shard-path shape (n = 50,000, d = 64, one rank) and at
+    ragged small n; the least-key slot of three is the pivot, recorded
+    exactly; its lane closed; +inf lanes kept; finite lanes within the
+    pairwise tolerance; the new slot the kernel's own first-index minimum
+    (global id, raw value, aux entry, point), bit for bit."""
+    from repro_torch.kernels.pairwise_dist import metric_aux_cuda
+    offset = 1_000_000
+    cases, worst = [], {}
+    shapes = ((50_000, 64), (1, 64), (255, 7), (257, 64), (1_000, 5))
+    for n, d in shapes:
+        X = torch.randn(n, d, device="cuda", generator=gen)
+        width = ref.slot_width(d)
+        for metric, form in (("euclidean", "gram"), ("sqeuclidean", "gram"),
+                             ("cosine", "gram"), ("euclidean", "direct"),
+                             ("sqeuclidean", "direct"),
+                             ("manhattan", "direct")):
+            aux = metric_aux_cuda(X, metric=metric)
+            piv = min(17, n - 1)
+
+            def slot(v, gid, local):
+                return ref.make_slot(
+                    torch.tensor(v, device="cuda"),
+                    torch.tensor(gid, device="cuda"),
+                    torch.tensor(v, device="cuda"), aux[local], X[local],
+                    width)
+
+            table = torch.stack([slot(7.0, 3, 0),
+                                 slot(2.5, offset + piv, piv),
+                                 slot(2.5, offset + n + 9, 0)])
+            u = torch.rand(n, device="cuda", generator=gen)
+            mind = torch.where(u < 0.3, torch.inf, torch.where(
+                u < 0.6, ref.UNSEEN, 50.0 * torch.rand(
+                    n, device="cuda", generator=gen)))
+            order = torch.zeros(4, dtype=torch.int64, device="cuda")
+            edges = torch.zeros(4, device="cuda")
+            porder, pedges = order.clone(), edges.clone()
+            want, _ = ref.prim_frontier_round_ref(
+                X, aux, table, mind.clone(), porder, pedges, 2,
+                offset=offset, metric=metric, form=form)
+            was_inf = torch.isinf(mind)
+            out = torch.empty(width, device="cuda")
+            got = prim_frontier_step_cuda(X, aux, table, mind, out, order,
+                                          edges, 2, offset=offset,
+                                          metric=metric, form=form)
+            torch.cuda.synchronize()
+            label = f"{metric}/{form} n={n} d={d}"
+            require(torch.equal(order, porder) and torch.equal(edges, pedges)
+                    and int(order[2]) == offset + piv
+                    and float(edges[2]) == 2.5,
+                    f"frontier {label}: pivot recorded {order.tolist()} "
+                    f"{edges.tolist()}")
+            require(bool(torch.isinf(got[piv]))
+                    and bool(torch.all(torch.isinf(got[was_inf])))
+                    and torch.equal(torch.isinf(got), torch.isinf(want)),
+                    f"frontier {label}: +inf lanes not kept in band")
+            fin = ~torch.isinf(got)
+            err, tol = 0.0, 0.0
+            if bool(fin.any()):
+                err = float(torch.amax(torch.abs(got[fin] - want[fin])))
+                tol = (plain_tolerance(torch, metric, X, want[fin])
+                       if form == "gram" else 1e-5 * float(
+                           torch.amax(torch.abs(want[fin]))) + 1e-6)
+            require(err <= tol, f"frontier {label}: err {err} > {tol}")
+            i = int(torch.argmin(got))
+            key = ref.signed_key(got[i], torch.tensor(offset + i,
+                                                      device="cuda"))
+            require(torch.equal(out[:2].view(torch.int64), key.view(1))
+                    and torch.equal(out[2:4], torch.stack([got[i], aux[i]]))
+                    and torch.equal(out[4:4 + d], X[i])
+                    and bool(torch.all(out[4 + d:] == 0)),
+                    f"frontier {label}: the new slot is not the kernel's "
+                    f"own minimum {i}")
+            worst[f"{metric}/{form}"] = max(worst.get(f"{metric}/{form}",
+                                                      0.0), err)
+            cases.append(label)
+    log("frontier-kernel", kernel="prim_frontier_step", cases=len(cases),
+        shapes=[list(s) for s in shapes], max_abs_err=worst,
+        in_band=True, pivot_recorded=True, slot_bitwise=True)
+    return worst["euclidean/gram"]
+
+
+def init_world_of_one(torch, dist):
+    """An NCCL process group of one rank on card 0, from an in-memory
+    store: every collective of the sharded path runs, over no network."""
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def phase_shard_path(torch, rt, ref, core, build, flash):
+    """``core.vat_matrix_free_sharded`` over NCCL at world size 1: the
+    flash path's n = 50,000 points equal prim_persist's order and edges bit
+    for bit, four metrics at n = 4,096 too; wall time, peak memory, and a
+    traced fit's kernel, NCCL and idle times."""
+    X, n = flash["X"], flash["X"].shape[0]
+    d = X.shape[1]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    sh, wall = wall_s(torch, lambda: core.vat_matrix_free_sharded(X))
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    require(launches["prim_frontier_step"] == n
+            and launches["pairwise_dist"] > 0
+            and launches["prim_persist"] == launches["prim_stream_step"] == 0,
+            f"shard path launch counts {launches}")
+    require(torch.equal(sh.order, flash["order"])
+            and torch.equal(sh.edges, flash["edges"]),
+            f"sharded n={n}: order or edges differ from prim_persist's")
+    require(peak < 512 * 2 ** 20, f"the sharded fit allocated {peak} bytes "
+            "on the card, over 512 MiB")
+    metrics = {}
+    for metric in ref.METRICS:
+        Xm = torch.from_numpy(blobs(4_096, 64, k=8, seed=4)).cuda()
+        solo = core.vat_matrix_free(Xm, metric=metric)
+        shm, w = wall_s(torch, lambda: core.vat_matrix_free_sharded(
+            Xm, metric=metric))
+        require(torch.equal(shm.order, solo.order)
+                and torch.equal(shm.edges, solo.edges),
+                f"sharded {metric} n=4096 differs from prim_persist")
+        metrics[metric] = w
+    # one traced fit: at n = 8,192, since a trace of n steps of a few
+    # events each takes minutes to read back at 50,000
+    from torch.profiler import ProfilerActivity, profile
+    nt = 8_192
+    Xt = X[:nt].contiguous()
+    core.vat_matrix_free_sharded(Xt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, twall = wall_s(torch, lambda: core.vat_matrix_free_sharded(Xt))
+    # the collective shows twice on the card's timeline: as NCCL's
+    # annotation ("nccl:...") and as the work under it (at one rank, a
+    # device-to-device copy); busy time and operations count the work once
+    from torch.autograd import DeviceType
+    by_name = kernel_device_ms(prof)
+    nccl_ms = sum(v for k, v in by_name.items() if k.startswith("nccl:"))
+    busy = sum(v for k, v in by_name.items() if not k.startswith("nccl:"))
+    frontier_ms = sum(v for k, v in by_name.items() if "frontier" in k)
+    ops_traced = sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and e.self_device_time_total
+                     and not e.key.startswith("nccl:"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("shard-path", n=n, d=d, world_size=1, backend="nccl",
+        fit_wall_s=wall, launches=launches, peak_alloc_mib=peak / 2 ** 20,
+        equals_prim_persist=True, metrics_n4096_wall_s=metrics,
+        traced_n=nt, traced_fit_wall_ms=twall * 1e3, device_busy_ms=busy,
+        idle_share=1.0 - busy / (twall * 1e3),
+        frontier_kernel_ms_per_step=frontier_ms / nt,
+        nccl_ms_per_step=nccl_ms / nt, device_ops_per_step=ops_traced / nt,
+        top_ms={k[:60]: v for k, v in top})
+    return launches, wall
+
+
+def phase_frontier_times(torch, ref, prim_frontier_step_cuda, flash, err,
+                         launches):
+    """The frontier kernel at the shard path's shape beside its plain
+    version and bound."""
+    X, aux = flash["X"], flash["aux"]
+    n, d = X.shape
+    width = ref.slot_width(d)
+    zero = torch.zeros((), device="cuda")
+    i0 = flash["i0"]
+    table = ref.make_slot(zero, i0, zero, aux[i0], X[i0], width).view(1, -1)
+    mind = torch.full((n,), ref.UNSEEN, device="cuda")
+    out = torch.empty(width, device="cuda")
+    order = torch.zeros(1, dtype=torch.int64, device="cuda")
+    edges = torch.zeros(1, device="cuda")
+    row = {"kernel": "prim_frontier_step", "n": n,
+           "ms": device_ms(torch, lambda: prim_frontier_step_cuda(
+               X, aux, table, mind, out, order, edges, 0), reps=200,
+               label="prim_frontier_step"),
+           "plain_ms": device_ms(torch, lambda: ref.prim_frontier_round_ref(
+               X, aux, table, mind, order, edges, 0, offset=0), reps=50,
+               label="prim_frontier_step plain"),
+           "library_ms": None,
+           "event_ms": event_ms(torch, lambda: prim_frontier_step_cuda(
+               X, aux, table, mind, out, order, edges, 0), reps=200)}
+    row["bound_ms"], row["bound_by"] = bound_ms(*frontier_step_cost(n, d))
+    log("time", **row)
+    return {"name": "prim_frontier_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/prim_stream.cu",
+            "replaces": "src/repro/kernels/prim_stream.py:175",
+            "launches": launches["prim_frontier_step"], "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None}
+
+
+def phase_dvat(torch, rt, core, build):
+    """``core.dvat`` at world size 1 (n = 16,384: its exact start is the
+    reference's (n/P, n) strip, 1 GiB here) against the solo vat order by
+    tree weight (its rows are direct differences, not the pairwise
+    kernel's, so a bitwise order is not owed); the dvat rung refuses one
+    rank; the svat rung runs on the card."""
+    n, d = 16_384, 64
+    X = torch.from_numpy(blobs(n, d, k=8, seed=5)).cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = wall_s(torch, lambda: core.dvat(X))
+    peak = torch.cuda.max_memory_allocated() - base
+    order = res.order
+    require(torch.equal(torch.sort(order).values,
+                        torch.arange(n, device="cuda")),
+            "dvat order is not a permutation")
+    vat_order = core.vat(X).order
+    wd, wv = tree_weight(torch, X, order), tree_weight(torch, X, vat_order)
+    excess = abs(wd - wv) / wv
+    require(excess <= EXCESS_F32, f"dvat vs vat at n={n}: tree weight {wd} "
+            f"vs {wv}, relative {excess} > {EXCESS_F32}")
+    try:
+        rt.FastVAT(method="dvat").fit(blobs(64, 4, k=2, seed=0))
+        refused = False
+    except RuntimeError:
+        refused = True
+    require(refused, "FastVAT(method='dvat') ran at world size 1")
+    Xs = blobs(50_000, 64, k=8, seed=0)
+    build.reset_launch_counts()
+    fv, swall = wall_s(torch, lambda: rt.FastVAT(method="svat").fit(Xs))
+    counts = build.launch_counts()
+    img = fv.image()
+    rep = fv.assess()
+    idx = fv.sample_indices()
+    require(fv.result.meta.device.startswith("cuda")
+            and counts["pairwise_dist"] == 1
+            and counts["masked_argmin"] == 255,
+            f"svat fit launch counts {counts}")
+    require(img.shape == (256, 256) and np.isfinite(img).all()
+            and len(np.unique(idx)) == 256, "bad svat image or sample")
+    require(rep.k_est == 8 and rep.clustered,
+            f"svat on 8 separated blobs gave {rep}")
+    log("dvat", n=n, d=d, world_size=1, dvat_wall_s=wall,
+        peak_alloc_mib=peak / 2 ** 20, tree_weight_rel_excess=excess,
+        same_order_as_vat=bool(torch.equal(order, vat_order)),
+        dvat_rung_refuses_one_rank=refused, svat_n=50_000,
+        svat_fit_wall_s=swall, svat_launches=counts, svat_k_est=rep.k_est,
+        svat_block_score=rep.block_score)
+
+
 # ------------------------------------------------------ approx path ----
 
 def demo_blobs(n: int, k: int = 5, d: int = 8, seed: int = 0):
@@ -1590,8 +1845,10 @@ def main() -> int:
     from repro_torch.kernels.knn_graph import knn_topk_blocked, knn_topk_cuda
     from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
     from repro_torch.kernels.prim_persist import prim_persist_cuda
-    from repro_torch.kernels.prim_stream import prim_stream_step_cuda
+    from repro_torch.kernels.prim_stream import (prim_frontier_step_cuda,
+                                                prim_stream_step_cuda)
     from repro_torch.kernels.prim_update import masked_argmin_cuda
+    import torch.distributed as dist
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     require(not bad, f"the port imported {bad}")
@@ -1636,6 +1893,15 @@ def main() -> int:
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
+    # the sharded path: the frontier kernel, then the engine over NCCL
+    frontier_err = check_frontier_kernel(torch, ref, prim_frontier_step_cuda,
+                                         gen)
+    init_world_of_one(torch, dist)
+    shard_launches, _ = phase_shard_path(torch, rt, ref, core, build, flash)
+    rows.append(phase_frontier_times(torch, ref, prim_frontier_step_cuda,
+                                     flash, frontier_err, shard_launches))
+    phase_dvat(torch, rt, core, build)
+    dist.destroy_process_group()
     Xk, knn_err = phase_knn_kernel(torch, ref, ops, knn_topk_cuda,
                                    knn_topk_blocked, pairwise_dist_cuda, gen)
     phase_approx_exact(torch, rt, ops, build, core)

@@ -9,7 +9,13 @@ The same surface as ``repro.FastVAT`` for the rungs ported so far:
                                                (kNN kernel), banded render;
                                                error on ``meta.approx``
 
-plus the opt-in ``ivat`` rung.  The fit runs on ``device`` (default
+plus the opt-in rungs ``ivat`` (the geodesic image), ``svat`` (the VAT of
+a maximin sample) and ``dvat`` (matrix-free distributed VAT over a
+``torch.distributed`` process group of more than one rank, with the svat
+image).  When the default process group has more than one rank, flashvat
+shards its traversal over it from n = 4,096 (``turbo=None``, the gram
+form), each rank calling ``fit`` on the same points.  The fit runs on
+``device`` (default
 "cuda": the CUDA kernels of ``kernels/csrc``); ``device="cpu"`` runs the
 plain PyTorch versions.  Without a GPU the default device raises
 ``RuntimeError`` at ``fit`` rather than carry on on the CPU.
@@ -79,9 +85,11 @@ class FastVAT:
                derives from — see ``ResultMeta``.
     sample_size: m, the representatives the banded render of flashvat and
                approx draws (its image and ``rstar`` are (m, m)).
-    turbo:     flashvat's traversal engine — None (default) or True the
-               persistent kernel, False the stepwise engine (one fused step
-               kernel per vertex); the same ordering either way.
+    turbo:     flashvat's traversal engine — None (default) the persistent
+               kernel, or the sharded engine under a process group of more
+               than one rank from n = 4,096; True the solo persistent
+               kernel; False the stepwise engine (one fused step kernel per
+               vertex); the same ordering every way.
     knn_k:     the approx rung's error-bound knob — neighbours per point in
                the kNN graph (default 15); exact at n - 1.
     validate:  admission-check inputs before they reach a kernel (finite
@@ -210,6 +218,8 @@ class FastVAT:
         if precomputed and not rung.supports_precomputed:
             raise ValueError(f"method {method!r} does not accept "
                              "metric='precomputed'")
+        if rung.check is not None:
+            rung.check(n)
         return self._run(rung.fit, data, method, num_report, None)
 
     def fit_many(self, Xs) -> "FastVAT":
@@ -270,12 +280,14 @@ class FastVAT:
         return self.result
 
     def order(self) -> np.ndarray:
-        """VAT ordering of all n points, as a host array ((b, n) after
-        ``fit_many``)."""
+        """VAT ordering, as a host array: of all n points (vat, ivat,
+        flashvat, approx, dvat) or of the sample (svat — ``sample_indices()``
+        maps it back to dataset rows); (b, n) after ``fit_many``."""
         return self._require_fit().order.cpu().numpy()
 
     def sample_indices(self) -> np.ndarray | None:
-        """Dataset rows of the representatives (flashvat), else None."""
+        """Dataset rows of the representatives (flashvat, approx) or of the
+        maximin sample (svat, dvat), else None."""
         idx = self._require_fit().sample_idx
         return None if idx is None else idx.cpu().numpy()
 

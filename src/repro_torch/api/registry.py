@@ -6,15 +6,15 @@ adapter that runs a ``repro_torch.core`` rung and wraps its output into
 the uniform ``TendencyResult``), its capability flags and its
 auto-selection threshold.
 
-The port registers the ``vat``, ``ivat``, ``flashvat`` and ``approx``
-rungs, which cover every n under auto-selection.  The reference's other
-rungs (all opt-in) are listed in ``UNPORTED``: ``FastVAT`` raises
-``NotImplementedError`` naming the one asked for instead of quietly running
-another.
+The port registers the ``vat``, ``ivat``, ``svat``, ``flashvat``,
+``approx`` and ``dvat`` rungs; the first, fourth and fifth cover every n
+under auto-selection.  The reference's other rungs (both opt-in) are listed
+in ``UNPORTED``: ``FastVAT`` raises ``NotImplementedError`` naming the one
+asked for instead of quietly running another.
 
 >>> from repro_torch.api import registry
 >>> sorted(registry.registered())
-['approx', 'flashvat', 'ivat', 'vat']
+['approx', 'dvat', 'flashvat', 'ivat', 'svat', 'vat']
 >>> registry.select_method(100), registry.select_method(10_000)
 ('vat', 'flashvat')
 >>> registry.select_method(1_000_000)
@@ -34,9 +34,10 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import core
-from repro_torch.api.result import ResultMeta, TendencyResult
+from repro_torch.api.result import SALT_FIT, ResultMeta, TendencyResult
 from repro_torch.kernels import ops as kops
 
 #: Auto-selection thresholds, the reference's: materialized exact VAT up to
@@ -45,9 +46,14 @@ from repro_torch.kernels import ops as kops
 SMALL_N = 2_048
 MEDIUM_N = 50_000
 
-#: Rungs of the reference the port does not have yet; all are opt-in (no
+#: Smallest n the flashvat rung auto-shards over a process group of more
+#: than one rank (the reference's): below it the per-step collectives cost
+#: more than they parallelize.
+FLASH_SHARD_MIN_N = 4_096
+
+#: Rungs of the reference the port does not have yet; both are opt-in (no
 #: auto-selection threshold), so auto-selection never reaches them.
-UNPORTED = ("svat", "bigvat", "dvat", "embed")
+UNPORTED = ("bigvat", "embed")
 
 
 class RungOptions(NamedTuple):
@@ -55,10 +61,11 @@ class RungOptions(NamedTuple):
     ``ResultMeta``).
 
     ``sample_size`` is m, the representatives flashvat's banded render
-    draws.  ``turbo`` picks flashvat's traversal engine: None (default) and
-    True the persistent kernel, False the stepwise engine.  The reference's
-    None also auto-shards across devices; the port has one card, so None
-    and True are the same here.
+    draws (and the s of svat and of dvat's image).  ``turbo`` picks
+    flashvat's traversal engine: None (default) lets the rung choose — the
+    persistent kernel solo, or the sharded engine when the default process
+    group has more than one rank and n is worth the collectives; True
+    forces the solo persistent kernel; False the stepwise engine (solo).
 
     ``knn_k`` is the approx rung's accuracy knob: neighbours kept per point
     in the kNN graph whose spanning tree orders the data; the error it
@@ -90,6 +97,8 @@ class Rung:
       supports_precomputed: accepts metric="precomputed" input.
       auto_threshold: largest n ``select_method`` hands this rung
         (math.inf = unbounded fallback); None = never auto-selected.
+      check: environment requirement run before a fit with n (dvat's
+        process group), raising when it is not met; None = none.
       description: one-liner for docs/tooling.
     """
 
@@ -98,6 +107,7 @@ class Rung:
     fit_batch: Fitter | None = None
     supports_precomputed: bool = False
     auto_threshold: float | None = None
+    check: Callable[[int], None] | None = None
     description: str = ""
 
     @property
@@ -227,6 +237,21 @@ def _fit_ivat_batch(data, meta: ResultMeta,
                           sample_idx=None, extension_labels=None, meta=meta)
 
 
+def _svat_result(Xf: torch.Tensor, meta: ResultMeta,
+                 opts: RungOptions) -> core.SVATResult:
+    return core.svat(Xf, meta.generator(SALT_FIT),
+                     s=min(opts.sample_size, meta.n), metric=meta.metric)
+
+
+def _fit_svat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
+    """sVAT: the exact VAT of s maximin-sampled points; ``order`` and
+    ``rstar`` are the sample's, ``sample_idx`` its dataset rows."""
+    res = _svat_result(data.float(), meta, opts)
+    return TendencyResult(order=res.vat.order, rstar=res.vat.rstar,
+                          ivat_image=None, sample_idx=res.sample_idx,
+                          extension_labels=None, meta=meta)
+
+
 def _flash_groups(n: int, m: int):
     """Partition VAT-order positions 0..n-1 into m contiguous groups.
 
@@ -267,11 +292,22 @@ def _rep_ivat(Rrep: torch.Tensor) -> torch.Tensor:
     return iv_s.index_select(0, rank).index_select(1, rank)
 
 
+def _world_size() -> int:
+    """Ranks of the default process group; 1 when none is initialized."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def _flash_order(Xf: torch.Tensor, meta: ResultMeta,
                  opts: RungOptions) -> core.FlashVATResult:
-    """The flashvat rung's engine: the persistent kernel unless
-    ``opts.turbo`` is False (the stepwise engine).  The reference's
-    sharded engine is not ported (one card)."""
+    """The flashvat rung's engine, the reference's rule: ``turbo`` None
+    takes the sharded engine over the default process group when it has
+    more than one rank, n >= ``FLASH_SHARD_MIN_N`` and the numerics plan is
+    "gram" (the sharded engine speaks the gram form only), and the solo
+    persistent kernel otherwise; True forces the solo persistent kernel,
+    False the stepwise engine.  The orders are the same bit for bit."""
+    if (opts.turbo is None and _world_size() > 1
+            and meta.n >= FLASH_SHARD_MIN_N and opts.num_form == "gram"):
+        return core.vat_matrix_free_sharded(Xf, metric=meta.metric)
     return core.vat_matrix_free(Xf, metric=meta.metric, form=opts.num_form,
                                 turbo=opts.turbo is not False)
 
@@ -364,6 +400,33 @@ def _fit_approx(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     return _band_render(Xf, res.order, meta, opts)
 
 
+def _check_dvat(n: int):
+    """dvat needs a process group of more than one rank whose size divides
+    n: RuntimeError below two ranks (as the reference below two devices),
+    ValueError when the size does not divide n."""
+    ranks = _world_size()
+    if ranks < 2:
+        raise RuntimeError(
+            f"method='dvat' needs a torch.distributed process group of more "
+            f"than one rank, found {ranks}; use 'flashvat' on one device")
+    if n % ranks:
+        raise ValueError(
+            f"method='dvat' needs n divisible by the world size "
+            f"({n} % {ranks} != 0); pad or truncate X first")
+
+
+def _fit_dvat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
+    """dvat: the full-n order of the distributed engine, with the svat
+    image of a maximin sample, so the result has the uniform
+    ``image()`` / ``assess()`` surface."""
+    Xf = data.float()
+    dres = core.dvat(Xf, metric=meta.metric)
+    sres = _svat_result(Xf, meta, opts)
+    return TendencyResult(order=dres.order, rstar=sres.vat.rstar,
+                          ivat_image=None, sample_idx=sres.sample_idx,
+                          extension_labels=None, meta=meta)
+
+
 register(Rung(
     name="vat", fit=_fit_vat, fit_batch=_fit_vat_batch,
     supports_precomputed=True, auto_threshold=SMALL_N,
@@ -372,6 +435,9 @@ register(Rung(
     name="ivat", fit=_fit_ivat, fit_batch=_fit_ivat_batch,
     supports_precomputed=True, auto_threshold=None,
     description="exact VAT + geodesic (iVAT) image; opt-in"))
+register(Rung(
+    name="svat", fit=_fit_svat, auto_threshold=None,
+    description="maximin sample VAT, O(ns + s^2); opt-in"))
 register(Rung(
     name="flashvat", fit=_fit_flashvat, fit_batch=_fit_flashvat_batch,
     supports_precomputed=False, auto_threshold=MEDIUM_N,
@@ -382,3 +448,7 @@ register(Rung(
     auto_threshold=math.inf,
     description="kNN-graph Borůvka MST ordering (kNN kernel), O(n·k) "
                 "memory, the million-point rung; error on meta.approx"))
+register(Rung(
+    name="dvat", fit=_fit_dvat, check=_check_dvat, auto_threshold=None,
+    description="matrix-free distributed VAT over a torch.distributed "
+                "process group; needs more than one rank"))

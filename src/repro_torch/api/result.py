@@ -120,17 +120,19 @@ class TendencyResult:
     """What every rung returns: ordering + images, one shape.
 
     Attributes:
-      order: (n,) int64 VAT ordering of all n points; (b, n) after
+      order: (n,) int64 VAT ordering of all n points (of the s sampled
+        points for svat); (b, n) after
         ``fit_many``, as every array below gains a leading batch axis
         (``group_sizes`` excepted: one band layout serves every lane).
       rstar: reordered dissimilarity image — (n, n) for vat/ivat, the
         (m, m) matrix of the representatives in band order for flashvat
-        and approx.
+        and approx, the (s, s) VAT image of the maximin sample for svat and
+        dvat.
       ivat_image: geodesic (iVAT) image where the rung computed one (ivat,
         flashvat, approx), else None; ``image(use_ivat=True)`` derives it
         on demand from ``rstar`` when absent.
-      sample_idx: dataset rows of the representatives (flashvat, approx),
-        else None.
+      sample_idx: dataset rows of the representatives (flashvat, approx)
+        or of the maximin sample (svat, dvat), else None.
       extension_labels: (n,) band id of every point (flashvat, approx),
         else None.
       meta: static fit metadata (method, metric, n, seed, device, ...).

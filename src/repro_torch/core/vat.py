@@ -194,16 +194,54 @@ def _split(n: int, most: int) -> int:
     return -(-n // parts)
 
 
-def _streamed_seed_pivot(Xf: torch.Tensor, *, metric: str,
-                         form: str = "gram") -> torch.Tensor:
-    """VAT's seed i0 = argmax_i max_j R[i, j], without forming R.
+def _seed_rowmax(Xr: torch.Tensor, Xc: torch.Tensor, *, r0: int, n: int,
+                 metric: str, form: str = "gram") -> torch.Tensor:
+    """Row maxima of the rows ``r0 .. r0 + len(Xr) - 1`` of R over its n
+    columns, without forming those rows.
 
     Blocks of R come from ``kernels.ops.pairwise_dist(xb, yb)`` — two
-    operands, each shorter than n — with the diagonal masked to 0, as in
-    the materialized matrix, and are reduced to row maxima on the spot.
-    Every entry depends only on its own pair and the max is exact, so any
-    blocking gives the same row maxima, and the seed equals ``vat_order``'s
-    on the materialized matrix.
+    operands, each shorter than its side — with the diagonal (at global
+    coordinates) masked to 0, as in the materialized matrix, and are
+    reduced to row maxima on the spot.  Every entry depends only on its own
+    pair and the max is exact, so any blocking gives the same row maxima:
+    the sharded engine's scan of its rows equals these rows of the solo
+    scan.
+
+    Args:
+      Xr: (nr, d) float32 — the rows' points.
+      Xc: (>= n, d) float32 — the column points; rows past n are padding
+        and are not scanned.
+      r0: the global index of Xr's first row.
+      n: the number of columns.
+
+    Returns:
+      (nr,) float32 row maxima on Xr's device; no host sync.
+    """
+    nr = Xr.shape[0]
+    br, bc = _split(nr, SEED_BLOCK[0]), _split(n, SEED_BLOCK[1])
+    rowmax = torch.empty(nr, dtype=torch.float32, device=Xr.device)
+    for a in range(0, nr, br):
+        b = min(nr, a + br)
+        rm = None
+        for c0 in range(0, n, bc):
+            c1 = min(n, c0 + bc)
+            T = kops.pairwise_dist(Xr[a:b], Xc[c0:c1], metric=metric,
+                                   form=form)
+            lo, hi = max(r0 + a, c0), min(r0 + b, c1)
+            if lo < hi:   # the block holds part of the diagonal
+                diag = torch.arange(lo, hi, device=Xr.device)
+                T[diag - r0 - a, diag - c0] = 0.0
+            bm = torch.amax(T, dim=1)
+            rm = bm if rm is None else torch.maximum(rm, bm)
+        rowmax[a:b] = rm
+    return rowmax
+
+
+def _streamed_seed_pivot(Xf: torch.Tensor, *, metric: str,
+                         form: str = "gram") -> torch.Tensor:
+    """VAT's seed i0 = argmax_i max_j R[i, j], without forming R: the
+    argmax of ``_seed_rowmax`` over all n rows, so the seed equals
+    ``vat_order``'s on the materialized matrix.
 
     Returns:
       0-d int64 tensor on Xf's device (the first index wins ties); no
@@ -212,23 +250,8 @@ def _streamed_seed_pivot(Xf: torch.Tensor, *, metric: str,
     n = Xf.shape[0]
     if n == 1:
         return torch.zeros((), dtype=torch.int64, device=Xf.device)
-    br, bc = _split(n, SEED_BLOCK[0]), _split(n, SEED_BLOCK[1])
-    rowmax = torch.empty(n, dtype=torch.float32, device=Xf.device)
-    for r0 in range(0, n, br):
-        r1 = min(n, r0 + br)
-        rm = None
-        for c0 in range(0, n, bc):
-            c1 = min(n, c0 + bc)
-            T = kops.pairwise_dist(Xf[r0:r1], Xf[c0:c1], metric=metric,
-                                   form=form)
-            lo, hi = max(r0, c0), min(r1, c1)
-            if lo < hi:   # the block holds part of the diagonal
-                diag = torch.arange(lo, hi, device=Xf.device)
-                T[diag - r0, diag - c0] = 0.0
-            bm = torch.amax(T, dim=1)
-            rm = bm if rm is None else torch.maximum(rm, bm)
-        rowmax[r0:r1] = rm
-    return torch.argmax(rowmax)
+    return torch.argmax(_seed_rowmax(Xf, Xf, r0=0, n=n, metric=metric,
+                                     form=form))
 
 
 def _prim_stream_order(Xf: torch.Tensor, aux: torch.Tensor,

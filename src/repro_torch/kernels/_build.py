@@ -57,6 +57,10 @@ SIGNATURES = {
     "repro_prim_stream_step_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                      _P, _P),
     "repro_prim_stream_lanes": (),
+    # X, aux, table, P, W, mind, n, d, kind, offset, order_t, edge_t,
+    # partial, out, stream
+    "repro_prim_frontier_step": (_P, _P, _P, _I, _I, _P, _I, _I, _I,
+                                 ctypes.c_longlong, _P, _P, _P, _P, _P),
     # Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, kind, out_d, out_i, stream
     "repro_knn_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                        _P),
@@ -72,7 +76,7 @@ SIGNATURES = {
 LAUNCHES = {"pairwise_dist": 0, "masked_argmin": 0, "ivat_from_vat": 0,
             "prim_persist": 0, "prim_stream_step": 0, "knn_graph": 0,
             "pairwise_dist_batch": 0, "prim_stream_step_batch": 0,
-            "knn_graph_batch": 0}
+            "knn_graph_batch": 0, "prim_frontier_step": 0}
 
 #: Most lanes one batched launch takes: the lane is a grid axis
 #: (``blockIdx.y`` or ``blockIdx.z``), whose extent CUDA caps at 65,535.

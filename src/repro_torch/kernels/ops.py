@@ -29,14 +29,15 @@ from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
                                               pairwise_dist_batch_cuda,
                                               pairwise_dist_cuda)
 from repro_torch.kernels.prim_persist import DEFAULT_BLOCK, prim_persist_cuda
-from repro_torch.kernels.prim_stream import (prim_stream_step_batch_cuda,
+from repro_torch.kernels.prim_stream import (prim_frontier_step_cuda,
+                                            prim_stream_step_batch_cuda,
                                             prim_stream_step_cuda)
 from repro_torch.kernels.prim_update import masked_argmin_cuda
 
 __all__ = ["pairwise_dist", "pairwise_dist_batch", "masked_argmin",
            "ivat_from_vat", "metric_aux", "prim_persist", "prim_stream_step",
-           "knn_topk", "knn_graph", "knn_graph_batch", "MAX_K",
-           "launch_counts", "reset_launch_counts"]
+           "prim_frontier_step", "knn_topk", "knn_graph", "knn_graph_batch",
+           "MAX_K", "launch_counts", "reset_launch_counts"]
 
 
 def _dispatch_site(op: str, device: torch.device) -> None:
@@ -185,6 +186,54 @@ def prim_stream_step(X: torch.Tensor, aux: torch.Tensor, q: torch.Tensor,
     step = ref.prim_stream_step_batch_ref if batched else \
         ref.prim_stream_step_ref
     return step(X, aux, q, mind, selected, metric=metric, form=form)
+
+
+def prim_frontier_step(X: torch.Tensor, aux: torch.Tensor,
+                       table: torch.Tensor, mind: torch.Tensor,
+                       slot: torch.Tensor, order: torch.Tensor,
+                       edges: torch.Tensor, t: int, *, offset: int = 0,
+                       metric: str = "euclidean", form: str = "gram"):
+    """One step of the sharded engine (``core.distributed.
+    vat_matrix_free_sharded``) on this rank's shard.
+
+    The pivot is the least-key slot of ``table``, the slots every rank
+    wrote last step, all-gathered; it is recorded as ``order[t]`` and
+    ``edges[t]``, its lane is closed to +inf on the rank that holds it, its
+    row is folded into the in-band frontier (``ref.prim_frontier_step_ref``:
+    +inf lanes stay +inf), and the shard's first-index minimum, with its
+    global id ``offset + idx``, its aux entry and its point, is written to
+    ``slot`` for the next all-gather.  The reference's Pallas route derives
+    a ``selected`` mask from the +inf lanes and re-masks the folded
+    frontier; the port's kernel is in band itself and needs neither.
+
+    On the card one launch of the frontier kernel (a second one-CTA pass
+    above 256 lanes); on the CPU ``ref.prim_frontier_round_ref``.
+
+    Args:
+      X: (n, d) float32 — the shard; aux (n,) its ``metric_aux``.
+      table: (P, ref.slot_width(d)) float32 — the gathered slots.
+      mind: (n,) float32 — the in-band frontier.
+      slot: (ref.slot_width(d),) float32 — receives this rank's next slot.
+      order, edges: (N,) int64 and float32 — the traversal being recorded.
+      t: the pivot's position in the order.
+      offset: the global id of the shard's first lane.
+      metric: one of ``ref.METRICS``.
+      form: "gram" (default) or "direct".
+
+    Returns:
+      the folded frontier: ``mind`` updated in place on the card, a new
+      tensor on the CPU.
+    """
+    _dispatch_site("prim_frontier_step", X.device)
+    if X.is_cuda:
+        return prim_frontier_step_cuda(X, aux, table, mind, slot, order,
+                                       edges, t, offset=offset,
+                                       metric=metric, form=form)
+    new_mind, new_slot = ref.prim_frontier_round_ref(
+        X, aux, table, mind, order, edges, t, offset=offset, metric=metric,
+        form=form)
+    slot.copy_(new_slot)
+    return new_mind
 
 
 def knn_topk(Xq: torch.Tensor, Xc: torch.Tensor, qid: torch.Tensor,

@@ -10,6 +10,12 @@ device buffer, so a loop of steps never waits on the host.
 ``prim_stream_step_batch_cuda`` is the port of
 ``prim_stream_step_pallas_batch``, the batched stepwise engine: one step of
 b lanes in one launch pair, each lane's pivot by device index.
+
+``prim_frontier_step_cuda`` is the port of ``prim_frontier_step_pallas``,
+the step of the sharded engine (``core.distributed.
+vat_matrix_free_sharded``): the pivot by value, as a slot of the last
+step's all-gathered table, the frontier in band (+inf lanes never fold),
+and this rank's next slot written for the next all-gather.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.pairwise_dist import (_KINDS, check_cuda,
                                               check_lanes)
-from repro_torch.kernels.ref import check_metric
+from repro_torch.kernels.ref import check_metric, slot_width
 from repro_torch.numerics.condition import check_form
 
 
@@ -134,3 +140,82 @@ def prim_stream_step_batch_cuda(X: torch.Tensor, aux: torch.Tensor,
     _build.check(err, "prim_stream_step_batch")
     _build.LAUNCHES["prim_stream_step_batch"] += 1
     return mind, out.view(torch.float32)[:, 2], out[:, 0]
+
+
+def prim_frontier_step_cuda(X: torch.Tensor, aux: torch.Tensor,
+                            table: torch.Tensor, mind: torch.Tensor,
+                            slot: torch.Tensor, order: torch.Tensor,
+                            edges: torch.Tensor, t: int, *, offset: int = 0,
+                            metric: str = "euclidean", form: str = "gram"
+                            ) -> torch.Tensor:
+    """One step of the sharded engine on this rank's shard, on the card:
+    the pivot is the least-key slot of ``table``, recorded as ``order[t]``
+    and ``edges[t]``; its lane is closed to +inf if this shard holds it;
+    its row is folded into ``mind`` in band, in place; and this rank's next
+    slot goes to ``slot``.  ``ref.prim_frontier_round_ref`` is the plain
+    version.
+
+    Args:
+      X: (n, d) contiguous float32 CUDA tensor — the shard, global ids
+        ``offset`` .. ``offset + n - 1``.
+      aux: (n,) float32 — ``kernels.ops.metric_aux`` of X.
+      table: (P, ref.slot_width(d)) float32 — the gathered slots.
+      mind: (n,) float32 — the in-band frontier, updated in place.
+      slot: (ref.slot_width(d),) float32 — receives this rank's next slot.
+      order, edges: (N,) int64 and float32 — the traversal being recorded.
+      t: 0 <= t < N, the pivot's position in the order.
+      offset: the global id of the shard's first lane.
+      metric: one of ``kernels.ref.METRICS``.
+      form: "gram" or "direct".
+
+    Returns:
+      ``mind``, updated.
+    """
+    check_metric(metric)
+    check_form(form)
+    for tensor, name in ((X, "X"), (aux, "aux"), (table, "table"),
+                         (mind, "mind"), (slot, "slot"), (order, "order"),
+                         (edges, "edges")):
+        check_cuda(tensor, name)
+    if X.dtype != torch.float32 or X.dim() != 2 or 0 in X.shape:
+        raise ValueError(f"want a non-empty (n, d) float32 X, got {X.dtype} "
+                         f"{tuple(X.shape)}")
+    n, d = X.shape
+    width = slot_width(d)
+    if aux.dtype != torch.float32 or mind.dtype != torch.float32 \
+            or not aux.shape == mind.shape == (n,):
+        raise ValueError(f"want (n,) float32 aux and mind for n = {n}, got "
+                         f"{aux.dtype} {tuple(aux.shape)}, {mind.dtype} "
+                         f"{tuple(mind.shape)}")
+    if table.dtype != torch.float32 or table.dim() != 2 \
+            or table.shape[1] != width or table.shape[0] < 1 \
+            or slot.dtype != torch.float32 or slot.shape != (width,):
+        raise ValueError(f"want a (P, {width}) float32 table and a ({width},) "
+                         f"float32 slot for d = {d}, got {table.dtype} "
+                         f"{tuple(table.shape)}, {slot.dtype} "
+                         f"{tuple(slot.shape)}")
+    if table.data_ptr() % 16:
+        raise ValueError("table must start 16-byte aligned")
+    if order.dtype != torch.int64 or edges.dtype != torch.float32 \
+            or order.dim() != 1 or order.shape != edges.shape \
+            or not 0 <= t < order.shape[0]:
+        raise ValueError(f"want (N,) int64 order and float32 edges and "
+                         f"0 <= t < N, got {order.dtype} "
+                         f"{tuple(order.shape)}, {edges.dtype} "
+                         f"{tuple(edges.shape)}, t = {t}")
+    if not 0 <= offset <= 2 ** 32 - 1 - n:
+        raise ValueError(f"global ids offset .. offset + n - 1 must fit 32 "
+                         f"bits, got offset = {offset}, n = {n}")
+    lib = _build.library()
+    lanes = _build.PRIM_STREAM_LANES
+    partial = (torch.empty(-(-n // lanes), dtype=torch.int64, device=X.device)
+               if n > lanes else None)
+    err = lib.repro_prim_frontier_step(
+        X.data_ptr(), aux.data_ptr(), table.data_ptr(), table.shape[0],
+        width, mind.data_ptr(), n, d, _KINDS[(metric, form)], offset,
+        order.data_ptr() + 8 * t, edges.data_ptr() + 4 * t,
+        None if partial is None else partial.data_ptr(), slot.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "prim_frontier_step")
+    _build.LAUNCHES["prim_frontier_step"] += 1
+    return mind

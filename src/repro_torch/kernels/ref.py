@@ -106,17 +106,117 @@ def metric_aux_ref(X: torch.Tensor, *, metric: str = "euclidean"
     return torch.zeros(Xf.shape[:-1], dtype=torch.float32, device=X.device)
 
 
+def take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Entry (or row) i of t for an index tensor i of one element, without
+    a host sync (indexing with a 0-d tensor reads it on the host)."""
+    return t.index_select(0, i.view(1))[0]
+
+
 def _as_index(q, device) -> torch.Tensor:
     """A vertex index (int or integer tensor) as a 1-element int64 tensor."""
     return torch.as_tensor(q, dtype=torch.int64, device=device).view(1)
 
 
+#: Fewest rows ``_cross`` hands the matrix product: below it torch's CPU
+#: product takes another code path, with other rounding.
+_CROSS_MIN_ROWS = 16
+
+
+def _cross(Xf: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """(n,) dot products of the rows of Xf with xq, as column 0 of a
+    two-column matrix product, never a matrix-vector product.
+
+    On the CPU torch's matrix-vector product rounds a row differently
+    depending on how many rows it is given, while its matrix product (from
+    ``_CROSS_MIN_ROWS`` rows on, which a shorter X is zero-padded to) gives
+    each entry the bits it has in ``Xf @ Yf.T`` of any shape: so a shard's
+    rows equal the same rows of the whole X, and a pivot row equals the
+    materialized matrix's row (``pairwise_dissim_ref``), bit for bit."""
+    n = Xf.shape[0]
+    if n < _CROSS_MIN_ROWS:
+        Xf = torch.cat([Xf, Xf.new_zeros(_CROSS_MIN_ROWS - n, Xf.shape[1])])
+    return (Xf @ torch.stack([xq, xq], dim=1))[:n, 0]
+
+
+def row_dissim_ref(X: torch.Tensor, x: torch.Tensor, *,
+                   metric: str = "euclidean") -> torch.Tensor:
+    """Dissimilarity of every row of X to a single point x.
+
+    The O(n) building block of maximin sampling (``core.svat``) and of
+    ``core.distributed.dvat``'s recomputed rows: no (n, m) intermediate.
+    Differences are taken directly (no Gram trick), the more accurate
+    formula, so its values match ``pairwise_dissim_ref``'s column only up
+    to f32 rounding: do not mix the two inside one bitwise contract.
+
+    Args:
+      X: (n, d) float — data points.
+      x: (d,) float — the probe point.
+      metric: one of ``METRICS``.
+
+    Returns:
+      (n,) float32 dissimilarities.
+    """
+    check_metric(metric)
+    Xf = X.float()
+    xf = x.float()
+    diff = Xf - xf[None, :]
+    if metric == "euclidean":
+        return torch.sqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1),
+                                          0.0))
+    if metric == "sqeuclidean":
+        return torch.sum(diff * diff, dim=-1)
+    if metric == "manhattan":
+        return torch.sum(torch.abs(diff), dim=-1)
+    nx = torch.sqrt(torch.sum(Xf * Xf, dim=-1))
+    nq = torch.sqrt(torch.sum(xf * xf))
+    denom = torch.clamp_min(nx * nq, 1e-12)
+    return torch.clamp(1.0 - _cross(Xf, xf) / denom, 0.0, 2.0)
+
+
+def pivot_row_from_point_ref(X: torch.Tensor, aux: torch.Tensor,
+                             xq: torch.Tensor, auxq: torch.Tensor, *,
+                             metric: str = "euclidean",
+                             form: str = "gram") -> torch.Tensor:
+    """The pivot row when the pivot's point and aux entry are in hand.
+
+    The same decomposition per ``form`` as ``pairwise_dissim_ref``, and
+    the same bits for the cross term (``_cross``), so that the sharded
+    engine's rows of a shard equal the solo engine's rows of the whole X.
+
+    Args:
+      X: (n, d) float — data points (one rank's shard is fine).
+      aux: (n,) float32 — ``metric_aux_ref(X, metric=metric)``.
+      xq: (d,) float — the pivot point.
+      auxq: float32 0-d — the pivot's aux entry.
+      metric: one of ``METRICS``.
+      form: "gram" (default) or "direct".
+
+    Returns:
+      (n,) float32 — dissimilarity of every row of X to xq.
+    """
+    check_metric(metric)
+    check_form(form)
+    Xf = X.float()
+    xq = xq.float()
+    if metric == "manhattan":
+        return torch.sum(torch.abs(Xf - xq[None, :]), dim=-1)
+    if form == "direct" and metric != "cosine":
+        diff = Xf - xq[None, :]
+        sq = torch.sum(diff * diff, dim=-1)
+        return torch.sqrt(sq) if metric == "euclidean" else sq
+    cross = _cross(Xf, xq)
+    if metric == "cosine":
+        denom = torch.clamp_min(aux * auxq, 1e-12)
+        return torch.clamp(1.0 - cross / denom, 0.0, 2.0)
+    sq = torch.clamp_min(aux + auxq - 2.0 * cross, 0.0)
+    return torch.sqrt(sq) if metric == "euclidean" else sq
+
+
 def pivot_row_ref(X: torch.Tensor, aux: torch.Tensor, q, *,
                   metric: str = "euclidean",
                   form: str = "gram") -> torch.Tensor:
-    """Row q of the pairwise dissimilarity matrix, never materializing it.
-
-    The same decomposition per ``form`` as ``pairwise_dissim_ref``.
+    """Row q of the pairwise dissimilarity matrix, never materializing it:
+    ``pivot_row_from_point_ref`` with the pivot gathered from X.
 
     Args:
       X: (n, d) float — data points.
@@ -130,24 +230,9 @@ def pivot_row_ref(X: torch.Tensor, aux: torch.Tensor, q, *,
       (n,) float32 — dissimilarity of every point to point q; the
       self-entry [q] is computed, not forced to zero.
     """
-    check_metric(metric)
-    check_form(form)
-    Xf = X.float()
     qi = _as_index(q, X.device)
-    xq = Xf.index_select(0, qi)[0]
-    if metric == "manhattan":
-        return torch.sum(torch.abs(Xf - xq[None, :]), dim=-1)
-    if form == "direct" and metric != "cosine":
-        diff = Xf - xq[None, :]
-        sq = torch.sum(diff * diff, dim=-1)
-        return torch.sqrt(sq) if metric == "euclidean" else sq
-    cross = Xf @ xq
-    aq = aux.index_select(0, qi)[0]
-    if metric == "cosine":
-        denom = torch.clamp_min(aux * aq, 1e-12)
-        return torch.clamp(1.0 - cross / denom, 0.0, 2.0)
-    sq = torch.clamp_min(aux + aq - 2.0 * cross, 0.0)
-    return torch.sqrt(sq) if metric == "euclidean" else sq
+    return pivot_row_from_point_ref(X, aux, take(X.float(), qi),
+                                    take(aux, qi), metric=metric, form=form)
 
 
 #: "No distance folded yet" sentinel of the persistent engine's in-band
@@ -219,6 +304,125 @@ def prim_stream_step_ref(X: torch.Tensor, aux: torch.Tensor, q,
     new_mind = torch.minimum(mind, row)
     edge, nxt = masked_argmin_ref(new_mind, selected)
     return new_mind, edge, nxt
+
+
+def prim_frontier_step_ref(X: torch.Tensor, aux: torch.Tensor,
+                           xq: torch.Tensor, auxq: torch.Tensor,
+                           mind: torch.Tensor, *, metric: str = "euclidean",
+                           form: str = "gram"):
+    """Fused frontier fold and argmin with the pivot passed by value.
+
+    The per-rank body of ``core.distributed.vat_matrix_free_sharded``.
+    Selected and padded lanes are carried in-band as ``mind = +inf``: the
+    fold keeps them +inf (``min(+inf, row)`` would revive them), so no
+    separate mask exists.
+
+    Args:
+      X: (n, d) float — local points.
+      aux: (n,) float32 — ``metric_aux_ref`` of X.
+      xq: (d,) float — the pivot point.
+      auxq: float32 0-d — the pivot's aux entry.
+      mind: (n,) float32 — in-band frontier.
+      metric: one of ``METRICS``.
+      form: "gram" (default) or "direct".
+
+    Returns:
+      (new_mind (n,) f32, value f32 0-d, idx int64 0-d) — the folded
+      frontier and its minimum, the first index among equal minima.
+    """
+    row = pivot_row_from_point_ref(X, aux, xq, auxq, metric=metric,
+                                   form=form)
+    new_mind = torch.where(torch.isinf(mind), torch.inf,
+                           torch.minimum(mind, row))
+    idx = torch.argmin(new_mind)
+    return new_mind, take(new_mind, idx), idx
+
+
+#: Words of a frontier slot before the point: the packed key (two f32
+#: words holding one int64), the value, the aux entry.
+SLOT_HEAD = 4
+
+
+def slot_width(d: int) -> int:
+    """f32 words of one rank's slot in the sharded engine's all-gather:
+    ``SLOT_HEAD`` words, then the point, padded to a multiple of four words
+    so that every slot of a gathered table starts 16-byte aligned."""
+    return SLOT_HEAD + 4 * -(-d // 4)
+
+
+def signed_key(value: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The int64 key whose order is (value, idx) lexicographic order: the
+    f32 bits made monotone as a signed int32 (-0.0 folded onto +0.0) in the
+    high word, the index in the low word.  ``csrc/argmin_key.cuh``'s
+    ``pack_key`` with its top bit flipped, so that torch's signed int64
+    min is the kernel's unsigned min."""
+    v = torch.where(value == 0, 0.0, value.float())
+    bits = v.view(torch.int32)
+    mono = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    return mono * (1 << 32) + idx.to(torch.int64)
+
+
+def make_slot(key_value: torch.Tensor, gid: torch.Tensor,
+              value: torch.Tensor, auxv: torch.Tensor, x: torch.Tensor,
+              width: int) -> torch.Tensor:
+    """One rank's (width,) f32 slot: ``signed_key(key_value, gid)``, then
+    value, aux entry and the point x, zero-padded."""
+    slot = torch.zeros(width, dtype=torch.float32, device=x.device)
+    slot[:2] = signed_key(key_value, gid).view(1).view(torch.float32)
+    slot[2] = value
+    slot[3] = auxv
+    slot[SLOT_HEAD:SLOT_HEAD + x.shape[0]] = x
+    return slot
+
+
+def slot_keys(table: torch.Tensor) -> torch.Tensor:
+    """(P,) int64 keys of a (P, width) table of slots."""
+    return table[:, :2].contiguous().view(torch.int64)[:, 0]
+
+
+def slot_id(slot: torch.Tensor) -> torch.Tensor:
+    """The global vertex id a slot carries (the key's low word), 0-d."""
+    return slot[:2].contiguous().view(torch.int64)[0] & 0xFFFFFFFF
+
+
+def prim_frontier_round_ref(X: torch.Tensor, aux: torch.Tensor,
+                            table: torch.Tensor, mind: torch.Tensor,
+                            order: torch.Tensor, edges: torch.Tensor, t: int,
+                            *, offset: int, metric: str = "euclidean",
+                            form: str = "gram"):
+    """One step of the sharded engine on one rank: the plain version of
+    ``prim_frontier_step_cuda``.
+
+    The pivot is the slot of ``table`` (the all-gathered slots of the last
+    step) with the least key; its id and value are recorded as
+    ``order[t]`` and ``edges[t]``; its lane is closed (+inf) on the rank
+    that owns it; its row is folded in by ``prim_frontier_step_ref``; and
+    the local minimum, with its global id ``offset + idx``, its aux entry
+    and its point, becomes this rank's new slot.
+
+    Args:
+      X: (n, d) float32 — the rank's shard; aux (n,) its aux vector.
+      table: (P, slot_width(d)) float32 — the gathered slots.
+      mind: (n,) float32 — the in-band frontier.
+      order, edges: (N,) int64 and float32 — the traversal being recorded.
+      t: the position the pivot takes in the order.
+      offset: the global id of the shard's first lane.
+
+    Returns:
+      (new_mind (n,) f32, slot (width,) f32).
+    """
+    pivot = take(table, torch.argmin(slot_keys(table)))
+    q = slot_id(pivot)
+    order[t] = q
+    edges[t] = pivot[2]
+    ids = torch.arange(X.shape[0], device=X.device) + offset
+    mind = torch.where(ids == q, torch.inf, mind)
+    d = X.shape[1]
+    new_mind, value, idx = prim_frontier_step_ref(
+        X, aux, pivot[SLOT_HEAD:SLOT_HEAD + d], pivot[3], mind,
+        metric=metric, form=form)
+    return new_mind, make_slot(value, idx + offset, value, take(aux, idx),
+                               take(X, idx).float(), table.shape[1])
 
 
 def prim_stream_step_batch_ref(X: torch.Tensor, aux: torch.Tensor,

@@ -5,10 +5,20 @@ Every test here is marked ``cuda`` and skips when
 ``repro``, so it runs on a GPU machine without them:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+The sharded engine's tests run it in an NCCL group of one rank in this
+process, and over every visible card in a spawned world (this file run as a
+script), which needs two cards or more.
 """
+import os
+import signal
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch import core
 from repro_torch.core.vat import _streamed_seed_pivot, vat, vat_order
@@ -20,7 +30,8 @@ from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
                                               pairwise_dist_batch_cuda,
                                               pairwise_dist_cuda)
 from repro_torch.kernels.prim_persist import prim_persist_cuda
-from repro_torch.kernels.prim_stream import (prim_stream_step_batch_cuda,
+from repro_torch.kernels.prim_stream import (prim_frontier_step_cuda,
+                                            prim_stream_step_batch_cuda,
                                             prim_stream_step_cuda)
 from repro_torch.kernels.prim_update import masked_argmin_cuda
 
@@ -134,7 +145,8 @@ def test_cuda_fit_launches_every_kernel(cuda):
                                       "knn_graph": 0,
                                       "pairwise_dist_batch": 0,
                                       "prim_stream_step_batch": 0,
-                                      "knn_graph_batch": 0}
+                                      "knn_graph_batch": 0,
+                                      "prim_frontier_step": 0}
     assert fv.result.meta.device.startswith("cuda")
     assert fv.result.order.is_cuda and fv.result.ivat_image.is_cuda
     rep = fv.assess()
@@ -605,3 +617,167 @@ def test_cuda_fit_many_lanes_equal_solo_fits(cuda, method, turbo):
             fv._X, form=fv.result.meta.numerics.form).cpu().numpy()
         fp = FastVAT(method=method, metric="precomputed").fit_many(Ds)
         np.testing.assert_array_equal(fp.order(), fv.order())
+
+
+# ------------------------------------------------- the sharded engine ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_prim_frontier_step_against_plain(cuda, metric, form):
+    """The frontier kernel against ``ref.prim_frontier_round_ref`` on the
+    same tensors, six kinds, one CTA and several, vector and scalar rows:
+    the least-key slot of three is the pivot and is recorded exactly; its
+    lane is closed; +inf lanes stay +inf (in band); the other lanes fold
+    within the pairwise tolerance; and the new slot is the kernel's own
+    first-index minimum with its global id (offset honoured), its raw
+    value, aux entry and point, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    offset = 70_000
+    for n, d in ((200, 64), (1000, 7), (1000, 64)):
+        X = torch.randn(n, d, device=cuda, generator=gen)
+        aux = metric_aux_cuda(X, metric=metric)
+        width = ref.slot_width(d)
+
+        def slot(v, gid, local):
+            return ref.make_slot(torch.tensor(v, device=cuda),
+                                 torch.tensor(gid, device=cuda),
+                                 torch.tensor(v, device=cuda), aux[local],
+                                 X[local], width)
+
+        # the least key: value 2.5 ties with a later id and beats 7.0
+        table = torch.stack([slot(7.0, 3, 0), slot(2.5, offset + 17, 17),
+                             slot(2.5, offset + n + 9, 1)])
+        u = torch.rand(n, device=cuda, generator=gen)
+        mind = torch.where(u < 0.3, torch.inf, torch.where(
+            u < 0.6, ref.UNSEEN, 50.0 * torch.rand(
+                n, device=cuda, generator=gen)))
+        order = torch.zeros(8, dtype=torch.int64, device=cuda)
+        edges = torch.zeros(8, device=cuda)
+        porder, pedges = order.clone(), edges.clone()
+        want, pslot = ref.prim_frontier_round_ref(
+            X, aux, table, mind.clone(), porder, pedges, 5, offset=offset,
+            metric=metric, form=form)
+        out = torch.empty(width, device=cuda)
+        was_inf = torch.isinf(mind)
+        got = prim_frontier_step_cuda(X, aux, table, mind, out, order, edges,
+                                      5, offset=offset, metric=metric,
+                                      form=form)
+        assert torch.equal(order, porder) and torch.equal(edges, pedges)
+        assert int(order[5]) == offset + 17 and float(edges[5]) == 2.5
+        assert torch.isinf(got[17]) and torch.all(torch.isinf(got[was_inf]))
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = ~torch.isinf(got)
+        tol = _tolerance(metric, form, X, None, want[fin])
+        assert float(torch.amax(torch.abs(got[fin] - want[fin]))) <= tol
+        i = int(torch.argmin(got))
+        assert int(ref.slot_id(out)) == offset + i
+        assert torch.equal(out[:2].view(torch.int64), ref.signed_key(
+            got[i], torch.tensor(offset + i, device=cuda)).view(1))
+        assert torch.equal(out[2:4], torch.stack([got[i], aux[i]]))
+        assert torch.equal(out[4:4 + d], X[i])
+        assert torch.all(out[4 + d:] == 0)
+        assert torch.equal(out[2:], pslot[2:]) or not torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def nccl1(tmp_path_factory):
+    """An NCCL process group of one rank (the current card) for the
+    module; destroyed after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    yield torch.device("cuda", torch.cuda.current_device())
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 257, 1000])
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_sharded_one_rank_equals_both_engines(nccl1, metric, n):
+    """The sharded engine over NCCL at one rank == the persistent kernel
+    and the stepwise engine, order and edges bit for bit; it launches the
+    frontier kernel once a vertex."""
+    X = torch.randn(n, 3 + n % 5, device=nccl1,
+                    generator=torch.Generator(device=nccl1).manual_seed(n))
+    turbo = core.vat_matrix_free(X, metric=metric)
+    stepw = core.vat_matrix_free(X, metric=metric, turbo=False)
+    _build.reset_launch_counts()
+    sh = core.vat_matrix_free_sharded(X, metric=metric)
+    assert _build.launch_counts()["prim_frontier_step"] == n
+    for res in (turbo, stepw):
+        assert torch.equal(sh.order, res.order)
+        assert torch.equal(sh.edges, res.edges)
+
+
+def _nccl_world_main(rank, world, store):
+    """One rank of the multi-card check: its own card, the same points on
+    every rank; the sharded engine == the solo engines on that card, and
+    the auto fit shards from n = 4,096."""
+    import datetime
+    from repro_torch import FastVAT
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        rng = np.random.default_rng(3)
+        for metric in ref.METRICS:
+            for n in (1000, 4099):
+                X = torch.from_numpy(rng.normal(size=(n, 8)).astype(
+                    np.float32)).to(dev)
+                sh = core.vat_matrix_free_sharded(X, metric=metric)
+                for turbo in (True, False):
+                    solo = core.vat_matrix_free(X, metric=metric,
+                                                turbo=turbo)
+                    assert torch.equal(sh.order, solo.order), (metric, n)
+                    assert torch.equal(sh.edges, solo.edges), (metric, n)
+        rng = np.random.default_rng(5)      # centred: the gram plan
+        X = np.concatenate([rng.normal(size=(2_048, 8)) + c
+                            for c in (0.0, 6.0)]).astype(np.float32)
+        _build.reset_launch_counts()
+        fv = FastVAT(device=dev).fit(X)
+        assert _build.launch_counts()["prim_frontier_step"] == 4_096
+        assert _build.launch_counts()["prim_persist"] == 0
+        assert fv.result.meta.numerics.form == "gram"
+        np.testing.assert_array_equal(
+            fv.order(), FastVAT(device=dev, turbo=True).fit(X).order())
+        dist.barrier()
+        if rank == 0:
+            print(f"NCCL_WORLD_OK {world}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_over_every_card(cuda, tmp_path):
+    """An NCCL world over every visible card (two or more): each rank's
+    order and edges == the solo engines' on its card, bit for bit, since
+    every rank reads the same ``dissim.cuh`` bits; the auto fit shards."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two CUDA GPUs")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(cards),
+         str(tmp_path / "store")], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        pytest.fail(f"the NCCL world outlived 400 s: {err[-2000:]}")
+    assert f"NCCL_WORLD_OK {cards}" in out, err[-3000:]
+
+
+if __name__ == "__main__":
+    import torch.multiprocessing as mp
+    _world = int(sys.argv[1])
+    mp.spawn(_nccl_world_main, args=(_world, sys.argv[2]), nprocs=_world)

@@ -165,7 +165,8 @@ def test_cpu_dispatch_launches_no_kernel():
                                       "knn_graph": 0,
                                       "pairwise_dist_batch": 0,
                                       "prim_stream_step_batch": 0,
-                                      "knn_graph_batch": 0}
+                                      "knn_graph_batch": 0,
+                                      "prim_frontier_step": 0}
 
 
 @pytest.mark.parametrize("call", [
