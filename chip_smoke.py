@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -188,7 +189,7 @@ def persist_cost(n: int, d: int, pairs: int):
     FMA per feature and pair evaluation the kernel made (``stats[2]``:
     each unselected lane against each pivot folded into its tile, which
     for an exact traversal is n (n - 1) / 2 whatever the schedule)."""
-    return 4 * n * d + 4 * n + 12 * n + 24, 2 * d * pairs
+    return 4 * n * d + 4 * n + 12 * n + 32, 2 * d * pairs
 
 
 def stream_step_cost(n: int, d: int):
@@ -220,8 +221,28 @@ def phase_environment(torch, build):
     build_s = time.perf_counter() - t0
     log("environment", torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=ver[-1] if ver else None, build_s=build_s,
-        library=str(build.build()), device=torch.cuda.get_device_name(0))
+        library=str(build.build()), device=torch.cuda.get_device_name(0),
+        prim_persist_ptxas=ptxas_report(build, "prim_persist.cu"))
     return card
+
+
+def ptxas_report(build, source: str) -> list:
+    """Registers and spill bytes of each kernel of one source, from the
+    ptxas report the build writes beside the library (absent when the
+    library was built before this run and no log is found)."""
+    path = build.BUILD_DIR / "build.log"
+    if not path.exists():
+        return []
+    text = path.read_text()
+    start = text.find(f"== {source}")
+    if start < 0:
+        return []
+    end = text.find("\n== ", start + 1)
+    section = text[start:end if end >= 0 else None]
+    stats = re.findall(r"(\d+) bytes spill stores.*?Used (\d+) registers",
+                       section, flags=re.S)
+    return [{"registers": int(r), "spill_store_bytes": int(sp)}
+            for sp, r in stats]
 
 
 def check_pairwise(torch, ref, ops, pairwise_dist_cuda, probe_count, gen):
@@ -503,7 +524,8 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
                      prim_stream_step_cuda, seed_pivot):
     """The flashvat rung at the top of its auto window, its stepwise engine,
     and the bitwise checks of its kernels on the card."""
-    from repro_torch.kernels.prim_persist import DEFAULT_BLOCK
+    from repro_torch.core.vat import PERSIST_PRUNE
+    from repro_torch.kernels.prim_persist import DEFAULT_BLOCK, persist_plan
     n, d = 50_000, 64
     X = blobs(n, d, k=8, seed=0)
     torch.cuda.synchronize()
@@ -558,12 +580,21 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
     require(int(s1[2]) == int(s0[2]) == n * (n - 1) // 2,
             f"pair evaluations pruned {s1.tolist()} eager {s0.tolist()}, "
             f"want n (n - 1) / 2 = {n * (n - 1) // 2}")
+    require(int(s1[3]) == int(s0[3]) == n - 1,
+            f"group barriers pruned {s1.tolist()} eager {s0.tolist()}, "
+            f"want one a step")
+    plan = persist_plan(1, n, d)
     log("flash-path", n=n, d=d, method=fv.method_resolved,
         launches=launches, walls_s=walls, peak_alloc_mib=peak / 2 ** 20,
         hopkins=rep.hopkins, block_score=rep.block_score, k_est=rep.k_est,
         pruned_equals_eager=True, stats_pruned=s1.tolist(),
         stats_eager=s0.tolist(), eager_tile_fold_cap=(n - 1) * nblk,
-        pruned_ms=pruned_ms, eager_ms=eager_ms)
+        block=DEFAULT_BLOCK, group=plan["group"], ctas=plan["ctas"],
+        rows_staged=plan["rows_staged"], smem_bytes=plan["smem_bytes"],
+        barriers_per_step=int(s1[3]) / (n - 1), path_prunes=PERSIST_PRUNE,
+        pruned_ms=pruned_ms, eager_ms=eager_ms,
+        pruned_us_per_step=pruned_ms * 1e3 / (n - 1),
+        eager_us_per_step=eager_ms * 1e3 / (n - 1))
 
     # the stepwise engine is its own path: counts from 0, read after
     build.reset_launch_counts()
@@ -662,15 +693,57 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
         max_abs_err=step_err, tol=tol, pair_bitwise=True)
     return {"launches": launches, "step_launches": step_launches,
             "X": Xt, "aux": aux, "i0": i0, "stats": s1.tolist(),
+            "plan": plan, "stepwise_fit_s": wall,
+            "path_ms": pruned_ms if PERSIST_PRUNE else eager_ms,
             "order": o1, "edges": e1,
             "pruned_ms": pruned_ms, "eager_ms": eager_ms,
             "stats_eager": s0.tolist(),
             "step_err": step_err}
 
 
-def phase_flash_times(torch, ref, flash, prim_stream_step_cuda):
+def persist_blocks(torch, prim_persist_cuda, persist_plan, flash):
+    """prim_persist at the flash path's input for each tile length, pruned
+    and eager: its time, group, staging and tile folds, each run held bit
+    for bit against the path's order and edges (the tile length sets the
+    work, never a bit)."""
+    X, aux, i0 = flash["X"], flash["aux"], flash["i0"]
+    n, d = X.shape
+    out = []
+    for block in (64, 128, 256, 512, 1024):
+        row = {"block": block, **persist_plan(1, n, d, block=block)}
+        for prune, label in ((True, "pruned"), (False, "eager")):
+            (o, e, st), ms = event_once_ms(torch, lambda: prim_persist_cuda(
+                X, aux, i0, block=block, prune=prune))
+            require(torch.equal(o, flash["order"])
+                    and torch.equal(e, flash["edges"]),
+                    f"prim_persist block={block} prune={prune} differs")
+            row[f"{label}_ms"] = ms
+            row[f"{label}_tile_folds"] = int(st[0])
+        out.append(row)
+    return out
+
+
+def persist_step_floor(torch, ops, prim_persist_cuda, seed_pivot, n: int):
+    """The per-step cost of the traversal with next to no fold work: the
+    flash path's n at d = 4, pruned and eager, in us a step."""
+    Xs = torch.from_numpy(blobs(n, 4, k=8, seed=0)).cuda()
+    aux = ops.metric_aux(Xs)
+    i0 = seed_pivot(Xs, metric="euclidean")
+    out = {"n": n, "d": 4}
+    for prune, label in ((True, "pruned"), (False, "eager")):
+        (_, _, st), ms = event_once_ms(torch, lambda: prim_persist_cuda(
+            Xs, aux, i0, prune=prune))
+        out[f"{label}_us_per_step"] = ms * 1e3 / (n - 1)
+        out[f"{label}_barriers"] = int(st[3])
+    return out
+
+
+def phase_flash_times(torch, ref, ops, flash, prim_stream_step_cuda,
+                      prim_persist_cuda, seed_pivot):
     """The two Prim kernels beside their plain versions and bounds, at the
-    flash path's shapes (n = 50,000, d = 64)."""
+    flash path's shapes (n = 50,000, d = 64); prim_persist also at every
+    tile length, and its per-step floor."""
+    from repro_torch.kernels.prim_persist import persist_plan
     X, aux, i0 = flash["X"], flash["aux"], flash["i0"]
     n, d = X.shape
     # the plain traversal is n - 1 steps of ~7 launches: a profiler trace of
@@ -691,8 +764,9 @@ def phase_flash_times(torch, ref, flash, prim_stream_step_cuda):
     tol = (16 * F32_EPS * float(torch.amax(aux))) ** 0.5
     require(err <= tol, f"prim_persist edges vs plain at n={n}: {err} > "
             f"{tol}")
-    persist = {"kernel": "prim_persist", "n": n, "ms": flash["pruned_ms"],
-               "eager_ms": flash["eager_ms"], "plain_ms": plain_ms,
+    persist = {"kernel": "prim_persist", "n": n, "ms": flash["path_ms"],
+               "pruned_ms": flash["pruned_ms"], "eager_ms": flash["eager_ms"],
+               "plain_ms": plain_ms,
                "plain_timer": "cuda events, one call",
                "library_ms": None, "stats": flash["stats"],
                "stats_eager": flash["stats_eager"],
@@ -702,6 +776,18 @@ def phase_flash_times(torch, ref, flash, prim_stream_step_cuda):
                                                        flash["order"]))}
     persist["bound_ms"], persist["bound_by"] = bound_ms(
         *persist_cost(n, d, flash["stats"][2]))
+    plan = flash["plan"]
+    persist.update(
+        group=plan["group"], ctas=plan["ctas"],
+        rows_staged=plan["rows_staged"],
+        barriers_per_step=flash["stats"][3] / (n - 1),
+        us_per_step=flash["path_ms"] * 1e3 / (n - 1),
+        pruned_us_per_step=flash["pruned_ms"] * 1e3 / (n - 1),
+        eager_us_per_step=flash["eager_ms"] * 1e3 / (n - 1),
+        stepwise_fit_s=flash["stepwise_fit_s"],
+        blocks=persist_blocks(torch, prim_persist_cuda, persist_plan, flash),
+        step_floor=persist_step_floor(torch, ops, prim_persist_cuda,
+                                      seed_pivot, n))
     log("time", **persist)
     mind = torch.full((n,), torch.inf, device=X.device)
     sel = torch.zeros(n, dtype=torch.bool, device=X.device)
@@ -1382,7 +1468,9 @@ def check_batch_kernels(torch, ref, gen, card):
     (b, 256) renders, the stepwise engine's (4, 50,000, 64) step)."""
     from repro_torch.kernels.pairwise_dist import (pairwise_dist_batch_cuda,
                                                   pairwise_dist_cuda)
-    from repro_torch.kernels.prim_persist import prim_persist_cuda
+    from repro_torch.core.vat import PERSIST_PRUNE
+    from repro_torch.kernels.prim_persist import (persist_plan,
+                                                 prim_persist_cuda)
     from repro_torch.kernels.prim_stream import (prim_stream_step_batch_cuda,
                                                 prim_stream_step_cuda)
     from repro_torch.kernels.prim_update import masked_argmin_cuda
@@ -1507,10 +1595,34 @@ def check_batch_kernels(torch, ref, gen, card):
                  / tree_weight(torch, Xp[z], porder[z]) for z in range(b))
     require(excess <= EXCESS_F32, f"prim_persist lanes vs plain: tree "
             f"weight excess {excess} > {EXCESS_F32}")
+    groups = {"lanes": persist_plan(b, n, 64)["group"],
+              "solo": persist_plan(1, n, 64)["group"]}
+    # more lanes than co-resident CTAs: groups of one CTA, a plain launch
+    # whose exchange is the CTA's own barrier, against solo groups
+    b1, n1, d1, blk1 = 600, 300, 8, 32
+    plan1 = persist_plan(b1, n1, d1, block=blk1)
+    require(plan1["group"] == 1, f"b={b1} lanes gave {plan1}, want G = 1")
+    X1 = torch.from_numpy(np.stack([blobs(n1, d1, k=4, seed=s)
+                                    for s in range(b1)])).cuda()
+    aux = ops.metric_aux(X1)
+    i0 = torch.stack([_streamed_seed_pivot(x, metric="euclidean")
+                      for x in X1])
+    order, edges, stats = prim_persist_cuda(X1, aux, i0, block=blk1,
+                                            prune=PERSIST_PRUNE)
+    for z in range(b1):
+        so, se, ss = prim_persist_cuda(X1[z], aux[z], i0[z], block=blk1,
+                                       prune=PERSIST_PRUNE)
+        require(torch.equal(order[z], so) and torch.equal(edges[z], se)
+                and torch.equal(stats[z], ss),
+                f"prim_persist G = 1 lane {z} != its solo launch")
+    groups["g1_lanes"] = 1
+    groups["g1_solo"] = persist_plan(1, n1, d1, block=blk1)["group"]
     log("kernel-check", card=card, kernel="prim_persist", lane_axis=True,
         b=b, n=n,
         lanes_equal_single_launch=["pruned", "eager"],
-        plain_tree_weight_rel_excess=excess)
+        plain_tree_weight_rel_excess=excess, groups=groups,
+        group_of_one={"b": b1, "n": n1, "d": d1, "block": blk1,
+                      "lanes_equal_single_launch": True})
     return errs
 
 
@@ -1612,9 +1724,10 @@ def phase_batch_vat(torch, rt, ops, build, card):
 
 def phase_batch_flash(torch, rt, build, card):
     """fit_many at the top of the batched auto window (b = 4, n = 50,000,
-    d = 64): the persistent engine (one launch of four CTAs), the stepwise
-    engine (n - 1 batched steps), bit for bit against each other and lane 0
-    against a solo fit; every lane against its solo fit at n = 16,384."""
+    d = 64): the persistent engine (one launch of four groups of CTAs),
+    the stepwise engine (n - 1 batched steps), bit for bit against each
+    other and lane 0 against a solo fit; every lane against its solo fit at
+    n = 16,384; the kernel's four lanes beside one solo lane."""
     b, n, d = 4, 50_000, 64
     Xs = np.stack([blobs(n, d, k=8, seed=s) for s in range(b)])
     torch.cuda.synchronize()
@@ -1679,12 +1792,38 @@ def phase_batch_flash(torch, rt, build, card):
                 and torch.equal(s.result.ivat_image, f2.result.ivat_image[z]),
                 f"batched flashvat n={n2} lane {z} differs from its solo fit")
     walls["solo_fits_16384"] = solo2
+    kernel = persist_lanes_vs_solo(torch, Xs)
     log("batch-flash", card=card, b=b, n=n, d=d, method=fv.method_resolved,
         launches=launches, step_launches=step_launches, walls_s=walls,
         peak_alloc_mib=peak / 2 ** 20, engines_bitwise=True,
         lane0_equals_solo=True, lanes_equal_solo_n16384=True,
-        k_est=[r.k_est for r in reps], hopkins=[r.hopkins for r in reps])
+        k_est=[r.k_est for r in reps], hopkins=[r.hopkins for r in reps],
+        prim_persist=kernel)
     return step_launches, Xs
+
+
+def persist_lanes_vs_solo(torch, Xs):
+    """prim_persist on the b lanes of Xs in one launch beside one solo
+    launch on lane 0 (CUDA events, one call each), with both plans; lane 0
+    of the stack equals the solo launch, stats included."""
+    from repro_torch.core.vat import PERSIST_PRUNE, _streamed_seed_pivot
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.prim_persist import (persist_plan,
+                                                 prim_persist_cuda)
+    X = torch.from_numpy(Xs).cuda()
+    b, n, d = X.shape
+    aux = ops.metric_aux(X)
+    i0 = torch.stack([_streamed_seed_pivot(x, metric="euclidean")
+                      for x in X])
+    many, lanes_ms = event_once_ms(torch, lambda: prim_persist_cuda(
+        X, aux, i0, prune=PERSIST_PRUNE))
+    solo, solo_ms = event_once_ms(torch, lambda: prim_persist_cuda(
+        X[0], aux[0], i0[0], prune=PERSIST_PRUNE))
+    require(all(torch.equal(a[0], s) for a, s in zip(many, solo)),
+            "prim_persist lane 0 of the stack != its solo launch")
+    return {"prune": PERSIST_PRUNE, "lanes_ms": lanes_ms, "solo_ms": solo_ms,
+            "lanes_plan": persist_plan(b, n, d),
+            "solo_plan": persist_plan(1, n, d)}
 
 
 def phase_knn_batch(torch, ref, build, gen, card):
@@ -1873,8 +2012,9 @@ def main() -> int:
                              _streamed_seed_pivot)
     phase_profile(torch, rt, blobs(50_000, 64, k=8, seed=0),
                   label="flashvat n=50000")
-    persist, step = phase_flash_times(torch, ref, flash,
-                                      prim_stream_step_cuda)
+    persist, step = phase_flash_times(torch, ref, ops, flash,
+                                      prim_stream_step_cuda,
+                                      prim_persist_cuda, _streamed_seed_pivot)
     rows = phase_times(torch, ref, kernels, rstars, gen, errs, launches)
     errs["prim_persist"] = persist["plain_edges_max_abs_err"]
     errs["prim_stream_step"] = flash["step_err"]

@@ -55,7 +55,8 @@ from repro_torch.api.registry import RungOptions, select_method
 from repro_torch.api.result import (SALT_ASSESS, SALT_HOPKINS, ResultMeta,
                                     TendencyReport, TendencyResult,
                                     device_scope)
-from repro_torch.api.validation import validate_dissimilarity, validate_points
+from repro_torch.api.validation import (InvalidInput, validate_dissimilarity,
+                                       validate_points)
 from repro_torch.numerics import as_policy
 from repro_torch.numerics import resolve as resolve_numerics
 
@@ -156,10 +157,10 @@ class FastVAT:
     def _admit(self, X, *, batched: bool = False):
         """Admission, the numerics pre-pass and the move to the fit's
         device, for one dataset or a (b, ...) stack: (data tensor,
-        ``NumericsReport`` or None for precomputed input)."""
+        ``NumericsReport``, or None for precomputed or np.memmap input)."""
         dev = _device(self.device)
         if isinstance(X, torch.Tensor):
-            X = X.detach().cpu().numpy()
+            X = self._tensor_to_host(X)
         if self.metric == "precomputed":
             if self.validate:
                 validate_dissimilarity(X)
@@ -172,6 +173,10 @@ class FastVAT:
             if X.ndim != 3:
                 raise ValueError(f"fit_many wants a (b, n, d) stack, got "
                                  f"shape {X.shape}")
+        if isinstance(X, np.memmap):
+            # out-of-core input skips the pre-pass, as the reference's
+            # does: conditioning would materialize an O(n·d) copy
+            return torch.tensor(np.asarray(X, np.float32), device=dev), None
         Xr, num_report = resolve_numerics(X, metric=self.metric,
                                           policy=self.numerics,
                                           batched=batched)
@@ -179,6 +184,21 @@ class FastVAT:
         if num_report.dtype == "bf16":  # exact: Xr is bf16-quantized
             data = data.to(torch.bfloat16)
         return data, num_report
+
+    def _tensor_to_host(self, X: torch.Tensor) -> np.ndarray:
+        """A tensor as a host array for admission.  A dtype numpy lacks
+        (bfloat16, the float8s) is refused as the reference refuses its
+        bf16 arrays, or, under ``validate=False``, widened to float32."""
+        X = X.detach().cpu()
+        if X.is_floating_point() and X.dtype not in (
+                torch.float16, torch.float32, torch.float64):
+            if self.validate:
+                name = "D" if self.metric == "precomputed" else "X"
+                raise InvalidInput(
+                    "dtype", f"{name} must be a real numeric array, got "
+                    f"dtype {str(X.dtype).removeprefix('torch.')}")
+            X = X.float()
+        return X.numpy()
 
     def _run(self, fitter, data, method: str, num_report,
              batch: int | None) -> "FastVAT":

@@ -353,8 +353,8 @@ def _fit_flashvat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
 def _fit_flashvat_batch(data, meta: ResultMeta,
                         opts: RungOptions) -> TendencyResult:
     """Batched Flash-VAT: each lane's exact matrix-free ordering (one
-    persistent launch of b CTAs, or n - 1 batched steps), then the banded
-    render of every lane in the launches of one: the (b, m, m)
+    persistent launch of b groups of CTAs, or n - 1 batched steps), then
+    the banded render of every lane in the launches of one: the (b, m, m)
     representatives' matrices (one ``pairwise_dist_batch`` launch) and
     their iVAT images (``_rep_ivat`` on the stack).  Each lane equals the
     solo ``_fit_flashvat`` of its dataset bit for bit; no (b, n, n) object

@@ -186,6 +186,13 @@ def vat_batch_from_dist(R: torch.Tensor) -> VATResult:
 #: n = 50,000 takes 25 x 7 = 175 pairwise launches.
 SEED_BLOCK = (2_048, 8_192)
 
+#: The persistent kernel's schedule for the flashvat engines: eager (every
+#: live tile folds every step).  On an H100 it beat the lazily pruned
+#: schedule at every shape chip_smoke.py times (its ``blocks`` line), since
+#: a step costs one group exchange either way and pruning adds the bounds,
+#: the catch-up folds and a second key per tile; both give the same bits.
+PERSIST_PRUNE = False
+
 
 def _split(n: int, most: int) -> int:
     """Block length for n lanes: at least two blocks (so a block never
@@ -291,8 +298,8 @@ def vat_matrix_free(X: torch.Tensor, *, metric: str = "euclidean",
     then the Prim traversal runs through one of two engines:
 
       * ``turbo=True`` (default): ``kernels.ops.prim_persist`` — on the
-        card one launch of the persistent kernel, all n - 1 steps, tiles
-        folded lazily;
+        card one launch of the persistent kernel, all n - 1 steps, in the
+        schedule ``PERSIST_PRUNE`` names;
       * ``turbo=False``: n - 1 launches of the fused step kernel
         (``kernels.ops.prim_stream_step``).
 
@@ -320,7 +327,8 @@ def vat_matrix_free(X: torch.Tensor, *, metric: str = "euclidean",
     i0 = _streamed_seed_pivot(Xf, metric=metric, form=form)
     if turbo:
         order, edges = kops.prim_persist(Xf, aux, i0, metric=metric,
-                                         form=form, block=block)
+                                         form=form, block=block,
+                                         prune=PERSIST_PRUNE)
         return FlashVATResult(order=order, edges=edges)
     return _prim_stream_order(Xf, aux, i0, metric=metric, form=form)
 
@@ -359,8 +367,8 @@ def vat_matrix_free_batch(X: torch.Tensor, *, metric: str = "euclidean",
     from its own streamed scan (``_streamed_seed_pivot``, per lane, through
     the single pairwise kernel's blocks); then the traversal for all lanes:
 
-      * ``turbo=True``: one launch of the persistent kernel with b CTAs,
-        one per lane (``kernels.ops.prim_persist`` on the stack) — where
+      * ``turbo=True``: one launch of the persistent kernel with a group
+        of CTAs per lane (``kernels.ops.prim_persist`` on the stack) — where
         the reference vmaps its XLA mirror;
       * ``turbo=False``: n - 1 launches of the batched step kernel.
 
@@ -378,7 +386,8 @@ def vat_matrix_free_batch(X: torch.Tensor, *, metric: str = "euclidean",
                       for x in Xf])
     if turbo:
         order, edges = kops.prim_persist(Xf, aux, i0, metric=metric,
-                                         form=form, block=block)
+                                         form=form, block=block,
+                                         prune=PERSIST_PRUNE)
         return FlashVATResult(order=order, edges=edges)
     return _prim_stream_order_batch(Xf, aux, i0, metric=metric, form=form)
 

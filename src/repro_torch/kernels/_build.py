@@ -47,10 +47,13 @@ SIGNATURES = {
     # X, n, d, take_sqrt, is_bf16, out, stream
     "repro_metric_aux": (_P, _I, _I, _I, _I, _P, _P),
     # X, aux, i0, cent, rad, slack, margin, b, n, d, block, kind, prune,
-    # mind, tmin, pend, nfold, live, order, edges, stats, stream
+    # group, mind, pend, tk1, tk2, nfold, live, nfrom, slots, order, edges,
+    # stats, stream
     "repro_prim_persist": (_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I,
-                           _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P),
+                           _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P),
+    # b, n, d, block, kind, max_group, out (5 ints)
+    "repro_prim_persist_plan": (_I, _I, _I, _I, _I, _I, _P),
     # X, aux, q, mind, selected, n, d, kind, partial, out, stream
     "repro_prim_stream_step": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     # X, aux, q, mind, selected, b, n, d, kind, partial, out, stream

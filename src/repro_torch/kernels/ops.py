@@ -143,10 +143,11 @@ def prim_persist(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor, *,
     """The whole exact Prim traversal from seed ``i0``.
 
     On the card: the persistent kernel, one launch, lazily pruned tiles of
-    ``block`` lanes; a (b, n, d) stack (aux (b, n), i0 (b,)) is one launch
-    of b persistent CTAs.  On the CPU: ``ref.prim_persist_ref`` (per lane
-    for a stack), the eager schedule; ``block`` and ``prune`` change the
-    work, never a bit of the result, so the plain version ignores them.
+    ``block`` lanes spread over a group of CTAs (``prim_persist.
+    persist_plan``); a (b, n, d) stack (aux (b, n), i0 (b,)) is one launch
+    of b groups.  On the CPU: ``ref.prim_persist_ref`` (per lane for a
+    stack), the eager schedule; ``block`` and ``prune`` change the work,
+    never a bit of the result, so the plain version ignores them.
 
     Returns:
       (order (n,) int64, edges (n,) f32) on X's device; (b, n) each for a

@@ -1,13 +1,15 @@
-"""CUDA kernel: the whole exact Prim traversal in one launch, lazily pruned.
+"""CUDA kernel: the whole exact Prim traversal in one launch, lazily pruned,
+each traversal spread over a group of CTAs.
 
 The port of ``repro/kernels/prim_persist.py::prim_persist_pallas``, the
 flashvat rung's default ("Turbo") engine.  The kernel is
 ``csrc/prim_persist.cu`` (its opening note gives the schedule, the bound
 and the design); this module computes the per-tile pruning geometry in
-plain PyTorch (``persist_tile_bounds``), the pruning slack, allocates the
-state, and launches on the current stream.  A (b, n, d) stack is one
-launch of b persistent CTAs, one per lane, each with its own tile bounds,
-slack, state and stats.
+plain PyTorch (``persist_tile_bounds``) and the pruning slack, asks the
+library for the launch plan (``persist_plan``: G CTAs a traversal, whether
+their rows fit in shared memory), allocates the state, and launches on the
+current stream.  A (b, n, d) stack is one launch of b groups of G CTAs,
+each lane with its own tile bounds, slack, state and stats.
 
 The reference's VMEM seam (``persist_supported``, ``persist_state_bytes``,
 ``PERSIST_VMEM_BUDGET``) is a TPU rule and has no counterpart: the state
@@ -25,10 +27,10 @@ from repro_torch.kernels.pairwise_dist import (_KINDS, check_cuda,
 from repro_torch.kernels.ref import check_metric
 from repro_torch.numerics.condition import _F32_EPS, check_form, lb_slack_ulps
 
-#: Lanes of X per tile (the reference's default too).  It sets the number
-#: of tiles, and with it which tiles a step folds and the kernel's stats;
-#: no bit of order or edges.
-DEFAULT_BLOCK = 1024
+#: Lanes of X per tile.  It sets the number of tiles, and with it how the
+#: traversal spreads over a group's CTAs, which tiles a step folds and the
+#: kernel's stats; no bit of order or edges.
+DEFAULT_BLOCK = 128
 
 #: Relative safety factor on every pruning lower bound (the reference's):
 #: the direct-form bound math carries a few ulp of f32 rounding; shrinking
@@ -73,15 +75,36 @@ def persist_tile_bounds(X: torch.Tensor, *, metric: str, block: int):
     return cent.contiguous(), torch.clamp_min(rad, 0.0).contiguous()
 
 
+def persist_plan(b: int, n: int, d: int, *, metric: str = "euclidean",
+                 form: str = "gram", block: int = DEFAULT_BLOCK,
+                 max_group: int | None = None) -> dict:
+    """The kernel's launch plan for b traversals of (n, d) on the current
+    card: ``group`` (G, the CTAs of one traversal: the co-resident CTAs the
+    occupancy API allows, shared among the b lanes, at most the tile count
+    and ``max_group``), ``ctas`` (b·G), ``tiles_per_cta``, ``rows_staged``
+    (each CTA's rows and frontier in shared memory), ``smem_bytes`` (the
+    dynamic shared memory a CTA) and ``pivot_rows_staged``."""
+    out = torch.zeros(5, dtype=torch.int32)
+    err = _build.library().repro_prim_persist_plan(
+        b, n, d, block, _KINDS[(metric, form)], max_group or 0,
+        out.data_ptr())
+    _build.check(err, "prim_persist plan")
+    group, tpc, staged, smem, pstaged = out.tolist()
+    return {"group": group, "ctas": b * group, "tiles_per_cta": tpc,
+            "rows_staged": bool(staged), "smem_bytes": smem,
+            "pivot_rows_staged": bool(pstaged)}
+
+
 def prim_persist_cuda(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor,
                       *, metric: str = "euclidean", form: str = "gram",
-                      block: int = DEFAULT_BLOCK, prune: bool = True):
+                      block: int = DEFAULT_BLOCK, prune: bool = True,
+                      max_group: int | None = None):
     """Exact VAT ordering of X in one launch, on the card.
 
     Args:
       X: (n, d) contiguous float32 CUDA tensor, n >= 1; or a (b, n, d)
-        stack of b datasets, 1 <= b <= ``MAX_LANES``, traversed by b CTAs
-        of one launch, lane z exactly as the call on X[z] alone.
+        stack of b datasets, 1 <= b <= ``MAX_LANES``, traversed by b groups
+        of CTAs of one launch, lane z exactly as the call on X[z] alone.
       aux: (n,) float32 — ``kernels.ops.metric_aux`` of X ((b, n) for a
         stack; on the card the pairwise kernel's row norms, so rows match
         its matrix bit for bit).
@@ -93,15 +116,18 @@ def prim_persist_cuda(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor,
       block: tile length (>= 1).
       prune: lazy tile pruning; False folds every live tile every step —
         the same order and edges bit for bit, more work.
+      max_group: a cap on G, the CTAs of one traversal (``persist_plan``);
+        it changes where the work runs, never a bit of the result.
 
     Returns:
-      (order (n,) int64, edges (n,) f32, stats (3,) int64) — the visit
+      (order (n,) int64, edges (n,) f32, stats (4,) int64) — the visit
       order, each visit's MST edge weight (edges[0] = 0), and the work done:
-      [tile folds, pivot-row folds, pair evaluations], where a pair
-      evaluation is one (pivot, unselected lane) dissimilarity.  The eager
-      schedule folds at most (n - 1)·nblk tiles, pruning fewer; both
-      evaluate exactly n·(n - 1)/2 pairs, each lane against every earlier
-      pivot once.  A stack gives (b, n), (b, n) and (b, 3).
+      [tile folds, pivot-row folds, pair evaluations, group barriers],
+      where a pair evaluation is one (pivot, unselected lane) dissimilarity.
+      The eager schedule folds at most (n - 1)·nblk tiles, pruning fewer;
+      both evaluate exactly n·(n - 1)/2 pairs, each lane against every
+      earlier pivot once, and make one barrier a step.  None of the four
+      depends on G.  A stack gives (b, n), (b, n) and (b, 4).
     """
     check_metric(metric)
     check_form(form)
@@ -132,22 +158,28 @@ def prim_persist_cuda(X: torch.Tensor, aux: torch.Tensor, i0: torch.Tensor,
     rad = torch.stack([r for _, r in bounds])
     slack = (lb_slack_ulps(form) * _F32_EPS) * torch.amax(
         aux.view(b, n), dim=1)
+    group = persist_plan(b, n, d, metric=metric, form=form, block=block,
+                         max_group=max_group)["group"]
     # kernel state, freed on return while the kernel may still run: the
     # caching allocator hands it out again only to later work on this stream
     mind = torch.empty((b, n), dtype=torch.float32, device=dev)
-    tmin_pend = torch.empty((2, b, nblk), dtype=torch.float32, device=dev)
-    nfold_live = torch.empty((2, b, nblk), dtype=torch.int32, device=dev)
+    pend = torch.empty((b, nblk), dtype=torch.float32, device=dev)
+    keys = torch.empty((2, b, nblk), dtype=torch.int64, device=dev)
+    tiles = torch.empty((3, b, nblk), dtype=torch.int32, device=dev)
+    # one slot (a 128-byte line) a CTA and step parity; zeroed: no step's
+    # tag
+    slots = torch.zeros((b, 2, group, 16), dtype=torch.int64, device=dev)
     order = torch.empty((b, n), dtype=torch.int64, device=dev)
     edges = torch.empty((b, n), dtype=torch.float32, device=dev)
-    stats = torch.empty((b, 3), dtype=torch.int64, device=dev)
+    stats = torch.zeros((b, 4), dtype=torch.int64, device=dev)
     err = _build.library().repro_prim_persist(
         X.data_ptr(), aux.data_ptr(), i0.data_ptr(), cent.data_ptr(),
         rad.data_ptr(), slack.data_ptr(), _LB_MARGIN, b, n, d, block,
-        _KINDS[(metric, form)], int(prune), mind.data_ptr(),
-        tmin_pend[0].data_ptr(), tmin_pend[1].data_ptr(),
-        nfold_live[0].data_ptr(), nfold_live[1].data_ptr(), order.data_ptr(),
-        edges.data_ptr(), stats.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+        _KINDS[(metric, form)], int(prune), group, mind.data_ptr(),
+        pend.data_ptr(), keys[0].data_ptr(), keys[1].data_ptr(),
+        tiles[0].data_ptr(), tiles[1].data_ptr(), tiles[2].data_ptr(),
+        slots.data_ptr(), order.data_ptr(), edges.data_ptr(),
+        stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "prim_persist")
     _build.LAUNCHES["prim_persist"] += 1
     if batched:

@@ -555,6 +555,88 @@ def test_cuda_prim_persist_lanes_equal_solo_launches(cuda, metric):
                 assert torch.equal(stats[z], ss)
 
 
+def _persist_inputs(X, metric="euclidean"):
+    aux = metric_aux_cuda(X, metric=metric)
+    if X.dim() == 3:
+        return aux, torch.stack([_streamed_seed_pivot(x, metric=metric)
+                                 for x in X])
+    return aux, _streamed_seed_pivot(X, metric=metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block", [(40, 8), (700, 32)])
+def test_cuda_prim_persist_group_size_changes_no_bit(cuda, n, block):
+    """The same traversal on groups of 1 to nblk CTAs, some of them owning
+    no tile (ceil(nblk / G) tiles a CTA): order, edges and all four stats
+    equal, pruned and eager; one barrier a step."""
+    from repro_torch.kernels.prim_persist import persist_plan
+    X = torch.from_numpy(_contig_blobs(n)).to(cuda)
+    aux, i0 = _persist_inputs(X)
+    nblk = -(-n // block)
+    for prune in (True, False):
+        want = prim_persist_cuda(X, aux, i0, block=block, prune=prune,
+                                 max_group=1)
+        assert int(want[2][3]) == n - 1
+        idle = False
+        for cap in (2, 3, 4, 12, 15, None):
+            plan = persist_plan(1, n, 3, block=block, max_group=cap)
+            assert plan["group"] == min(cap or nblk, nblk)
+            tpc = plan["tiles_per_cta"]
+            idle |= (plan["group"] - 1) * tpc >= nblk
+            got = prim_persist_cuda(X, aux, i0, block=block, prune=prune,
+                                    max_group=cap)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (cap, prune)
+        assert idle   # some group left a CTA without a tile
+
+
+@pytest.mark.cuda
+def test_cuda_prim_persist_group_of_one_route(cuda):
+    """b past the co-resident CTAs gives G = 1 (a plain launch, the
+    exchange a __syncthreads()); every lane equals its solo launch, which
+    spreads over a group of CTAs."""
+    from repro_torch.kernels.prim_persist import persist_plan
+    b, n, d, block = 600, 40, 3, 8
+    assert persist_plan(b, n, d, block=block)["group"] == 1
+    assert persist_plan(1, n, d, block=block)["group"] == 5
+    X = torch.from_numpy(np.stack([_contig_blobs(n, seed=s)
+                                   for s in range(b)])).to(cuda)
+    aux, i0 = _persist_inputs(X)
+    for prune in (True, False):
+        order, edges, stats = prim_persist_cuda(X, aux, i0, block=block,
+                                                prune=prune)
+        for z in range(b):
+            so, se, ss = prim_persist_cuda(X[z], aux[z], i0[z], block=block,
+                                           prune=prune)
+            assert torch.equal(order[z], so) and torch.equal(edges[z], se)
+            assert torch.equal(stats[z], ss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(50_000, 64), (20_000, 1024)])
+def test_cuda_prim_persist_rows_staged_and_in_global(cuda, n, d):
+    """Rows in shared memory (d = 64, the default group) and in global
+    memory (a group of 8 CTAs at d = 64; every group at d = 1,024): the
+    same bits, and the stepwise engine's order and edges."""
+    from repro_torch.kernels.prim_persist import persist_plan
+    X = torch.from_numpy(_contig_blobs(n, d=d, k=8)).to(cuda)
+    aux, i0 = _persist_inputs(X)
+    plan = persist_plan(1, n, d)
+    assert plan["rows_staged"] == (d == 64)
+    got = prim_persist_cuda(X, aux, i0)
+    eager = prim_persist_cuda(X, aux, i0, prune=False)
+    assert torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])
+    if d == 64:
+        assert not persist_plan(1, n, d, max_group=8)["rows_staged"]
+        in_global = prim_persist_cuda(X, aux, i0, max_group=8)
+        for a, b in zip(in_global, got):
+            assert torch.equal(a, b)
+    stepw = core.vat_matrix_free(X, turbo=False)
+    assert torch.equal(got[0], stepw.order)
+    assert torch.equal(got[1], stepw.edges)
+    assert int(got[2][2]) == int(eager[2][2]) == n * (n - 1) // 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ref.METRICS)
 def test_cuda_knn_batch_equals_solo_and_plain(cuda, metric):
