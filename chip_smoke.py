@@ -18,7 +18,10 @@ at n = 50,000 (``flashvat``, both engines), and ``ops.knn_graph_batch`` of
 4 at n = 32,768 — checks what comes out and that every kernel of
 each path was launched, holds the flashvat engines bit for bit against
 each other and against the materialized ordering, the kNN kernel bit for
-bit against the pairwise kernel's sorted rows, Borůvka on the card against
+bit against the pairwise kernel's sorted rows, the one-launch Prim kernel
+bit for bit against the loop of plain masked argmins, the segmented kNN
+launch (every anchored cell at once) bit for bit against the kNN kernel
+cell by cell, Borůvka on the card against
 Borůvka on the CPU, the approx order at k = n - 1 against the exact
 orders, and every batched lane bit for bit against its solo kernel and
 solo fit; runs the certification sweep (``numerics/certify.py``, 180 fits);
@@ -184,6 +187,13 @@ def argmin_cost(n: int):
     return 4 * n + n + 16, 2 * n      # vals + mask read, pair written
 
 
+def prim_order_cost(n: int):
+    """The n - 1 pivot rows of R read once (the last vertex's row is never
+    needed), the order written once; a min and a key compare per lane and
+    step."""
+    return 4 * n * (n - 1) + 8 * n + 8, 2 * n * (n - 1)
+
+
 def persist_cost(n: int, d: int, pairs: int):
     """X, aux read once, order (int64), edges and stats written once; one
     FMA per feature and pair evaluation the kernel made (``stats[2]``:
@@ -222,7 +232,9 @@ def phase_environment(torch, build):
     log("environment", torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=ver[-1] if ver else None, build_s=build_s,
         library=str(build.build()), device=torch.cuda.get_device_name(0),
-        prim_persist_ptxas=ptxas_report(build, "prim_persist.cu"))
+        prim_persist_ptxas=ptxas_report(build, "prim_persist.cu"),
+        knn_graph_ptxas=ptxas_report(build, "knn_graph.cu"),
+        prim_update_ptxas=ptxas_report(build, "prim_update.cu"))
     return card
 
 
@@ -320,6 +332,65 @@ def check_argmin(torch, ref, masked_argmin_cuda, gen):
     return 0.0
 
 
+def check_vat_prim(torch, ref, ops, vat_prim_order_cuda, vat_order, gen):
+    """The one-launch Prim kernel against the loop it replaces,
+    ``vat_order(R, argmin=ref.masked_argmin_ref)`` on the same card
+    matrix, bit for bit: float matrices, tie-heavy integer ones (squared
+    distances of integer points, duplicates among them), the same with the
+    zeros of every other row made -0.0, n from 1 to 16,384 with the
+    frontier in shared memory and in global scratch, n = 40,961 (past
+    what shared memory holds, so global scratch by default), and 8 lanes
+    in one launch against their solo launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+
+    def int_matrix(n):
+        P = torch.randint(-3, 4, (n, 3), device="cuda", generator=gen)
+        R = pairwise_dist_cuda(P.float(), metric="sqeuclidean")
+        return R.fill_diagonal_(0.0)
+
+    cases = []
+    for n in (1, 2, 3, 129, 2048, 16_384):
+        Ri = int_matrix(n)
+        Rz = Ri.clone()
+        Rz[(Rz == 0) & (torch.arange(n, device="cuda") % 2 == 0)[:, None]] \
+            = -0.0
+        mats = {"float": ops.pairwise_dist(
+            torch.randn(n, 16, device="cuda", generator=gen)),
+            "int": Ri, "signed_zero": Rz}
+        for name, R in mats.items():
+            i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
+            want = vat_order(R, argmin=ref.masked_argmin_ref)
+            for frontier in ("shared", "global"):
+                got = vat_prim_order_cuda(R, i0, frontier=frontier)
+                require(torch.equal(got, want), f"vat_prim_order {name} "
+                        f"n={n} frontier={frontier}: not the loop's order")
+            cases.append(f"{name}/{n}")
+        del mats, Ri, Rz
+    n = _build.VAT_PRIM_SHARED_MAX_N + 1
+    R = int_matrix(n)
+    i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
+    want = vat_order(R, argmin=ref.masked_argmin_ref)
+    require(torch.equal(vat_prim_order_cuda(R, i0), want),
+            f"vat_prim_order n={n} (global frontier): not the loop's order")
+    cases.append(f"int/{n}/global")
+    del R, want
+    stack = torch.stack([int_matrix(2048) if z % 2 else ops.pairwise_dist(
+        torch.randn(2048, 16, device="cuda", generator=gen))
+        for z in range(8)])
+    i0 = torch.argmax(torch.amax(stack, dim=2), dim=1)
+    lanes = vat_prim_order_cuda(stack, i0)
+    for z in range(8):
+        require(torch.equal(lanes[z], vat_prim_order_cuda(
+            stack[z].contiguous(), i0[z:z + 1])),
+            f"vat_prim_order lane {z} of 8 != its solo launch")
+    require(torch.equal(lanes, ref.vat_prim_order_ref(stack, i0)),
+            "vat_prim_order lanes != the batched loop")
+    log("vat-prim-kernel", kernel="vat_prim_order", bitwise=cases,
+        lanes_equal_solo=8, shared_max_n=_build.VAT_PRIM_SHARED_MAX_N)
+    return 0.0
+
+
 def check_ivat(torch, ref, ivat_from_vat_cuda, rstars):
     for rstar in rstars:
         K = ivat_from_vat_cuda(rstar)
@@ -405,14 +476,16 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
             f"auto picked {fv.method_resolved!r} at n={n}, want 'vat'")
     require(fv.result.meta.device.startswith("cuda"), "fit did not run on cuda")
     Xt = fv._X
-    for name in ("pairwise_dist", "masked_argmin", "ivat_from_vat"):
+    for name in ("pairwise_dist", "vat_prim_order", "ivat_from_vat"):
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the main path")
     require(launches["prim_persist"] == launches["prim_stream_step"] == 0,
-            f"the vat path launched a Prim kernel: {launches}")
-    require(launches["masked_argmin"] == n - 1,
-            f"masked_argmin launched {launches['masked_argmin']} times, "
-            f"want n - 1 = {n - 1}")
+            f"the vat path launched a matrix-free Prim kernel: {launches}")
+    require(launches["vat_prim_order"] == 1
+            and launches["masked_argmin"] == 0,
+            f"the Prim ordering launched vat_prim_order "
+            f"{launches['vat_prim_order']} and masked_argmin "
+            f"{launches['masked_argmin']} times, want 1 and 0")
     require(img.shape == (n, n) and np.isfinite(img).all(), "bad image")
     require(img_iv.shape == (n, n) and np.isfinite(img_iv).all(),
             "bad iVAT image")
@@ -454,7 +527,8 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
         fiv, wall = wall_s(torch, lambda: rt.FastVAT(method="ivat").fit(X2))
         counts = build.launch_counts()
         require(counts["pairwise_dist"] == 1 and counts["ivat_from_vat"] == 1
-                and counts["masked_argmin"] == n2 - 1,
+                and counts["vat_prim_order"] == 1
+                and counts["masked_argmin"] == 0,
                 f"ivat fit n={n2}: launch counts {counts}")
         iv = fiv.result.ivat_image
         require(iv.shape == (n2, n2) and bool(torch.isfinite(iv).all()),
@@ -546,7 +620,8 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
     require(fv.result.meta.device.startswith("cuda"), "fit did not run on cuda")
     m = fv.result.rstar.shape[0]
     require(launches["prim_persist"] == 1 and launches["prim_stream_step"] == 0
-            and launches["masked_argmin"] == m - 1 == 255
+            and launches["vat_prim_order"] == 1 and m == 256
+            and launches["masked_argmin"] == 0
             and launches["ivat_from_vat"] == 1
             and launches["pairwise_dist"] > 0,
             f"flash path launch counts {launches}")
@@ -1048,7 +1123,8 @@ def phase_dvat(torch, rt, core, build):
     idx = fv.sample_indices()
     require(fv.result.meta.device.startswith("cuda")
             and counts["pairwise_dist"] == 1
-            and counts["masked_argmin"] == 255,
+            and counts["vat_prim_order"] == 1
+            and counts["masked_argmin"] == 0,
             f"svat fit launch counts {counts}")
     require(img.shape == (256, 256) and np.isfinite(img).all()
             and len(np.unique(idx)) == 256, "bad svat image or sample")
@@ -1200,9 +1276,12 @@ def phase_approx_exact(torch, rt, ops, build, core):
     launches = build.launch_counts()
     s = fa.result.meta.approx
     require(s.mode == "exact" and s.k == 15, f"approx stats {s}")
-    for name in ("knn_graph", "pairwise_dist", "masked_argmin",
+    for name in ("knn_graph", "pairwise_dist", "vat_prim_order",
                  "ivat_from_vat"):
         require(launches[name] > 0, f"approx-exact did not launch {name}")
+    require(launches["masked_argmin"] == 0 and launches["vat_prim_order"] == 1
+            and launches["knn_graph"] == 1,
+            f"approx-exact launch counts {launches}")
     require(launches["prim_persist"] == 0 == launches["prim_stream_step"],
             f"approx-exact launched a Prim kernel: {launches}")
     require(np.array_equal(np.sort(order), np.arange(n)),
@@ -1292,8 +1371,13 @@ def phase_approx_path(torch, rt, ops, build, core, registry):
     s = fv.result.meta.approx
     require(fv.method_resolved == "approx" and s.mode == "anchored",
             f"auto at n={n}: {fv.method_resolved}, {s}")
-    require(launches["knn_graph"] > 0 and launches["pairwise_dist"] > 0,
-            f"approx path launch counts {launches}")
+    require(launches["knn_graph"] == 1
+            and launches["knn_graph_segmented"] == 1
+            and launches["pairwise_dist"] > 0
+            and launches["vat_prim_order"] == 1
+            and launches["masked_argmin"] == 0,
+            f"approx path launch counts {launches}: want one assignment "
+            "launch and one launch for every anchored cell")
     require(np.array_equal(np.sort(order), np.arange(n)),
             "approx order is not a permutation")
     require(img.shape == (256, 256) and np.isfinite(img).all()
@@ -1333,7 +1417,118 @@ def phase_approx_path(torch, rt, ops, build, core, registry):
         repaired_edges=s.repaired_edges, repair_weight=s.repair_weight,
         n_passes=s.n_passes, mst_weight=s.mst_weight, runs=runs,
         hopkins=rep.hopkins, block_score=rep.block_score, k_est=rep.k_est)
-    return launches
+    return launches, Xt
+
+
+def segmented_cost(cells, d: int, k: int):
+    """The cells' queries and candidates read once, the (Q, k) lists
+    written once (f32 + int64); one FMA per feature for each query x
+    candidate pair of a cell (the pairs of this run's cells)."""
+    q = (cells.qoff[1:] - cells.qoff[:-1]).double()
+    c = (cells.coff[1:] - cells.coff[:-1]).double()
+    nq, nc = int(cells.qoff[-1]), int(cells.coff[-1])
+    pairs = float((q * c).sum())
+    return 4 * d * (nq + nc) + 12 * k * nq, 2 * d * pairs, pairs
+
+
+def phase_knn_segmented(torch, ref, core, build, Xt, launches, card):
+    """The anchored search's cells, as the approx fit lays them out on the
+    million-point input: the segmented launch against the kNN kernel cell
+    by cell, bit for bit (every cell for euclidean, one cell in 20 for the
+    other metrics) and against the pairwise kernel's sorted rows on a few
+    cells; then its time beside its plain version (the kernel's plain
+    version cell by cell) and its bound, and the assignment launch's."""
+    from repro_torch.kernels.knn_graph import (knn_topk_cuda,
+                                              knn_topk_segmented_cuda)
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    n, d = Xt.shape
+    k = 15
+    cells = core.anchor_cells(Xt)
+    Xq = Xt.index_select(0, cells.query)
+    Xc = Xt.index_select(0, cells.members)
+    qo, co = cells.qoff.tolist(), cells.coff.tolist()
+    c = len(qo) - 1
+    checked = {}
+    for metric in ("euclidean", "sqeuclidean", "manhattan", "cosine"):
+        got = knn_topk_segmented_cuda(Xq, Xc, cells.query, cells.members,
+                                      cells.qoff, cells.coff, k=k,
+                                      metric=metric)
+        step = 1 if metric == "euclidean" else 20
+        done = 0
+        for g in range(0, c, step):
+            q0, q1, c0, c1 = qo[g], qo[g + 1], co[g], co[g + 1]
+            if q1 == q0:
+                continue
+            rows = (got[0][q0:q1], got[1][q0:q1])
+            if c1 == c0:
+                require(bool(torch.isinf(rows[0]).all()
+                             and (rows[1] == -1).all()),
+                        f"knn segmented {metric} cell {g}: empty cell rows")
+                continue
+            want = knn_topk_cuda(Xq[q0:q1], Xc[c0:c1], cells.query[q0:q1],
+                                 cells.members[c0:c1], k=min(k, c1 - c0),
+                                 metric=metric)
+            kk = want[0].shape[1]
+            require(torch.equal(rows[0][:, :kk], want[0])
+                    and torch.equal(rows[1][:, :kk], want[1])
+                    and bool(torch.isinf(rows[0][:, kk:]).all())
+                    and bool((rows[1][:, kk:] == -1).all()),
+                    f"knn segmented {metric} cell {g}: not the per-cell "
+                    "kernel call's lists")
+            if metric == "euclidean" and g % 100 == 0:
+                plain = kernel_plain_knn(ref, pairwise_dist_cuda, Xq[q0:q1],
+                                         Xc[c0:c1], cells.query[q0:q1],
+                                         cells.members[c0:c1], k, metric)
+                require(torch.equal(rows[0], plain[0])
+                        and torch.equal(rows[1], plain[1]),
+                        f"knn segmented cell {g}: not the pairwise kernel's "
+                        "sorted rows")
+            done += 1
+        checked[metric] = done
+        del got
+    nbytes, nops, pairs = segmented_cost(cells, d, k)
+    args = (Xq, Xc, cells.query, cells.members, cells.qoff, cells.coff)
+    A = Xt.index_select(0, cells.anchors)
+    no_id = torch.full((n,), -1, dtype=torch.int64, device="cuda")
+    aid = torch.arange(A.shape[0], device="cuda")
+    sd, si = knn_topk_segmented_cuda(*args, k=k)
+    pd, pi = ref.knn_topk_segmented_ref(*args, k=k)
+    err = float(torch.amax(torch.where(torch.isfinite(pd), (sd - pd).abs(),
+                                       0.0)))
+    tol = plain_tolerance(torch, "euclidean", Xt, pd)
+    require(err <= tol, f"knn segmented vs plain: {err} > {tol}")
+    # CUDA events around back-to-back calls: torch.profiler has read this
+    # launch at a third of its stream time (the wrapper's host sync on the
+    # work list seems to cost the profiler events), so the row takes the
+    # stream time, the wrapper's aux pre-pass and work list included
+    row = {"kernel": "knn_graph_segmented", "n": n, "d": d, "k": k,
+           "cells": c, "queries": len(cells.query), "pairs": pairs,
+           "ms": event_ms(torch, lambda: knn_topk_segmented_cuda(*args, k=k),
+                          reps=3),
+           "profiler_ms": device_ms(torch, lambda: knn_topk_segmented_cuda(
+               *args, k=k), reps=3, label="knn_graph_segmented"),
+           "plain_ms": device_ms(torch, lambda: ref.knn_topk_segmented_ref(
+               *args, k=k), reps=1, label="knn_graph_segmented plain"),
+           "library_ms": None,
+           "assignment_ms": event_ms(torch, lambda: knn_topk_cuda(
+               Xt, A, no_id, aid, k=2), reps=3)}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, nops)
+    a_bytes, a_ops = 4 * d * (n + A.shape[0]) + 24 * n, 2 * d * n * A.shape[0]
+    row["assignment_bound_ms"] = bound_ms(a_bytes, a_ops)[0]
+    row["anchored_kernel_ms"] = row["ms"] + row["assignment_ms"]
+    row["anchored_bound_ms"] = bound_ms(nbytes + a_bytes, nops + a_ops)[0]
+    log("knn-segmented", card=card, checked_cells=checked,
+        vs_plain_max_abs_err=err, vs_plain_tol=tol, **row)
+    return {"name": "knn_graph_segmented", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/knn_graph.cu",
+            "replaces": "src/repro/kernels/knn_graph.py:137",
+            "launches": launches["knn_graph_segmented"], "max_abs_err": err,
+            "ms": row["ms"], "timer": "cuda events",
+            "profiler_ms": row["profiler_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+            "library_ms_why": "no single PyTorch call takes the top-k of "
+                              "many independent query x candidate blocks"}
 
 
 def phase_knn_times(torch, ref, knn_topk_cuda, X, launches, err):
@@ -1405,6 +1600,7 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
         vals = torch.rand(n, device="cuda", generator=gen)
         mask = torch.rand(n, device="cuda", generator=gen) < 0.5
         rstar = next(r for r in rstars if r.shape[0] == n)
+        i0 = torch.argmax(torch.amax(rstar, dim=1)).view(1)
         big = n > 2048
         cases = {
             "pairwise_dist": (
@@ -1420,9 +1616,14 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
                 lambda: kernels["ivat_from_vat"](rstar),
                 lambda: ref.ivat_from_vat_ref(rstar), None, ivat_cost(n),
                 3 if big else 10),
+            "vat_prim_order": (
+                lambda: kernels["vat_prim_order"](rstar, i0),
+                lambda: ref.vat_prim_order_ref(rstar, i0), None,
+                prim_order_cost(n), 3 if big else 10),
         }
         for name, (kern, plain, lib, cost, reps) in cases.items():
-            plain_reps = 1 if name == "ivat_from_vat" else reps
+            plain_reps = 1 if name in ("ivat_from_vat", "vat_prim_order") \
+                else reps
             row = {"kernel": name, "n": n,
                    "ms": device_ms(torch, kern, reps=reps,
                                    label=f"{name} n={n}"),
@@ -1443,11 +1644,16 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
                           "src/repro/kernels/prim_update.py:39"),
         "ivat_from_vat": ("src/repro_torch/kernels/csrc/ivat_update.cu",
                           "src/repro/kernels/ivat_update.py:73"),
+        # the whole loop of masked_argmin_pallas steps the reference's
+        # vat_order runs, in one launch
+        "vat_prim_order": ("src/repro_torch/kernels/csrc/prim_update.cu",
+                           "src/repro/kernels/prim_update.py:39"),
     }
     out = []
     for name, (source, replaces) in meta.items():
         row = next(r for r in rows if r["kernel"] == name and r["n"] == 2048)
-        timer = "cuda events" if name == "ivat_from_vat" else "profiler"
+        timer = ("cuda events" if name in ("ivat_from_vat", "vat_prim_order")
+                 else "profiler")
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name],
@@ -1456,6 +1662,10 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"]})
+        if name == "masked_argmin":
+            out[-1]["launches_why"] = (
+                "off the main path: vat_prim_order runs the Prim loop that "
+                "called it once a step; still held against its plain version")
     return out
 
 
@@ -1646,7 +1856,8 @@ def phase_batch_vat(torch, rt, ops, build, card):
             f"auto fit_many picked {fv.method_resolved!r} at n={n}")
     require(fv.result.meta.device.startswith("cuda"), "fit did not run on cuda")
     require(launches["pairwise_dist_batch"] == 1
-            and launches["masked_argmin"] == n - 1
+            and launches["vat_prim_order"] == 1
+            and launches["masked_argmin"] == 0
             and launches["ivat_from_vat"] == 1
             and launches["prim_persist"] == launches["prim_stream_step"]
             == launches["prim_stream_step_batch"] == 0
@@ -1693,7 +1904,8 @@ def phase_batch_vat(torch, rt, ops, build, card):
                            lambda: rt.FastVAT(method="ivat").fit_many(Xs))
     ivat_launches = build.launch_counts()
     require(ivat_launches["pairwise_dist_batch"] == 1
-            and ivat_launches["masked_argmin"] == n - 1
+            and ivat_launches["vat_prim_order"] == 1
+            and ivat_launches["masked_argmin"] == 0
             and ivat_launches["ivat_from_vat"] == 1,
             f"ivat fit_many launch counts {ivat_launches}")
     require(np.array_equal(fi.order(), order)
@@ -1706,7 +1918,8 @@ def phase_batch_vat(torch, rt, ops, build, card):
         method="ivat", metric="precomputed").fit_many(Ds))
     pre_launches = build.launch_counts()
     require(pre_launches["pairwise_dist_batch"] == 0
-            and pre_launches["masked_argmin"] == n - 1
+            and pre_launches["vat_prim_order"] == 1
+            and pre_launches["masked_argmin"] == 0
             and pre_launches["ivat_from_vat"] == 1,
             f"precomputed fit_many launch counts {pre_launches}")
     require(np.array_equal(fp.order(), order)
@@ -1749,7 +1962,8 @@ def phase_batch_flash(torch, rt, build, card):
             and launches["prim_stream_step_batch"] == 0
             and launches["prim_stream_step"] == 0
             and launches["pairwise_dist_batch"] == 1
-            and launches["masked_argmin"] == 255
+            and launches["vat_prim_order"] == 1
+            and launches["masked_argmin"] == 0
             and launches["ivat_from_vat"] == 1,
             f"batch-flash launch counts {launches}")
     require(peak < 1024 * 2 ** 20, f"the batched flashvat fit allocated "
@@ -1986,7 +2200,8 @@ def main() -> int:
     from repro_torch.kernels.prim_persist import prim_persist_cuda
     from repro_torch.kernels.prim_stream import (prim_frontier_step_cuda,
                                                 prim_stream_step_cuda)
-    from repro_torch.kernels.prim_update import masked_argmin_cuda
+    from repro_torch.kernels.prim_update import (masked_argmin_cuda,
+                                                 vat_prim_order_cuda)
     import torch.distributed as dist
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
@@ -1999,13 +2214,17 @@ def main() -> int:
                                             pairwise_dist_cuda, probe_count,
                                             gen),
             "masked_argmin": check_argmin(torch, ref, masked_argmin_cuda,
-                                          gen)}
+                                          gen),
+            "vat_prim_order": check_vat_prim(torch, ref, ops,
+                                             vat_prim_order_cuda, vat_order,
+                                             gen)}
     launches, walls, rstars = phase_main_path(torch, rt, ref, ops, build,
                                               vat_order)
     errs["ivat_from_vat"] = check_ivat(torch, ref, ivat_from_vat_cuda, rstars)
     kernels = {"pairwise_dist": pairwise_dist_cuda,
                "masked_argmin": masked_argmin_cuda,
-               "ivat_from_vat": ivat_from_vat_cuda}
+               "ivat_from_vat": ivat_from_vat_cuda,
+               "vat_prim_order": vat_prim_order_cuda}
     phase_profile(torch, rt, blobs(2048, 64, k=8, seed=0))
     flash = phase_flash_path(torch, rt, ref, ops, build, core,
                              prim_persist_cuda, prim_stream_step_cuda,
@@ -2046,12 +2265,15 @@ def main() -> int:
                                    knn_topk_blocked, pairwise_dist_cuda, gen)
     phase_approx_exact(torch, rt, ops, build, core)
     phase_approx_full_k(torch, rt, ref, build)
-    approx_launches = phase_approx_path(torch, rt, ops, build, core, registry)
+    approx_launches, Xa = phase_approx_path(torch, rt, ops, build, core,
+                                            registry)
     phase_profile(torch, rt, demo_blobs(1_000_000)[0],
                   label="approx n=1000000")
     rows.append(phase_knn_times(torch, ref, knn_topk_cuda, Xk,
                                 approx_launches, knn_err))
-    del Xk
+    rows.append(phase_knn_segmented(torch, ref, core, build, Xa,
+                                    approx_launches, card))
+    del Xk, Xa
     # the batched path: fit_many through the batched kernels
     errs.update(check_batch_kernels(torch, ref, gen, card))
     vat_launches, Xv = phase_batch_vat(torch, rt, ops, build, card)

@@ -7,9 +7,11 @@ The user-facing facade with automatic method selection is
 of ``repro.core`` are later slices of the port.  ``torch.distributed`` is
 part of torch, so the distributed module needs no import guard.
 """
-from repro_torch.core.approx_mst import (ApproxStats, ApproxVATResult,
-                                         MSTEdges, approx_vat, boruvka_mst,
-                                         knn_graph_anchored, mst_vat_order)
+from repro_torch.core.approx_mst import (AnchorCells, ApproxStats,
+                                         ApproxVATResult, MSTEdges,
+                                         anchor_cells, approx_vat,
+                                         boruvka_mst, knn_graph_anchored,
+                                         mst_vat_order)
 from repro_torch.core.bigvat import expand_image
 from repro_torch.core.distributed import (DVATResult, dvat,
                                           pairwise_dist_sharded,
@@ -34,7 +36,8 @@ __all__ = [
     "ivat_batch_from_dist", "ivat_batch_from_vat", "hopkins",
     "hopkins_draws", "hopkins_from_draws", "expand_image",
     "approx_vat", "ApproxVATResult", "ApproxStats", "MSTEdges",
-    "boruvka_mst", "mst_vat_order", "knn_graph_anchored",
+    "boruvka_mst", "mst_vat_order", "knn_graph_anchored", "anchor_cells",
+    "AnchorCells",
     "svat", "svat_from", "maximin_sample", "maximin_sample_from",
     "SVATResult", "dvat", "DVATResult", "pairwise_dist_sharded",
     "vat_matrix_free_sharded",

@@ -12,10 +12,12 @@ Stages, and where each runs:
 
   * kNN graph — ``kernels.ops.knn_graph`` (the kNN kernel on the card) up
     to ``EXACT_KNN_N``, else ``knn_graph_anchored``: random anchors
-    (≈ sqrt(n)), each point assigned to its ``probes`` nearest anchors,
-    then brute force within each anchor cell — both through
-    ``kernels.ops.knn_topk`` in query/candidate form.  The cell
-    bookkeeping (CSR views of the assignment) is host numpy.
+    (≈ sqrt(n)), each point assigned to its ``probes`` nearest anchors
+    (``kernels.ops.knn_topk`` in query/candidate form), then brute force
+    within every anchor cell at once (``kernels.ops.knn_topk_segmented``):
+    on the card two kNN launches in all.  The cell bookkeeping (CSR views
+    of the assignment: stable sorts, ``bincount``, ``cumsum``) stays on
+    X's device.
   * Borůvka — ``_boruvka_pass`` on X's device: symmetrize the directed
     kNN list (both directions share ONE weight), pick each component's
     minimum incident cross edge by a three-stage lexicographic segment
@@ -340,6 +342,66 @@ def mst_vat_order(n: int, tree: MSTEdges, i0: int):
     return order, edges
 
 
+class AnchorCells(NamedTuple):
+    """The first level of the anchored search, as segments of one
+    ``kernels.ops.knn_topk_segmented`` call.  Cell g's queries are the
+    points ``query[qoff[g]:qoff[g+1]]`` (every (point, probe) pair probing
+    it, in (probe, point) order; pair p = point * probes + probe is
+    ``pairs[qoff[g] + i]``) and its candidates its primary members
+    ``members[coff[g]:coff[g+1]]``, in index order.  All on X's device."""
+    anchors: torch.Tensor   # (c,) int64 — the anchors' point indices
+    query: torch.Tensor     # (n * probes,) int64
+    pairs: torch.Tensor     # (n * probes,) int64
+    qoff: torch.Tensor      # (c + 1,) int64
+    members: torch.Tensor   # (n,) int64
+    coff: torch.Tensor      # (c + 1,) int64
+
+
+def anchor_cells(Xt: torch.Tensor, *, metric: str = "euclidean",
+                 anchors: int | None = None, probes: int = 2,
+                 assign_block: int = 8_192,
+                 rng: np.random.Generator | None = None) -> AnchorCells:
+    """Sample the anchors, assign every point of Xt (n, d) f32 to its
+    ``probes`` nearest, and lay the cells out as segments
+    (``knn_graph_anchored`` documents the arguments).  The assignment is
+    one ``kernels.ops.knn_topk`` call on the card (its kernel forms no
+    (rows, anchors) block), blocks of ``assign_block`` rows on the CPU; the
+    CSR views are stable sorts, ``bincount`` and ``cumsum`` on Xt's
+    device, the orders numpy's stable argsorts give the reference."""
+    dev = Xt.device
+    n = Xt.shape[0]
+    c = anchors if anchors is not None else max(32, int(round(math.sqrt(n))))
+    c = min(c, n)
+    probes = max(1, min(probes, c))
+    rng = rng if rng is not None else np.random.default_rng(0)
+    aidx = torch.as_tensor(rng.choice(n, size=c, replace=False), device=dev)
+    A = Xt.index_select(0, aidx)
+    anchor_ids = torch.arange(c, device=dev)
+
+    block = n if Xt.is_cuda else assign_block
+    probe_idx = torch.empty((n, probes), dtype=torch.int64, device=dev)
+    for s0 in range(0, n, block):
+        xb = Xt[s0:s0 + block]
+        no_id = torch.full((xb.shape[0],), -1, dtype=torch.int64, device=dev)
+        _, pid = kops.knn_topk(xb, A, no_id, anchor_ids, k=probes,
+                               metric=metric)
+        probe_idx[s0:s0 + xb.shape[0]] = pid
+
+    primary = probe_idx[:, 0]
+    cells = probe_idx.reshape(-1)
+    pairs = torch.argsort(cells * probes + torch.arange(
+        probes, device=dev).repeat(n), stable=True)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    return AnchorCells(
+        anchors=aidx,
+        query=torch.div(pairs, probes, rounding_mode="floor"), pairs=pairs,
+        qoff=torch.cat([zero, torch.cumsum(torch.bincount(
+            cells, minlength=c), 0)]),
+        members=torch.argsort(primary, stable=True),
+        coff=torch.cat([zero, torch.cumsum(torch.bincount(
+            primary, minlength=c), 0)]))
+
+
 def knn_graph_anchored(X, *, k: int, metric: str = "euclidean",
                        anchors: int | None = None, probes: int = 2,
                        assign_block: int = 8_192,
@@ -347,15 +409,17 @@ def knn_graph_anchored(X, *, k: int, metric: str = "euclidean",
     """Approximate kNN graph by two-level (IVF-style) search.
 
     Sample ``anchors`` random points (≈ sqrt(n) by default), assign every
-    point to its ``probes`` nearest anchors in blocks of ``assign_block``
-    rows, then brute-force each anchor cell: the candidates are the
-    cell's primary members, the queries everyone probing it.  Probe pools
-    are disjoint (primary assignment partitions the data), so the
-    per-point merge over probes needs no dedup.  Both searches are
-    ``kernels.ops.knn_topk`` calls — the assignment with the anchors'
-    positions as candidate ids and a sentinel query id (no self mask), a
-    cell with the points' own ids — so nothing (n, n) exists.  The cell
-    bookkeeping is host numpy; the distances and lists stay on X's device.
+    point to its ``probes`` nearest anchors, then brute-force each anchor
+    cell: the candidates are the cell's primary members, the queries
+    everyone probing it (``anchor_cells``).  Probe pools are disjoint
+    (primary assignment partitions the data), so the per-point merge over
+    probes needs no dedup.  The assignment is one ``kernels.ops.knn_topk``
+    call with the anchors' positions as candidate ids and a sentinel query
+    id (no self mask); the cells are one ``kernels.ops.knn_topk_segmented``
+    call, every cell a segment with the points' own ids: on the card two
+    kNN launches, and nothing (n, n) exists.  A list depends only on its
+    query and its cell's candidate set, so the graph is the per-cell
+    calls' bit for bit.
 
     Args:
       X: (n, d) float32 tensor (numpy is taken on the CPU).
@@ -363,7 +427,7 @@ def knn_graph_anchored(X, *, k: int, metric: str = "euclidean",
       metric: one of ``kernels.ref.METRICS``.
       anchors: cell count; None = max(32, round(sqrt(n))).
       probes: anchor cells searched per point.
-      assign_block: rows per assignment-pass call.
+      assign_block: rows per assignment call on the CPU.
       rng: anchor-sampling generator (``np.random.default_rng(0)`` when
         None, as in the reference, so both pick the same anchors).
 
@@ -373,60 +437,20 @@ def knn_graph_anchored(X, *, k: int, metric: str = "euclidean",
     """
     check_metric(metric)
     Xt = _as_tensor(X, torch.float32).contiguous()
-    dev = Xt.device
     n = Xt.shape[0]
-    c = anchors if anchors is not None else max(32, int(round(math.sqrt(n))))
-    c = min(c, n)
-    probes = max(1, min(probes, c))
-    rng = rng if rng is not None else np.random.default_rng(0)
-    aidx = rng.choice(n, size=c, replace=False)
-    A = Xt.index_select(0, torch.as_tensor(aidx, device=dev))
-    anchor_ids = torch.arange(c, device=dev)
+    cells = anchor_cells(Xt, metric=metric, anchors=anchors, probes=probes,
+                         assign_block=assign_block, rng=rng)
+    gd, gi = kops.knn_topk_segmented(
+        Xt.index_select(0, cells.query), Xt.index_select(0, cells.members),
+        cells.query, cells.members, cells.qoff, cells.coff, k=k,
+        metric=metric)
+    part_d = torch.empty_like(gd)
+    part_i = torch.empty_like(gi)
+    part_d[cells.pairs] = gd                # row p = point * probes + probe
+    part_i[cells.pairs] = torch.where(torch.isfinite(gd), gi, -1)
 
-    probe_idx = torch.empty((n, probes), dtype=torch.int64, device=dev)
-    for s0 in range(0, n, assign_block):
-        xb = Xt[s0:s0 + assign_block]
-        no_id = torch.full((xb.shape[0],), -1, dtype=torch.int64, device=dev)
-        _, pid = kops.knn_topk(xb, A, no_id, anchor_ids, k=probes,
-                               metric=metric)
-        probe_idx[s0:s0 + xb.shape[0]] = pid
-    probe_np = probe_idx.cpu().numpy()
-
-    # CSR views: candidates by primary cell, queries by each probe slot.
-    primary = probe_np[:, 0]
-    by_cell = np.argsort(primary, kind="stable")
-    start = np.concatenate([[0],
-                            np.cumsum(np.bincount(primary, minlength=c))])
-    q_order = [np.argsort(probe_np[:, s], kind="stable")
-               for s in range(probes)]
-    q_start = [np.concatenate(
-        [[0], np.cumsum(np.bincount(probe_np[:, s], minlength=c))])
-        for s in range(probes)]
-    by_cell_t = torch.as_tensor(by_cell, device=dev)
-    q_order_t = [torch.as_tensor(o, device=dev) for o in q_order]
-
-    part_d = torch.full((n, probes, k), torch.inf, device=dev)
-    part_i = torch.full((n, probes, k), -1, dtype=torch.int64, device=dev)
-    for g in range(c):
-        if start[g + 1] == start[g]:
-            continue
-        cand = by_cell_t[start[g]:start[g + 1]]
-        qs = [q_order_t[s][q_start[s][g]:q_start[s][g + 1]]
-              for s in range(probes)]
-        q = torch.cat(qs)
-        if q.numel() == 0:
-            continue
-        slot = torch.cat([torch.full((x.numel(),), s, dtype=torch.int64,
-                                     device=dev) for s, x in enumerate(qs)])
-        kk = min(k, cand.numel())
-        gd, gi = kops.knn_topk(Xt.index_select(0, q),
-                               Xt.index_select(0, cand), q, cand, k=kk,
-                               metric=metric)
-        part_d[q, slot, :kk] = gd
-        part_i[q, slot, :kk] = torch.where(torch.isfinite(gd), gi, -1)
-
-    flat_d = part_d.reshape(n, probes * k)
-    flat_i = part_i.reshape(n, probes * k)
+    flat_d = part_d.reshape(n, -1)
+    flat_i = part_i.reshape(n, -1)
     sel = torch.argsort(flat_d, dim=1, stable=True)[:, :k]
     return flat_d.gather(1, sel), flat_i.gather(1, sel)
 

@@ -4,8 +4,10 @@ The three stages of the paper, as in ``repro/core/vat.py``:
 
   1. pairwise dissimilarity  -> ``kernels.ops.pairwise_dist`` (the CUDA
                                 tile kernel on the card)
-  2. Prim MST reordering     -> ``vat_order``: a Python loop over device
-                                tensors, one masked-argmin kernel per step
+  2. Prim MST reordering     -> ``vat_order``: ``kernels.ops.
+                                vat_prim_order``, the whole traversal in
+                                one launch on the card (the loop of masked
+                                argmins on the CPU)
   3. matrix reordering       -> two gathers, ``reorder``
 
 and the matrix-free (Flash-VAT) ordering of the ``flashvat`` rung,
@@ -13,17 +15,16 @@ and the matrix-free (Flash-VAT) ordering of the ``flashvat`` rung,
 the whole Prim traversal without the (n, n) matrix — the persistent kernel
 (``turbo=True``) or one fused step kernel per vertex (``turbo=False``).
 
-Everything stays on the input's device.  The Prim loop never reads a value
-back to the host: the selected vertex is a 0-d device tensor, rows are
-taken with ``index_select``, so n - 1 steps enqueue without a sync.
+Everything stays on the input's device, and no step of an ordering reads
+a value back to the host.
 
 The batched forms (``vat_batch``, ``vat_batch_from_dist``,
 ``vat_matrix_free_batch``) assess a (b, n, d) stack in the same number of
 launches as one dataset: the lane is an axis of every kernel, never a
 Python loop, except the flashvat seed scan, which runs per lane (about
-17 ms a lane at n = 50,000 on an H100, beside a 7 s traversal).  Each
-lane's result equals the single call on that lane bit for bit, on either
-device.
+17 ms a lane at n = 50,000 on an H100, beside a traversal of about
+0.2 s a lane).  Each lane's result equals the single call on that lane bit
+for bit, on either device.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.prim_persist import DEFAULT_BLOCK
+from repro_torch.kernels.ref import vat_prim_order_ref
 
 
 class VATResult(NamedTuple):
@@ -51,12 +53,13 @@ def vat_order(R: torch.Tensor, *,
     """Prim-based VAT ordering of a dissimilarity matrix.
 
     Args:
-      R: (n, n) float — symmetric dissimilarity matrix, zero diagonal.
-      argmin: the masked argmin each step calls — ``(vals, mask) ->
-        (min, index)`` as 0-d tensors; None means ``kernels.ops.
-        masked_argmin`` (the CUDA kernel for a CUDA matrix).  A check can
-        pass ``kernels.ref.masked_argmin_ref`` to run the plain version on
-        the same matrix.
+      R: (n, n) float32 — symmetric dissimilarity matrix, zero diagonal.
+      argmin: None runs ``kernels.ops.vat_prim_order`` (one launch of the
+        Prim kernel for a CUDA matrix).  A masked argmin ``(vals (1, n),
+        mask) -> (min (1,), index (1,))`` instead runs the loop of
+        ``kernels.ref.vat_prim_order_ref`` with it, one call a step: a
+        check can pass ``kernels.ref.masked_argmin_ref`` to run the plain
+        version on the same matrix.
 
     Returns:
       (n,) int64 permutation — the VAT visit order: the first vertex is the
@@ -65,21 +68,10 @@ def vat_order(R: torch.Tensor, *,
       row with the same maximum, so this tie rule always decides the
       seed), then greedy min-edge growth with first-index tie-breaking.
     """
-    argmin = kops.masked_argmin if argmin is None else argmin
-    n = R.shape[0]
     i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
-    order = torch.empty(n, dtype=torch.int64, device=R.device)
-    order[0] = i0[0]
-    selected = torch.zeros(n, dtype=torch.bool, device=R.device)
-    selected.index_fill_(0, i0, True)
-    mind = R.index_select(0, i0)[0].clone()
-    for t in range(1, n):
-        _, q = argmin(mind, selected)
-        q = q.view(1)
-        order[t] = q[0]
-        selected.index_fill_(0, q, True)
-        torch.minimum(mind, R.index_select(0, q)[0], out=mind)
-    return order
+    if argmin is None:
+        return kops.vat_prim_order(R, i0)
+    return vat_prim_order_ref(R, i0, argmin=argmin)
 
 
 def reorder(R: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -88,32 +80,16 @@ def reorder(R: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 
 def vat_order_batch(R: torch.Tensor) -> torch.Tensor:
-    """``vat_order`` of every lane of a (b, n, n) stack, in one loop.
-
-    Each step is one (b, n) masked argmin (one launch on the card for the
-    whole stack), then the order write, the selection mark, the pivot rows'
-    gather and the min fold, each one op over all lanes: the same five
-    launches a step as the single loop, not five per lane.  Every lane runs
-    the single loop's operations on its own rows, so it gets its order bit
-    for bit.
+    """``vat_order`` of every lane of a (b, n, n) stack: one launch of the
+    Prim kernel for the whole stack on the card (one CTA a lane), the loop
+    of (b, n) masked argmins on the CPU.  Every lane gets the order of
+    ``vat_order`` on its matrix, bit for bit.
 
     Returns:
       (b, n) int64 — lane z's VAT visit order.
     """
-    b, n, _ = R.shape
     i0 = torch.argmax(torch.amax(R, dim=2), dim=1)          # (b,)
-    order = torch.empty((b, n), dtype=torch.int64, device=R.device)
-    order[:, 0] = i0
-    selected = torch.zeros((b, n), dtype=torch.bool, device=R.device)
-    selected.scatter_(1, i0.view(b, 1), True)
-    mind = torch.gather(R, 1, i0.view(b, 1, 1).expand(b, 1, n))[:, 0]
-    for t in range(1, n):
-        _, q = kops.masked_argmin(mind, selected)
-        order[:, t] = q
-        selected.scatter_(1, q.view(b, 1), True)
-        torch.minimum(mind, torch.gather(
-            R, 1, q.view(b, 1, 1).expand(b, 1, n))[:, 0], out=mind)
-    return order
+    return kops.vat_prim_order(R, i0)
 
 
 def reorder_batch(R: torch.Tensor, order: torch.Tensor) -> torch.Tensor:

@@ -41,6 +41,9 @@ SIGNATURES = {
     # vals, mask, b, n, partial, out, stream
     "repro_masked_argmin": (_P, _P, _I, _I, _P, _P, _P),
     "repro_masked_argmin_chunk": (),
+    # R, i0, b, n, shared, gmind, gsel, order, stream
+    "repro_vat_prim_order": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "repro_vat_prim_shared_max_n": (),
     "repro_cuda_error_string": (_I,),
     # rstar, out, b, n, stream
     "repro_ivat_from_vat": (_P, _P, _I, _I, _P),
@@ -69,17 +72,25 @@ SIGNATURES = {
                        _P),
     # X, aux, ids, b, n, d, k, kind, out_d, out_i, stream
     "repro_knn_topk_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # Xq, Xc, aq, ac, qid, cid, qoff, coff, boff, c, nblocks, d, k, kind,
+    # out_d, out_i, stream
+    "repro_knn_topk_segmented": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _P, _P, _P),
     "repro_knn_max_k": (),
+    "repro_knn_block_rows": (),
 }
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts``.  A
-#: lane axis launches once for the whole batch: ``masked_argmin`` and
-#: ``prim_persist`` count (b, n) calls under their own names, the batched
-#: entries of the other kernels under ``*_batch``.
+#: lane axis launches once for the whole batch: ``masked_argmin``,
+#: ``vat_prim_order`` and ``prim_persist`` count (b, ...) calls under their
+#: own names, the batched entries of the other kernels under ``*_batch``;
+#: ``knn_graph_segmented`` counts the launches that run every cell of an
+#: anchored kNN search at once.
 LAUNCHES = {"pairwise_dist": 0, "masked_argmin": 0, "ivat_from_vat": 0,
             "prim_persist": 0, "prim_stream_step": 0, "knn_graph": 0,
             "pairwise_dist_batch": 0, "prim_stream_step_batch": 0,
-            "knn_graph_batch": 0, "prim_frontier_step": 0}
+            "knn_graph_batch": 0, "prim_frontier_step": 0,
+            "vat_prim_order": 0, "knn_graph_segmented": 0}
 
 #: Most lanes one batched launch takes: the lane is a grid axis
 #: (``blockIdx.y`` or ``blockIdx.z``), whose extent CUDA caps at 65,535.
@@ -94,6 +105,13 @@ MASKED_ARGMIN_CHUNK = 0
 #: Lanes one CTA of ``repro_prim_stream_step`` covers (prim_stream.cu), read
 #: once with the library.
 PRIM_STREAM_LANES = 0
+
+#: Largest n whose Prim frontier ``repro_vat_prim_order`` keeps in shared
+#: memory, and the query rows of one CTA of the kNN kernel (a segmented
+#: call's work list counts ceil(q / rows) CTAs a cell); read with the
+#: library.
+VAT_PRIM_SHARED_MAX_N = 0
+KNN_BLOCK_ROWS = 0
 
 
 def reset_launch_counts() -> None:
@@ -183,6 +201,7 @@ def build() -> pathlib.Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), argtypes set."""
     global _LIB, MASKED_ARGMIN_CHUNK, PRIM_STREAM_LANES
+    global VAT_PRIM_SHARED_MAX_N, KNN_BLOCK_ROWS
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
@@ -192,6 +211,8 @@ def library() -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         MASKED_ARGMIN_CHUNK = lib.repro_masked_argmin_chunk()
         PRIM_STREAM_LANES = lib.repro_prim_stream_lanes()
+        VAT_PRIM_SHARED_MAX_N = lib.repro_vat_prim_shared_max_n()
+        KNN_BLOCK_ROWS = lib.repro_knn_block_rows()
         _LIB = lib
     return _LIB
 

@@ -15,6 +15,9 @@ k > ``MAX_K``, chosen by k before any launch.
 
 ``knn_graph_batch_cuda`` is the port of ``knn_graph_pallas_batch``: the
 kNN graph of each lane of a (b, n, d) stack in one launch.
+
+``knn_topk_segmented_cuda`` runs many independent query/candidate problems
+(the anchored search's cells) in one launch of the same kernel.
 """
 from __future__ import annotations
 
@@ -92,6 +95,70 @@ def knn_topk_cuda(Xq: torch.Tensor, Xc: torch.Tensor, qid: torch.Tensor,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "knn_graph")
     _build.LAUNCHES["knn_graph"] += 1
+    return dist, idx
+
+
+def knn_topk_segmented_cuda(Xq: torch.Tensor, Xc: torch.Tensor,
+                            qid: torch.Tensor, cid: torch.Tensor,
+                            qoff: torch.Tensor, coff: torch.Tensor, *, k: int,
+                            metric: str = "euclidean"):
+    """``knn_topk_cuda`` of every segment at once: one launch, one aux
+    pre-pass over Xq and one over Xc.
+
+    Segment g is the problem ``knn_topk_cuda(Xq[qoff[g]:qoff[g+1]],
+    Xc[coff[g]:coff[g+1]], qid[...], cid[...])``; the kernel's work list
+    gives it ceil(q_g / ``_build.KNN_BLOCK_ROWS``) CTAs.  A list is a
+    function of its row's candidate keys alone, so each segment's rows are
+    that call's bits; a segment with no candidates, or fewer valid ones
+    than k, fills the rest with (+inf, -1).
+
+    Args:
+      Xq: (Q, d) contiguous float32 CUDA tensor — every segment's queries,
+        segment by segment; qid (Q,) int64 their ids.
+      Xc: (C, d) like Xq — every segment's candidates; cid (C,) int64, each
+        below 2^32, < 0 marks padding.
+      qoff, coff: (c + 1,) int64 offsets on the card, from 0 to Q and to C.
+      k: neighbours per query, 1 <= k <= ``MAX_K``.
+      metric: one of ``kernels.ref.METRICS`` (gram form).
+
+    Returns:
+      (dist (Q, k) f32, idx (Q, k) int64), row i the list of query i.
+    """
+    _check_inputs(Xq, Xc, qid, cid, k, metric)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the kNN kernel keeps 1 <= k <= {MAX_K} "
+                         f"neighbours, got k={k}")
+    for t, name in ((qoff, "qoff"), (coff, "coff")):
+        check_cuda(t, name)
+        if t.dtype != torch.int64 or t.dim() != 1 or t.numel() < 2:
+            raise ValueError(f"{name} must be (c + 1,) int64 with c >= 1, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if qoff.shape != coff.shape:
+        raise ValueError(f"qoff and coff differ in length: "
+                         f"{tuple(qoff.shape)} and {tuple(coff.shape)}")
+    nq, d = Xq.shape
+    c = qoff.numel() - 1
+    lib = _build.library()
+    rows = _build.KNN_BLOCK_ROWS
+    blocks = torch.div(qoff[1:] - qoff[:-1] + rows - 1, rows,
+                       rounding_mode="floor")
+    boff = torch.cat([blocks.new_zeros(1), torch.cumsum(blocks, 0)]).to(
+        torch.int32)
+    nblocks = int(boff[-1])
+    aq = ac = None
+    if metric != "manhattan":
+        aq = metric_aux_cuda(Xq, metric=metric)
+        ac = metric_aux_cuda(Xc, metric=metric)
+    dist = torch.empty((nq, k), dtype=torch.float32, device=Xq.device)
+    idx = torch.empty((nq, k), dtype=torch.int64, device=Xq.device)
+    err = lib.repro_knn_topk_segmented(
+        Xq.data_ptr(), Xc.data_ptr(), 0 if aq is None else aq.data_ptr(),
+        0 if ac is None else ac.data_ptr(), qid.data_ptr(), cid.data_ptr(),
+        qoff.data_ptr(), coff.data_ptr(), boff.data_ptr(), c, nblocks, d, k,
+        _KINDS[metric], dist.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "knn_graph_segmented")
+    _build.LAUNCHES["knn_graph_segmented"] += 1
     return dist, idx
 
 

@@ -12,8 +12,8 @@ each kernel was launched since ``reset_launch_counts()``.
 
 Batched fits (``fit_many``) take the same wrappers with a leading lane axis:
 ``pairwise_dist_batch`` and ``knn_graph_batch`` for (b, n, d) stacks, and
-``masked_argmin``, ``metric_aux``, ``prim_stream_step`` and
-``prim_persist`` on (b, ...) operands.  Every lane's result equals the call
+``masked_argmin``, ``vat_prim_order``, ``metric_aux``, ``prim_stream_step``
+and ``prim_persist`` on (b, ...) operands.  Every lane's result equals the call
 on that lane alone, bit for bit, on either device.
 """
 from __future__ import annotations
@@ -24,7 +24,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
 from repro_torch.kernels.knn_graph import (MAX_K, knn_graph_batch_cuda,
-                                          knn_topk_blocked, knn_topk_cuda)
+                                          knn_topk_blocked, knn_topk_cuda,
+                                          knn_topk_segmented_cuda)
 from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
                                               pairwise_dist_batch_cuda,
                                               pairwise_dist_cuda)
@@ -32,12 +33,14 @@ from repro_torch.kernels.prim_persist import DEFAULT_BLOCK, prim_persist_cuda
 from repro_torch.kernels.prim_stream import (prim_frontier_step_cuda,
                                             prim_stream_step_batch_cuda,
                                             prim_stream_step_cuda)
-from repro_torch.kernels.prim_update import masked_argmin_cuda
+from repro_torch.kernels.prim_update import (masked_argmin_cuda,
+                                             vat_prim_order_cuda)
 
 __all__ = ["pairwise_dist", "pairwise_dist_batch", "masked_argmin",
-           "ivat_from_vat", "metric_aux", "prim_persist", "prim_stream_step",
-           "prim_frontier_step", "knn_topk", "knn_graph", "knn_graph_batch",
-           "MAX_K", "launch_counts", "reset_launch_counts"]
+           "vat_prim_order", "ivat_from_vat", "metric_aux", "prim_persist",
+           "prim_stream_step", "prim_frontier_step", "knn_topk",
+           "knn_topk_segmented", "knn_graph", "knn_graph_batch", "MAX_K",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _dispatch_site(op: str, device: torch.device) -> None:
@@ -108,6 +111,27 @@ def masked_argmin(vals: torch.Tensor, mask: torch.Tensor):
     if vals.is_cuda:
         return masked_argmin_cuda(vals, mask)
     return ref.masked_argmin_ref(vals, mask)
+
+
+def vat_prim_order(R: torch.Tensor, i0: torch.Tensor) -> torch.Tensor:
+    """Prim's VAT order of a dissimilarity matrix from seed ``i0``.
+
+    On the card one launch of the Prim kernel (one CTA a matrix, the
+    frontier on chip); on the CPU ``ref.vat_prim_order_ref``, the loop of
+    ``masked_argmin`` steps, whose order the kernel gives bit for bit.
+
+    Args:
+      R: (n, n) float32, or a (b, n, n) stack (one launch for the stack).
+      i0: int64 seed (one element), or (b,) seeds for a stack.
+
+    Returns:
+      (n,) int64 visit order, or (b, n); greedy min-edge growth with
+      first-index tie-breaking.
+    """
+    _dispatch_site("vat_prim_order", R.device)
+    if R.is_cuda:
+        return vat_prim_order_cuda(R, i0)
+    return ref.vat_prim_order_ref(R, i0)
 
 
 def ivat_from_vat(rstar: torch.Tensor) -> torch.Tensor:
@@ -269,6 +293,45 @@ def knn_topk(Xq: torch.Tensor, Xc: torch.Tensor, qid: torch.Tensor,
     if k <= MAX_K:
         return knn_topk_cuda(Xq, Xc, qid, cid, k=k, metric=metric)
     return knn_topk_blocked(Xq, Xc, qid, cid, k=k, metric=metric)
+
+
+def knn_topk_segmented(Xq: torch.Tensor, Xc: torch.Tensor,
+                       qid: torch.Tensor, cid: torch.Tensor,
+                       qoff: torch.Tensor, coff: torch.Tensor, *, k: int,
+                       metric: str = "euclidean"):
+    """``knn_topk`` of many independent segments: segment g's queries
+    ``Xq[qoff[g]:qoff[g+1]]`` (ids ``qid``) against its candidates
+    ``Xc[coff[g]:coff[g+1]]`` (ids ``cid``).
+
+    On the card ``k <= MAX_K`` is one launch of the kNN kernel for every
+    segment and ``k > MAX_K`` takes ``knn_topk_blocked`` segment by
+    segment, the rule on k of ``knn_topk``, chosen before any launch.  On
+    the CPU: ``ref.knn_topk_segmented_ref``.
+
+    Args:
+      Xq: (Q, d) float32 — the segments' queries, segment by segment.
+      Xc: (C, d) float32 — the segments' candidates.
+      qid: (Q,) int64; cid: (C,) int64 (< 0 marks padding).
+      qoff, coff: (c + 1,) int64 offsets on Xq's device, from 0 to Q and C.
+      k: neighbours per query (>= 1).
+      metric: one of ``ref.METRICS`` (gram form always).
+
+    Returns:
+      (dist (Q, k) f32, idx (Q, k) int64): row i equals ``knn_topk`` of
+      query i against its segment's candidates, bit for bit; a segment with
+      no candidates, or fewer valid ones than k, leaves (+inf, -1) slots.
+    """
+    _dispatch_site("knn_graph_segmented", Xq.device)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if not Xq.is_cuda:
+        return ref.knn_topk_segmented_ref(Xq, Xc, qid, cid, qoff, coff, k=k,
+                                          metric=metric)
+    if k <= MAX_K:
+        return knn_topk_segmented_cuda(Xq, Xc, qid, cid, qoff, coff, k=k,
+                                       metric=metric)
+    return ref.knn_topk_segmented_ref(Xq, Xc, qid, cid, qoff, coff, k=k,
+                                      metric=metric, topk=knn_topk_blocked)
 
 
 def knn_graph(X: torch.Tensor, *, k: int, metric: str = "euclidean"):

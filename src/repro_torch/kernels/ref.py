@@ -468,6 +468,45 @@ def masked_argmin_ref(vals: torch.Tensor, mask: torch.Tensor):
     return masked.gather(-1, idx.unsqueeze(-1)).squeeze(-1), idx
 
 
+def vat_prim_order_ref(R: torch.Tensor, i0: torch.Tensor, *,
+                       argmin=None) -> torch.Tensor:
+    """Prim's VAT order of R from seed i0 — the plain version of the
+    one-launch Prim kernel, and the CPU path.
+
+    A loop over device tensors: each step one masked argmin of the
+    frontier, the order write, the selection mark, the pivot row's gather
+    and the min fold.  The selected vertex stays a device tensor, so no
+    step waits on the host.  A (b, n, n) stack runs every lane in the same
+    loop, one op over all lanes a step; each lane gets its own order bit
+    for bit (a min and an argmin involve no rounding).
+
+    Args:
+      R: (n, n) or (b, n, n) float — dissimilarity matrix or stack.
+      i0: the seed (one element) or seeds (b,), int64.
+      argmin: the masked argmin of each step, ``(vals (b, n), mask) ->
+        (min (b,), index (b,))``; None means ``masked_argmin_ref``.
+
+    Returns:
+      (n,) int64 order, or (b, n) for a stack.
+    """
+    argmin = masked_argmin_ref if argmin is None else argmin
+    Rb = R[None] if R.dim() == 2 else R
+    b, n, _ = Rb.shape
+    i0 = i0.reshape(b)
+    order = torch.empty((b, n), dtype=torch.int64, device=R.device)
+    order[:, 0] = i0
+    selected = torch.zeros((b, n), dtype=torch.bool, device=R.device)
+    selected.scatter_(1, i0.view(b, 1), True)
+    mind = torch.gather(Rb, 1, i0.view(b, 1, 1).expand(b, 1, n))[:, 0]
+    for t in range(1, n):
+        _, q = argmin(mind, selected)
+        order[:, t] = q
+        selected.scatter_(1, q.view(b, 1), True)
+        torch.minimum(mind, torch.gather(
+            Rb, 1, q.view(b, 1, 1).expand(b, 1, n))[:, 0], out=mind)
+    return order if R.dim() == 3 else order[0]
+
+
 def ivat_from_vat_ref(rstar: torch.Tensor) -> torch.Tensor:
     """iVAT geodesic transform of a VAT-ordered (n, n) matrix.
 
@@ -599,6 +638,34 @@ def knn_topk_ref(Xq: torch.Tensor, Xc: torch.Tensor, qid: torch.Tensor,
         qid[r0:r0 + b], cid, k) for r0 in range(0, Xq.shape[0], b)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
+
+
+def knn_topk_segmented_ref(Xq: torch.Tensor, Xc: torch.Tensor,
+                           qid: torch.Tensor, cid: torch.Tensor,
+                           qoff: torch.Tensor, coff: torch.Tensor, *, k: int,
+                           metric: str = "euclidean", topk=None):
+    """``knn_topk_ref`` of every segment — the segmented kernel's plain
+    version: segment g is its queries ``qoff[g]:qoff[g+1]`` against its
+    candidates ``coff[g]:coff[g+1]``; a segment with no candidates leaves
+    (+inf, -1) in every slot of its rows.  ``topk`` replaces
+    ``knn_topk_ref`` as the per-segment call (the card's blocked route for
+    k > ``MAX_K`` passes ``knn_topk_blocked``).
+
+    Returns:
+      (dist (Q, k) f32, idx (Q, k) int64), Q = ``qoff[-1]``.
+    """
+    check_metric(metric)
+    topk = knn_topk_ref if topk is None else topk
+    qo, co = qoff.tolist(), coff.tolist()
+    dist = torch.full((qo[-1], k), torch.inf, device=Xq.device)
+    idx = torch.full((qo[-1], k), -1, dtype=torch.int64, device=Xq.device)
+    for g in range(len(qo) - 1):
+        q0, q1, c0, c1 = qo[g], qo[g + 1], co[g], co[g + 1]
+        if q1 > q0 and c1 > c0:
+            dist[q0:q1], idx[q0:q1] = topk(
+                Xq[q0:q1], Xc[c0:c1], qid[q0:q1], cid[c0:c1], k=k,
+                metric=metric)
+    return dist, idx
 
 
 def knn_graph_ref(X: torch.Tensor, *, k: int, metric: str = "euclidean"):

@@ -248,20 +248,30 @@ def test_anchored_graph_matches_reference_on_integer_data():
 
 def test_anchored_knn_never_materializes_nxn(monkeypatch):
     """Every query/candidate block of the anchored search is at most
-    (assign_block, anchors) or one cell: nothing (n, n)."""
+    (assign_block, anchors) or one cell: nothing (n, n).  The cells are one
+    segmented call; its segments are recorded one by one."""
     n, ab = 5_000, 1_024
     X, _ = _blobs(n, k=3, seed=5)
-    shapes = []
-    real = ops.knn_topk
+    shapes, segments = [], []
+    real, real_segmented = ops.knn_topk, ops.knn_topk_segmented
 
     def recording(Xq, Xc, qid, cid, **kw):
         shapes.append((Xq.shape[0], Xc.shape[0]))
         return real(Xq, Xc, qid, cid, **kw)
 
+    def recording_segmented(Xq, Xc, qid, cid, qoff, coff, **kw):
+        segments.extend(zip(torch.diff(qoff).tolist(),
+                            torch.diff(coff).tolist()))
+        return real_segmented(Xq, Xc, qid, cid, qoff, coff, **kw)
+
     monkeypatch.setattr(ops, "knn_topk", recording)
+    monkeypatch.setattr(ops, "knn_topk_segmented", recording_segmented)
     dist, idx = core.knn_graph_anchored(X, k=6, assign_block=ab)
     assert dist.shape == (n, 6) and dist.dtype == torch.float32
     assert shapes and all(r <= ab and c < n for r, c in shapes), shapes
+    assert len(segments) == 71                    # round(sqrt(5,000)) cells
+    assert sum(q for q, _ in segments) == 2 * n   # two probes a point
+    assert all(q < n and c < n for q, c in segments), segments
     assert (torch.isfinite(dist) & (idx >= 0)).float().mean() > 0.95
 
 

@@ -25,7 +25,8 @@ from repro_torch.core.vat import _streamed_seed_pivot, vat, vat_order
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
 from repro_torch.kernels.knn_graph import (MAX_K, knn_graph_batch_cuda,
-                                          knn_topk_blocked, knn_topk_cuda)
+                                          knn_topk_blocked, knn_topk_cuda,
+                                          knn_topk_segmented_cuda)
 from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
                                               pairwise_dist_batch_cuda,
                                               pairwise_dist_cuda)
@@ -33,7 +34,8 @@ from repro_torch.kernels.prim_persist import prim_persist_cuda
 from repro_torch.kernels.prim_stream import (prim_frontier_step_cuda,
                                             prim_stream_step_batch_cuda,
                                             prim_stream_step_cuda)
-from repro_torch.kernels.prim_update import masked_argmin_cuda
+from repro_torch.kernels.prim_update import (masked_argmin_cuda,
+                                             vat_prim_order_cuda)
 
 F32_EPS = float(np.finfo(np.float32).eps)
 FORMS = ("gram", "direct")
@@ -138,7 +140,7 @@ def test_cuda_fit_launches_every_kernel(cuda):
     _build.reset_launch_counts()
     fv = FastVAT(method="ivat").fit(X)
     assert _build.launch_counts() == {"pairwise_dist": 1,
-                                      "masked_argmin": 199,
+                                      "masked_argmin": 0,
                                       "ivat_from_vat": 1,
                                       "prim_persist": 0,
                                       "prim_stream_step": 0,
@@ -146,7 +148,9 @@ def test_cuda_fit_launches_every_kernel(cuda):
                                       "pairwise_dist_batch": 0,
                                       "prim_stream_step_batch": 0,
                                       "knn_graph_batch": 0,
-                                      "prim_frontier_step": 0}
+                                      "prim_frontier_step": 0,
+                                      "vat_prim_order": 1,
+                                      "knn_graph_segmented": 0}
     assert fv.result.meta.device.startswith("cuda")
     assert fv.result.order.is_cuda and fv.result.ivat_image.is_cuda
     rep = fv.assess()
@@ -325,7 +329,8 @@ def test_cuda_flashvat_fit_launches_its_kernels(cuda):
     counts = _build.launch_counts()
     assert fv.method_resolved == "flashvat"
     assert counts["prim_persist"] == 1 and counts["prim_stream_step"] == 0
-    assert counts["masked_argmin"] == 255 and counts["ivat_from_vat"] == 1
+    assert counts["vat_prim_order"] == 1 and counts["masked_argmin"] == 0
+    assert counts["ivat_from_vat"] == 1
     assert counts["pairwise_dist"] == 4 + 1   # 2 x 2 seed blocks + render
     step = FastVAT(method="flashvat", turbo=False).fit(X)
     np.testing.assert_array_equal(step.order(), fv.order())
@@ -399,6 +404,149 @@ def test_cuda_knn_kernel_query_candidate_form(cuda, metric):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 8, 17, 64, 65])
+def test_cuda_knn_kernel_tile_edges(cuda, d):
+    """The exact graph == the pairwise kernel's sorted rows where the tile
+    engine has edges: n not a multiple of the 128 x 64 tile, every staging
+    depth (d <= 8, <= 16, above, ragged past a chunk), both copy widths
+    (an aligned base with d % 4 == 0 takes 16-byte copies; the same points
+    one float off alignment take 4-byte ones), k in {1, 15, 128}."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n = 333
+    X = torch.randn(n, d, device=cuda, generator=gen)
+    Xo = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
+    Xo.copy_(X)
+    ids = torch.arange(n, device=cuda)
+    for k in (1, 15, 128):
+        want = _plain_knn(X, X, ids, ids, k, "euclidean")
+        _assert_same_lists(knn_topk_cuda(X, X, ids, ids, k=k), want)
+        _assert_same_lists(knn_topk_cuda(Xo, Xo, ids, ids, k=k), want)
+
+
+def _segments(gen, device, d):
+    """Segments of a segmented kNN call: a cell with queries and no
+    candidates, one with candidates and no queries, cells with fewer
+    candidates than 15 and with several tiles of them, queries that are
+    their own candidates, padded candidates and sentinel query ids."""
+    sizes = [(40, 0), (0, 30), (25, 3), (300, 14), (131, 200), (9, 1),
+             (700, 450)]
+    qoff = torch.tensor([0] + np.cumsum([q for q, _ in sizes]).tolist(),
+                        device=device)
+    coff = torch.tensor([0] + np.cumsum([c for _, c in sizes]).tolist(),
+                        device=device)
+    Xc = torch.randn(int(coff[-1]), d, device=device, generator=gen)
+    cid = torch.randperm(100_000, device=device, generator=gen)[:Xc.shape[0]]
+    cid[::11] = -1
+    Xq = torch.randn(int(qoff[-1]), d, device=device, generator=gen)
+    qid = torch.randperm(100_000, device=device, generator=gen)[:Xq.shape[0]]
+    qid[::5] = -1
+    for g, (q, c) in enumerate(sizes):
+        q0, c0, own = int(qoff[g]), int(coff[g]), min(q, c) // 2
+        Xq[q0:q0 + own] = Xc[c0:c0 + own]
+        qid[q0:q0 + own] = cid[c0:c0 + own]
+    return Xq, Xc, qid, cid, qoff, coff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_knn_segmented_equals_per_cell_kernel(cuda, metric):
+    """One segmented launch == the kNN kernel cell by cell, bit for bit, at
+    d = 8 (one staging pass) and d = 13 (4-byte copies); an empty cell's
+    rows and the slots a short cell cannot fill hold (+inf, -1)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for d in (8, 13):
+        Xq, Xc, qid, cid, qoff, coff = _segments(gen, cuda, d)
+        for k in (1, 15, 128):
+            _build.reset_launch_counts()
+            got = knn_topk_segmented_cuda(Xq, Xc, qid, cid, qoff, coff, k=k,
+                                          metric=metric)
+            assert _build.launch_counts()["knn_graph_segmented"] == 1
+            _assert_same_lists(ops.knn_topk_segmented(
+                Xq, Xc, qid, cid, qoff, coff, k=k, metric=metric), got)
+            for g in range(qoff.numel() - 1):
+                q0, q1 = int(qoff[g]), int(qoff[g + 1])
+                c0, c1 = int(coff[g]), int(coff[g + 1])
+                if q1 == q0:
+                    continue
+                rows = (got[0][q0:q1], got[1][q0:q1])
+                if c1 == c0:
+                    assert bool(torch.isinf(rows[0]).all())
+                    assert bool((rows[1] == -1).all())
+                    continue
+                _assert_same_lists(rows, knn_topk_cuda(
+                    Xq[q0:q1], Xc[c0:c1], qid[q0:q1], cid[c0:c1], k=k,
+                    metric=metric))
+
+
+@pytest.mark.cuda
+def test_cuda_anchored_graph_in_two_launches(cuda):
+    """The anchored search on the card: one assignment launch and one
+    segmented launch, and on integer data (every value exact in f32) the
+    CPU path's graph, bit for bit."""
+    rng = np.random.default_rng(3)
+    X = np.concatenate([rng.integers(-4, 5, size=(3000, 4)) + 40 * c
+                        for c in range(4)]).astype(np.float32)
+    _build.reset_launch_counts()
+    got = core.knn_graph_anchored(torch.from_numpy(X).to(cuda), k=9)
+    counts = _build.launch_counts()
+    assert counts["knn_graph"] == 1 and counts["knn_graph_segmented"] == 1
+    want = core.knn_graph_anchored(torch.from_numpy(X), k=9)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def _prim_matrices(device):
+    """Prim-order inputs: float blobs (the pairwise kernel's matrices),
+    tie-heavy squared distances of integer points with duplicates, and the
+    same with every zero off the diagonal of half the rows made -0.0."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    out = []
+    for n in (1, 2, 3, 129, 2048):
+        X = torch.from_numpy(_contig_blobs(n, d=5, seed=n)).to(device)
+        out.append(ops.pairwise_dist(X))
+        P = torch.randint(-2, 3, (n, 3), device=device, generator=gen).float()
+        R = torch.sum((P[:, None] - P[None]) ** 2, dim=-1)
+        out.append(R)
+        Rz = R.clone()
+        zero = (Rz == 0) & (torch.arange(n, device=device) % 2 == 0)[:, None]
+        Rz[zero] = -0.0
+        out.append(Rz)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frontier", ["shared", "global"])
+def test_cuda_vat_prim_order_equals_the_loop(cuda, frontier):
+    """The one-launch Prim kernel == the loop of plain masked argmins on the
+    same card matrix, bit for bit, with the frontier in shared memory and
+    in global scratch, rows holding both signed zeros included."""
+    for R in _prim_matrices(cuda):
+        i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
+        got = vat_prim_order_cuda(R, i0, frontier=frontier)
+        want = ref.vat_prim_order_ref(R, i0)
+        assert torch.equal(got, want), (R.shape, frontier)
+        assert torch.equal(vat_order(R), want)
+
+
+@pytest.mark.cuda
+def test_cuda_vat_prim_order_lanes_equal_solo(cuda):
+    """Eight lanes in one launch == their solo launches, bit for bit, and
+    vat_order_batch makes one launch a stack."""
+    mats = [m for m in _prim_matrices(cuda) if m.shape[0] == 129][:3]
+    stack = torch.stack([mats[z % 3] for z in range(8)])
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    stack[3:] += torch.rand(5, 129, 129, device=cuda, generator=gen).round()
+    i0 = torch.argmax(torch.amax(stack, dim=2), dim=1)
+    _build.reset_launch_counts()
+    lanes = core.vat_order_batch(stack)
+    assert _build.launch_counts()["vat_prim_order"] == 1
+    for z in range(8):
+        solo = vat_prim_order_cuda(stack[z].contiguous(), i0[z:z + 1])
+        assert torch.equal(lanes[z], solo)
+    assert torch.equal(lanes, ref.vat_prim_order_ref(stack, i0))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("connected", [True, False])
 def test_cuda_boruvka_equals_cpu_boruvka(cuda, connected):
     """The passes on the card and on the CPU, fed the same (idx, dist),
@@ -445,7 +593,8 @@ def test_cuda_approx_fit_launches_its_kernels(cuda):
     assert s.mode == "exact" and s.k == 15
     assert counts["knn_graph"] == 1 and counts["prim_persist"] == 0
     assert counts["prim_stream_step"] == 0
-    assert counts["masked_argmin"] == 255 and counts["ivat_from_vat"] == 1
+    assert counts["vat_prim_order"] == 1 and counts["masked_argmin"] == 0
+    assert counts["ivat_from_vat"] == 1
     # the band render, and the repair's one matrix if the graph split
     assert counts["pairwise_dist"] == 1 + (s.components > 1)
     assert fv.result.order.is_cuda
@@ -679,10 +828,11 @@ def test_cuda_fit_many_lanes_equal_solo_fits(cuda, method, turbo):
         assert counts["prim_stream_step_batch"] == (
             0 if turbo is None else n - 1)
         assert counts["pairwise_dist_batch"] == 1     # the render
-        assert counts["masked_argmin"] == 63 and counts["ivat_from_vat"] == 1
+        assert counts["vat_prim_order"] == 1 and counts["ivat_from_vat"] == 1
+        assert counts["masked_argmin"] == 0
     else:
         assert counts["pairwise_dist_batch"] == 1
-        assert counts["masked_argmin"] == n - 1
+        assert counts["vat_prim_order"] == 1 and counts["masked_argmin"] == 0
         assert counts["ivat_from_vat"] == (1 if method == "ivat" else 0)
     assert fv.result.order.is_cuda and fv.batched
     reps = fv.assess()

@@ -17,9 +17,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
-from repro_torch.kernels.knn_graph import knn_topk_cuda
+from repro_torch.kernels.knn_graph import (knn_topk_cuda,
+                                          knn_topk_segmented_cuda)
 from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
-from repro_torch.kernels.prim_update import masked_argmin_cuda
+from repro_torch.kernels.prim_update import (masked_argmin_cuda,
+                                             vat_prim_order_cuda)
 from repro_torch.numerics.condition import _quantize_bf16
 
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -156,7 +158,11 @@ def test_cpu_dispatch_launches_no_kernel():
     R = ops.pairwise_dist(X)
     ops.masked_argmin(R[0], torch.zeros(20, dtype=torch.bool))
     ops.ivat_from_vat(R)
+    ops.vat_prim_order(R, torch.tensor([0]))
     ops.knn_graph(X, k=3)
+    ids = torch.arange(20)
+    ops.knn_topk_segmented(X, X, ids, ids, torch.tensor([0, 20]),
+                           torch.tensor([0, 20]), k=3)
     assert _build.launch_counts() == {"pairwise_dist": 0,
                                       "masked_argmin": 0,
                                       "ivat_from_vat": 0,
@@ -166,7 +172,9 @@ def test_cpu_dispatch_launches_no_kernel():
                                       "pairwise_dist_batch": 0,
                                       "prim_stream_step_batch": 0,
                                       "knn_graph_batch": 0,
-                                      "prim_frontier_step": 0}
+                                      "prim_frontier_step": 0,
+                                      "vat_prim_order": 0,
+                                      "knn_graph_segmented": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -175,12 +183,67 @@ def test_cpu_dispatch_launches_no_kernel():
     lambda: ivat_from_vat_cuda(torch.zeros(4, 4)),
     lambda: knn_topk_cuda(torch.zeros(4, 2), torch.zeros(4, 2),
                           torch.arange(4), torch.arange(4), k=2),
-], ids=["pairwise_dist", "masked_argmin", "ivat_from_vat", "knn_graph"])
+    lambda: vat_prim_order_cuda(torch.zeros(4, 4), torch.tensor([0])),
+    lambda: knn_topk_segmented_cuda(
+        torch.zeros(4, 2), torch.zeros(4, 2), torch.arange(4),
+        torch.arange(4), torch.tensor([0, 4]), torch.tensor([0, 4]), k=2),
+], ids=["pairwise_dist", "masked_argmin", "ivat_from_vat", "knn_graph",
+        "vat_prim_order", "knn_graph_segmented"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises; it never computes on the
     CPU itself."""
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         call()
+
+
+def _segments(seed, d):
+    """Seven segments of a segmented kNN call: an empty cell (queries, no
+    candidates), a cell with no queries, cells with fewer candidates than
+    15, queries that are their own candidates, padded candidates and a
+    sentinel query id."""
+    rng = np.random.default_rng(seed)
+    sizes = [(40, 0), (0, 30), (25, 3), (50, 14), (31, 60), (9, 1), (70, 45)]
+    qoff = np.concatenate([[0], np.cumsum([q for q, _ in sizes])])
+    coff = np.concatenate([[0], np.cumsum([c for _, c in sizes])])
+    Xc = rng.integers(-6, 7, size=(coff[-1], d)).astype(np.float32)
+    cid = rng.permutation(10_000)[:coff[-1]].astype(np.int64)
+    cid[::11] = -1                                  # padded candidates
+    Xq = rng.integers(-6, 7, size=(qoff[-1], d)).astype(np.float32)
+    qid = rng.permutation(10_000)[:qoff[-1]].astype(np.int64)
+    qid[::5] = -1                                   # sentinel queries
+    for g, (q, c) in enumerate(sizes):              # own-candidate queries
+        for i in range(min(q, c) // 2):
+            Xq[qoff[g] + i] = Xc[coff[g] + i]
+            qid[qoff[g] + i] = cid[coff[g] + i]
+    return [torch.from_numpy(a) for a in (Xq, Xc, qid, cid, qoff, coff)]
+
+
+@pytest.mark.parametrize("k", [1, 15])
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_knn_topk_segmented_equals_per_segment_calls(metric, k):
+    """One segmented call == ``ops.knn_topk`` segment by segment, bit for
+    bit; an empty cell's rows and the slots a short cell cannot fill hold
+    (+inf, -1), and no query lists itself."""
+    Xq, Xc, qid, cid, qoff, coff = _segments(seed=k, d=3)
+    dist, idx = ops.knn_topk_segmented(Xq, Xc, qid, cid, qoff, coff, k=k,
+                                       metric=metric)
+    assert dist.shape == idx.shape == (Xq.shape[0], k)
+    for g in range(len(qoff) - 1):
+        q0, q1, c0, c1 = (int(qoff[g]), int(qoff[g + 1]), int(coff[g]),
+                          int(coff[g + 1]))
+        if q1 == q0:
+            continue
+        if c1 == c0:
+            assert bool(torch.isinf(dist[q0:q1]).all())
+            assert bool((idx[q0:q1] == -1).all())
+            continue
+        want = ops.knn_topk(Xq[q0:q1], Xc[c0:c1], qid[q0:q1], cid[c0:c1],
+                            k=k, metric=metric)
+        assert torch.equal(dist[q0:q1], want[0])
+        assert torch.equal(idx[q0:q1], want[1])
+        valid = int((cid[c0:c1] >= 0).sum())
+        assert bool((idx[q0:q1, valid:] == -1).all())
+    assert not bool(((idx == qid[:, None]) & (idx >= 0)).any())
 
 
 def test_build_needs_nvcc(monkeypatch):

@@ -43,6 +43,47 @@ def test_vat_order_matches_reference(n):
         core.vat_order(_t(R), argmin=ref.masked_argmin_ref).numpy(), got)
 
 
+def _int_matrix(n, seed, d=3, span=3):
+    """Squared distances of integer points: exact f32 integers with many
+    ties (duplicate points give zero entries off the diagonal)."""
+    rng = np.random.default_rng(seed)
+    X = rng.integers(-span, span + 1, size=(n, d)).astype(np.float32)
+    return np.sum((X[:, None, :] - X[None, :, :]) ** 2, axis=-1).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 40, 129])
+def test_vat_prim_order_matches_reference_on_integer_data(n):
+    """ops.vat_prim_order on a tie-heavy integer matrix == the reference's
+    vat_order on the same matrix, bit for bit."""
+    R = _int_matrix(n, seed=n)
+    i0 = torch.argmax(torch.amax(_t(R), dim=1)).view(1)
+    got = ops.vat_prim_order(_t(R), i0).numpy()
+    want = np.asarray(jcore.vat_order(jnp.asarray(R)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(core.vat_order(_t(R)).numpy(), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 90])
+def test_vat_prim_order_equals_the_loop(n):
+    """On float data: the one-call order == the loop of masked argmins
+    (the plain argmin injected by hand), and a stack's lanes == their solo
+    calls."""
+    mats = [np.asarray(jcore.vat(jnp.asarray(_blobs(n, seed=s))).dist)
+            if n > 1 else np.zeros((1, 1), np.float32) for s in range(3)]
+    stack = _t(np.stack(mats))
+    i0 = torch.argmax(torch.amax(stack, dim=2), dim=1)
+    lanes = ops.vat_prim_order(stack, i0)
+    assert lanes.shape == (3, n) and lanes.dtype == torch.int64
+    np.testing.assert_array_equal(core.vat_order_batch(stack).numpy(),
+                                  lanes.numpy())
+    for z, R in enumerate(mats):
+        solo = core.vat_order(_t(R))
+        loop = core.vat_order(_t(R), argmin=ref.masked_argmin_ref)
+        assert torch.equal(solo, loop) and torch.equal(lanes[z], solo)
+        assert sorted(solo.tolist()) == list(range(n))
+
+
 @pytest.mark.parametrize("metric", ref.METRICS)
 def test_vat_matches_reference(metric):
     X = _blobs(120, d=4, seed=3)
