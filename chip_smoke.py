@@ -19,7 +19,10 @@ at n = 50,000 (``flashvat``, both engines), and ``ops.knn_graph_batch`` of
 each path was launched, holds the flashvat engines bit for bit against
 each other and against the materialized ordering, the kNN kernel bit for
 bit against the pairwise kernel's sorted rows, the one-launch Prim kernel
-bit for bit against the loop of plain masked argmins, the segmented kNN
+bit for bit against the loop of plain masked argmins, the iVAT op against
+the plain recurrence on both of its routes (``ivat-route`` lines: every
+fit path's iVAT lanes took the range route; ``kernel-check`` lines name
+each input's route), the segmented kNN
 launch (every anchored cell at once) bit for bit against the kNN kernel
 cell by cell, Borůvka on the card against
 Borůvka on the CPU, the approx order at k = n - 1 against the exact
@@ -234,7 +237,8 @@ def phase_environment(torch, build):
         library=str(build.build()), device=torch.cuda.get_device_name(0),
         prim_persist_ptxas=ptxas_report(build, "prim_persist.cu"),
         knn_graph_ptxas=ptxas_report(build, "knn_graph.cu"),
-        prim_update_ptxas=ptxas_report(build, "prim_update.cu"))
+        prim_update_ptxas=ptxas_report(build, "prim_update.cu"),
+        ivat_update_ptxas=ptxas_report(build, "ivat_update.cu"))
     return card
 
 
@@ -391,16 +395,194 @@ def check_vat_prim(torch, ref, ops, vat_prim_order_cuda, vat_order, gen):
     return 0.0
 
 
-def check_ivat(torch, ref, ivat_from_vat_cuda, rstars):
-    for rstar in rstars:
-        K = ivat_from_vat_cuda(rstar)
-        P = ref.ivat_from_vat_ref(rstar)
-        torch.cuda.synchronize()
-        require(torch.equal(K, P), f"ivat n={rstar.shape[0]}: kernel != "
-                f"plain (max |diff| {float(torch.amax(torch.abs(K - P)))})")
-        log("kernel-check", kernel="ivat_from_vat", n=rstar.shape[0],
-            bitwise=True)
-    return 0.0
+def reset_counts(build):
+    """Zero the launch counts and the iVAT op's lanes by route."""
+    from repro_torch.kernels.ivat_update import reset_route_lanes
+    build.reset_launch_counts()
+    reset_route_lanes()
+
+
+def require_range_route(label: str, lanes: int) -> dict:
+    """Every iVAT lane since ``reset_counts`` took the range route: ``lanes``
+    of them, none serial.  Prints an ``ivat-route`` line."""
+    from repro_torch.kernels.ivat_update import route_lanes
+    routes = route_lanes()
+    require(lanes > 0 and routes == {"range": lanes, "serial": 0},
+            f"{label}: iVAT lanes by route {routes}, want {lanes} on the "
+            "range route and none serial")
+    log("ivat-route", path=label, **routes)
+    return routes
+
+
+def swapped_non_prim(torch, ref, rstar):
+    """rstar with rows (and columns) p and p + 1 swapped, for the first p
+    that breaks the range route's condition (by the plain stages): a
+    matrix the recurrence answers that is not in Prim order."""
+    n = rstar.shape[0]
+    for p in range(1, n - 1):
+        perm = torch.arange(n, device=rstar.device)
+        perm[[p, p + 1]] = perm[[p + 1, p]]
+        R2 = rstar[perm][:, perm].contiguous()
+        if not bool(ref.ivat_route_ref(*ref.ivat_parents_ref(R2))):
+            return R2
+    raise SmokeFailure("no swap of neighbouring rows breaks the condition")
+
+
+def signed_matrix(n: int, seed: int) -> np.ndarray:
+    """A symmetric precomputed matrix with negative entries, +0.0 and -0.0
+    off the diagonal and a zero diagonal, from a seed."""
+    rng = np.random.default_rng(seed)
+    A = rng.integers(-3, 4, (n, n)).astype(np.float32)
+    A = A + A.T
+    A[A == 0] = np.where(rng.random(int((A == 0).sum())) < 0.5, 0.0, -0.0)
+    np.fill_diagonal(A, 0.0)
+    return A
+
+
+def check_ivat_stages(torch, ref, ivu, R, label):
+    """Each stage of the range route against its plain version on the
+    (b, n, n) stack R, all in Prim order: parents (j and w's bits), route
+    flags (all True), range writer (values, no -0.0)."""
+    j, w = ivu.ivat_parents_cuda(R)
+    pj, pw = ref.ivat_parents_ref(R)
+    require(torch.equal(j, pj) and torch.equal(w.view(torch.int32),
+                                               pw.view(torch.int32)),
+            f"ivat parents {label}: kernel != plain")
+    ok, tables = ivu.ivat_route_cuda(j, w)
+    require(torch.equal(ok, ref.ivat_route_ref(pj, pw)) and bool(ok.all()),
+            f"ivat route {label}: kernel {ok.tolist()} != plain or not all "
+            "on the range route")
+    D = ivu.ivat_range_cuda(w, tables, ok)
+    require(torch.equal(D, ref.ivat_range_ref(pw))
+            and not bool(torch.signbit(D).any()),
+            f"ivat range {label}: kernel != plain")
+    log("kernel-check", kernel="ivat_from_vat", stages=label,
+        shape=list(R.shape), parents_bitwise=True, route_equal=True,
+        range_equal=True)
+
+
+def check_ivat(torch, ref, ops, core, rstars):
+    """The iVAT op against the plain recurrence, by value, on every rstar of
+    the main path and on inputs chosen for each route: a VAT order with two
+    rows swapped (no Prim order: the serial route), the VAT orders of
+    duplicate points and of a precomputed matrix with negative entries and
+    +-0.0 (the range route), a stack of all four and a stack of copies of
+    the largest matrix past 2^31 elements (each lane == its solo call);
+    then each stage against its plain version at (2,048), (16,384) and
+    (8, 2,048).  Prints each lane's route."""
+    from repro_torch.kernels import ivat_update as ivu
+    prim = rstars[0]
+    Xd = np.repeat(blobs(683, 16, k=8, seed=3), 3, axis=0)[:2048]
+    cases = [(f"main path rstar n={r.shape[0]}", r, True) for r in rstars]
+    cases += [
+        ("swapped rows n=2048", swapped_non_prim(torch, ref, prim), False),
+        ("duplicate points n=2048", core.vat_from_dist(ops.pairwise_dist(
+            torch.from_numpy(Xd).cuda(), form="direct")).rstar, True),
+        ("negative and +-0.0 entries n=2048", core.vat_from_dist(
+            torch.from_numpy(signed_matrix(2048, seed=4)).cuda()).rstar,
+         True)]
+    solo = {}
+    for label, R, want_range in cases:
+        ivu.reset_route_lanes()
+        K = ivu.ivat_from_vat_cuda(R)
+        routes = ivu.route_lanes()
+        P = ref.ivat_from_vat_ref(R)
+        require(routes == {"range": int(want_range),
+                           "serial": int(not want_range)},
+                f"ivat {label}: lanes by route {routes}, want the "
+                f"{'range' if want_range else 'serial'} route")
+        require(torch.equal(K, P), f"ivat {label}: kernel != plain "
+                f"(max |diff| {float(torch.amax(torch.abs(K - P)))})")
+        require(torch.equal(K, K.T) and not bool(torch.diagonal(K).any()),
+                f"ivat {label}: not symmetric with a zero diagonal")
+        solo[label] = K
+        log("kernel-check", kernel="ivat_from_vat", input=label,
+            n=R.shape[0], route="range" if want_range else "serial",
+            equal_to_recurrence=True,
+            negative_zeros=int(torch.signbit(K).sum()))
+    mixed = [c for c in cases if c[1].shape[0] == 2048]
+    stack = torch.stack([R for _, R, _ in mixed])
+    ivu.reset_route_lanes()
+    K = ivu.ivat_from_vat_cuda(stack)
+    routes = ivu.route_lanes()
+    ranged = sum(want for _, _, want in mixed)
+    require(routes == {"range": ranged, "serial": len(mixed) - ranged},
+            f"ivat mixed stack: lanes by route {routes}")
+    require(all(torch.equal(K[z], solo[label])
+                for z, (label, _, _) in enumerate(mixed)),
+            "ivat mixed stack: a lane differs from its solo call")
+    log("kernel-check", kernel="ivat_from_vat", input="mixed stack",
+        lanes=[label for label, _, _ in mixed],
+        routes=["range" if want else "serial" for _, _, want in mixed],
+        lanes_by_route=routes, lanes_equal_solo=True)
+    # a stack past 2^31 elements: copies of the largest main-path matrix
+    big = rstars[-1]
+    nb = big.shape[0]
+    lanes = 2 ** 31 // (nb * nb) + 1
+    stack = big.expand(lanes, nb, nb).contiguous()
+    ivu.reset_route_lanes()
+    K = ivu.ivat_from_vat_cuda(stack)
+    routes = ivu.route_lanes()
+    require(routes == {"range": lanes, "serial": 0},
+            f"ivat stack of {lanes} x n={nb}: lanes by route {routes}")
+    require(all(torch.equal(K[z], solo[f"main path rstar n={nb}"])
+                for z in range(lanes)),
+            f"ivat stack of {lanes} x n={nb}: a lane differs from its solo "
+            "call")
+    log("kernel-check", kernel="ivat_from_vat", input=f"stack of {lanes} "
+        f"copies n={nb}", elements=lanes * nb * nb, lanes_by_route=routes,
+        lanes_equal_solo=True)
+    del stack, K
+    X8 =torch.from_numpy(np.stack([blobs(2048, 64, k=8, seed=20 + s)
+                                    for s in range(8)])).cuda()
+    R8 = core.vat_batch_from_dist(ops.pairwise_dist_batch(X8)).rstar
+    for R, label in ((prim[None], "n=2048"), (rstars[-1][None], "n=16384"),
+                     (R8, "b=8 n=2048")):
+        check_ivat_stages(torch, ref, ivu, R, label)
+    return 0.0, R8
+
+
+def phase_ivat_times(torch, ref, ivu, rstars, R8, card):
+    """Row 4 at n = 2,048, 16,384 and (8, 2,048), by CUDA events: the op,
+    its serial route alone (the recurrence every lane took before the range
+    route) and each range-route stage; the op's profiler device time and
+    the plain recurrence's (lane by lane, ``device_ms``) beside them, and
+    one call's lanes by route from the route counter.  The bound is
+    ``ivat_cost`` per lane."""
+    rows = {}
+    for R, label, reps in ((rstars[0], "n=2048", 20),
+                           (rstars[-1], "n=16384", 5), (R8, "b=8 n=2048", 20)):
+        Rb = R if R.dim() == 3 else R[None]
+        b, n = Rb.shape[0], Rb.shape[-1]
+        j, w = ivu.ivat_parents_cuda(Rb)
+        ok, tables = ivu.ivat_route_cuda(j, w)
+        ivu.reset_route_lanes()
+        ivu.ivat_from_vat_cuda(R)
+        lanes_by_route = ivu.route_lanes()
+        row = {"kernel": "ivat_from_vat", "input": label, "b": b, "n": n,
+               "ms": event_ms(torch, lambda: ivu.ivat_from_vat_cuda(R),
+                              reps=reps),
+               "profiler_ms": device_ms(torch,
+                                        lambda: ivu.ivat_from_vat_cuda(R),
+                                        reps=reps, label=f"ivat {label}"),
+               "serial_route_ms": event_ms(
+                   torch, lambda: ivu.ivat_serial_cuda(R),
+                   reps=1 if n > 2048 else 3, warmup=1),
+               "parents_ms": event_ms(torch, lambda: ivu.ivat_parents_cuda(Rb),
+                                      reps=reps),
+               "route_ms": event_ms(torch, lambda: ivu.ivat_route_cuda(j, w),
+                                    reps=reps),
+               "range_ms": event_ms(torch, lambda: ivu.ivat_range_cuda(
+                   w, tables, ok), reps=reps),
+               "plain_ms": device_ms(torch, lambda: [
+                   ref.ivat_from_vat_ref(x) for x in Rb], reps=1,
+                   label=f"ivat plain {label}"),
+               "lanes_by_route": lanes_by_route, "timer": "cuda events"}
+        nbytes, nops = ivat_cost(n)
+        row["bound_ms"], row["bound_by"] = bound_ms(b * nbytes, b * nops)
+        log("ivat-times", card=card, **row)
+        rows[label] = row
+    return rows
 
 
 def tree_weight(torch, X, order):
@@ -455,7 +637,7 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
     """Drive the port's main path and its ivat rung through FastVAT."""
     n, d = 2048, 64
     X = blobs(n, d, k=8, seed=0)
-    build.reset_launch_counts()
+    reset_counts(build)
     walls = {}
     fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit(X))
     order, walls["order"] = wall_s(torch, fv.order)
@@ -464,6 +646,8 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
         torch, lambda: fv.image(use_ivat=True))
     rep, walls["assess"] = wall_s(torch, fv.assess)
     launches = build.launch_counts()
+    routes = require_range_route("vat n=2048 image(use_ivat=True)",
+                                 launches["ivat_from_vat"])
     # a second fit: the first paid one-time costs (lazy module loading)
     _, walls["fit_again"] = wall_s(torch, lambda: rt.FastVAT().fit(X))
     from repro_torch.api.validation import validate_points
@@ -514,7 +698,8 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
             f"CPU and GPU assess differ beyond {tol_score}: {cpu_rep} vs "
             f"{rep}")
     log("main-path", n=n, d=d, method=fv.method_resolved,
-        launches=launches, walls_s=walls, hopkins=rep.hopkins,
+        launches=launches, ivat_routes=routes, walls_s=walls,
+        hopkins=rep.hopkins,
         block_score=rep.block_score, k_est=rep.k_est,
         cpu_block_score=cpu_rep.block_score, block_score_tol=tol_score,
         same_order_as_cpu_fit=bool(np.array_equal(cpu.order(), order)),
@@ -523,9 +708,10 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
     rstars = [fv.result.rstar]
     for n2, d2 in ((2048, 64), (16384, 32)):
         X2 = X if n2 == n else blobs(n2, d2, k=8, seed=1)
-        build.reset_launch_counts()
+        reset_counts(build)
         fiv, wall = wall_s(torch, lambda: rt.FastVAT(method="ivat").fit(X2))
         counts = build.launch_counts()
+        routes = require_range_route(f"ivat fit n={n2}", 1)
         require(counts["pairwise_dist"] == 1 and counts["ivat_from_vat"] == 1
                 and counts["vat_prim_order"] == 1
                 and counts["masked_argmin"] == 0,
@@ -537,7 +723,8 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
                 "ivat image not symmetric with zero diagonal")
         orders = check_orders(torch, ref, ops, vat_order, fiv._X,
                               fiv.result.order, f"ivat n={n2}")
-        log("ivat-rung", n=n2, d=d2, launches=counts, fit_wall_s=wall,
+        log("ivat-rung", n=n2, d=d2, launches=counts, ivat_routes=routes,
+            fit_wall_s=wall,
             **orders)
         if n2 != n:
             rstars.append(fiv.result.rstar)
@@ -605,7 +792,7 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts(build)
     walls = {}
     fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit(X))
     peak = torch.cuda.max_memory_allocated() - base
@@ -615,6 +802,7 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
         torch, lambda: fv.image(use_ivat=True))
     rep, walls["assess"] = wall_s(torch, fv.assess)
     launches = build.launch_counts()
+    require_range_route("flashvat n=50000 band render", 1)
     require(fv.method_resolved == "flashvat",
             f"auto picked {fv.method_resolved!r} at n={n}, want 'flashvat'")
     require(fv.result.meta.device.startswith("cuda"), "fit did not run on cuda")
@@ -1265,7 +1453,7 @@ def phase_approx_exact(torch, rt, ops, build, core):
     fit of the same points as the exact reference."""
     n, d = 32_768, 64
     X = blobs(n, d, k=8, seed=0)
-    build.reset_launch_counts()
+    reset_counts(build)
     walls = {}
     fa, walls["fit"] = wall_s(torch, lambda: rt.FastVAT(method="approx").fit(X))
     order, walls["order"] = wall_s(torch, fa.order)
@@ -1274,6 +1462,8 @@ def phase_approx_exact(torch, rt, ops, build, core):
         torch, lambda: fa.image(use_ivat=True))
     rep, walls["assess"] = wall_s(torch, fa.assess)
     launches = build.launch_counts()
+    require_range_route("approx n=32768 band render",
+                        launches["ivat_from_vat"])
     s = fa.result.meta.approx
     require(s.mode == "exact" and s.k == 15, f"approx stats {s}")
     for name in ("knn_graph", "pairwise_dist", "vat_prim_order",
@@ -1358,7 +1548,7 @@ def phase_approx_path(torch, rt, ops, build, core, registry):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts(build)
     walls = {}
     fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit(X))
     peak = torch.cuda.max_memory_allocated() - base
@@ -1368,6 +1558,8 @@ def phase_approx_path(torch, rt, ops, build, core, registry):
         torch, lambda: fv.image(use_ivat=True))
     rep, walls["assess"] = wall_s(torch, fv.assess)
     launches = build.launch_counts()
+    require_range_route("approx n=1000000 band render",
+                        launches["ivat_from_vat"])
     s = fv.result.meta.approx
     require(fv.method_resolved == "approx" and s.mode == "anchored",
             f"auto at n={n}: {fv.method_resolved}, {s}")
@@ -1585,14 +1777,15 @@ def phase_certify(torch):
 
 
 def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
-    """Kernel, plain version, library call and bound at both sizes.
+    """Kernel, plain version, library call and bound at both sizes (the
+    iVAT op has its own, ``phase_ivat_times``).
 
     ``ms`` / ``plain_ms`` / ``library_ms`` are device times per call
     (``device_ms``); ``event_ms`` beside them is the stream time per call
-    in a back-to-back run, host launch overhead included.  The iVAT
+    in a back-to-back run, host launch overhead included.  The Prim
     kernel's row in the ``kernels`` line takes its ``event_ms``: one
-    launch of milliseconds, so launch gaps are nothing, and its profiler
-    reading has come back well below that stream time, which a single
+    launch of milliseconds, so launch gaps are nothing, and torch.profiler
+    has read such launches well below that stream time, which a single
     launch cannot be."""
     rows = []
     for n, d in ((2048, 64), (16384, 32)):
@@ -1612,18 +1805,13 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
                 lambda: ref.masked_argmin_ref(vals, mask),
                 lambda: torch.argmin(vals.masked_fill(mask, torch.inf)),
                 argmin_cost(n), 200),
-            "ivat_from_vat": (
-                lambda: kernels["ivat_from_vat"](rstar),
-                lambda: ref.ivat_from_vat_ref(rstar), None, ivat_cost(n),
-                3 if big else 10),
             "vat_prim_order": (
                 lambda: kernels["vat_prim_order"](rstar, i0),
                 lambda: ref.vat_prim_order_ref(rstar, i0), None,
                 prim_order_cost(n), 3 if big else 10),
         }
         for name, (kern, plain, lib, cost, reps) in cases.items():
-            plain_reps = 1 if name in ("ivat_from_vat", "vat_prim_order") \
-                else reps
+            plain_reps = 1 if name == "vat_prim_order" else reps
             row = {"kernel": name, "n": n,
                    "ms": device_ms(torch, kern, reps=reps,
                                    label=f"{name} n={n}"),
@@ -1642,8 +1830,6 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
                           "src/repro/kernels/pairwise_dist.py:120"),
         "masked_argmin": ("src/repro_torch/kernels/csrc/prim_update.cu",
                           "src/repro/kernels/prim_update.py:39"),
-        "ivat_from_vat": ("src/repro_torch/kernels/csrc/ivat_update.cu",
-                          "src/repro/kernels/ivat_update.py:73"),
         # the whole loop of masked_argmin_pallas steps the reference's
         # vat_order runs, in one launch
         "vat_prim_order": ("src/repro_torch/kernels/csrc/prim_update.cu",
@@ -1652,8 +1838,7 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
     out = []
     for name, (source, replaces) in meta.items():
         row = next(r for r in rows if r["kernel"] == name and r["n"] == 2048)
-        timer = ("cuda events" if name in ("ivat_from_vat", "vat_prim_order")
-                 else "profiler")
+        timer = "cuda events" if name == "vat_prim_order" else "profiler"
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name],
@@ -1842,7 +2027,7 @@ def phase_batch_vat(torch, rt, ops, build, card):
     same stack; every lane against its solo fit, bit for bit."""
     b, n, d = 8, 2048, 64
     Xs = np.stack([blobs(n, d, k=8, seed=s) for s in range(b)])
-    build.reset_launch_counts()
+    reset_counts(build)
     walls = {}
     fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit_many(Xs))
     order, walls["order"] = wall_s(torch, fv.order)
@@ -1851,6 +2036,7 @@ def phase_batch_vat(torch, rt, ops, build, card):
         torch, lambda: fv.image(use_ivat=True))
     reps, walls["assess"] = wall_s(torch, fv.assess)
     launches = build.launch_counts()
+    require_range_route("vat fit_many b=8 image(use_ivat=True)", b)
     _, walls["fit_again"] = wall_s(torch, lambda: rt.FastVAT().fit_many(Xs))
     require(fv.method_resolved == "vat" and fv.batched,
             f"auto fit_many picked {fv.method_resolved!r} at n={n}")
@@ -1899,10 +2085,11 @@ def phase_batch_vat(torch, rt, ops, build, card):
                 and (reps[z].block_score, reps[z].k_est)
                 == (srep.block_score, srep.k_est),
                 f"batch-vat lane {z} differs from its solo fit")
-    build.reset_launch_counts()
+    reset_counts(build)
     fi, wall_ivat = wall_s(torch,
                            lambda: rt.FastVAT(method="ivat").fit_many(Xs))
     ivat_launches = build.launch_counts()
+    require_range_route("ivat fit_many b=8", b)
     require(ivat_launches["pairwise_dist_batch"] == 1
             and ivat_launches["vat_prim_order"] == 1
             and ivat_launches["masked_argmin"] == 0
@@ -1913,10 +2100,11 @@ def phase_batch_vat(torch, rt, ops, build, card):
             "ivat fit_many differs from the vat fit_many's iVAT images")
     Ds = ops.pairwise_dist_batch(
         fv._X, form=fv.result.meta.numerics.form).cpu().numpy()
-    build.reset_launch_counts()
+    reset_counts(build)
     fp, wall_pre = wall_s(torch, lambda: rt.FastVAT(
         method="ivat", metric="precomputed").fit_many(Ds))
     pre_launches = build.launch_counts()
+    require_range_route("ivat precomputed fit_many b=8", b)
     require(pre_launches["pairwise_dist_batch"] == 0
             and pre_launches["vat_prim_order"] == 1
             and pre_launches["masked_argmin"] == 0
@@ -1946,7 +2134,7 @@ def phase_batch_flash(torch, rt, build, card):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts(build)
     walls = {}
     fv, walls["fit"] = wall_s(torch, lambda: rt.FastVAT().fit_many(Xs))
     peak = torch.cuda.max_memory_allocated() - base
@@ -1956,6 +2144,7 @@ def phase_batch_flash(torch, rt, build, card):
         torch, lambda: fv.image(use_ivat=True))
     reps, walls["assess"] = wall_s(torch, fv.assess)
     launches = build.launch_counts()
+    require_range_route("flashvat fit_many b=4 band render", b)
     require(fv.method_resolved == "flashvat" and fv.batched,
             f"auto fit_many picked {fv.method_resolved!r} at n={n}")
     require(launches["prim_persist"] == 1
@@ -2194,7 +2383,7 @@ def main() -> int:
     from repro_torch.kernels import _build as build
     from repro_torch.kernels import ops, ref
     from repro_torch.api import registry
-    from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
+    from repro_torch.kernels import ivat_update as ivu
     from repro_torch.kernels.knn_graph import knn_topk_blocked, knn_topk_cuda
     from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
     from repro_torch.kernels.prim_persist import prim_persist_cuda
@@ -2220,10 +2409,9 @@ def main() -> int:
                                              gen)}
     launches, walls, rstars = phase_main_path(torch, rt, ref, ops, build,
                                               vat_order)
-    errs["ivat_from_vat"] = check_ivat(torch, ref, ivat_from_vat_cuda, rstars)
+    errs["ivat_from_vat"], R8 = check_ivat(torch, ref, ops, core, rstars)
     kernels = {"pairwise_dist": pairwise_dist_cuda,
                "masked_argmin": masked_argmin_cuda,
-               "ivat_from_vat": ivat_from_vat_cuda,
                "vat_prim_order": vat_prim_order_cuda}
     phase_profile(torch, rt, blobs(2048, 64, k=8, seed=0))
     flash = phase_flash_path(torch, rt, ref, ops, build, core,
@@ -2235,6 +2423,24 @@ def main() -> int:
                                       prim_stream_step_cuda,
                                       prim_persist_cuda, _streamed_seed_pivot)
     rows = phase_times(torch, ref, kernels, rstars, gen, errs, launches)
+    ivat = phase_ivat_times(torch, ref, ivu, rstars, R8, card)
+    del R8
+    row4 = ivat["n=2048"]
+    rows.append({
+        "name": "ivat_from_vat", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ivat_update.cu",
+        "replaces": "src/repro/kernels/ivat_update.py:73",
+        "launches": launches["ivat_from_vat"],
+        "max_abs_err": errs["ivat_from_vat"], "ms": row4["ms"],
+        "timer": "cuda events", "profiler_ms": row4["profiler_ms"],
+        "plain_ms": row4["plain_ms"], "bound_ms": row4["bound_ms"],
+        "bound_by": row4["bound_by"], "library_ms": None,
+        "library_ms_why": "no single PyTorch call computes minimax path "
+                          "distances",
+        "lanes_by_route": row4["lanes_by_route"],
+        "serial_route_ms": row4["serial_route_ms"],
+        "ms_by_input": {k: v["ms"] for k, v in ivat.items()},
+        "bound_ms_by_input": {k: v["bound_ms"] for k, v in ivat.items()}})
     errs["prim_persist"] = persist["plain_edges_max_abs_err"]
     errs["prim_stream_step"] = flash["step_err"]
     for row, path_launches, source, replaces in (

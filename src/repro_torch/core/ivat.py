@@ -2,9 +2,10 @@
 
 Uses the Havens & Bezdek (2012) O(n^2) recurrence, which requires the
 input to already be VAT-ordered.  ``kernels/ops.py::ivat_from_vat`` runs
-it: the CUDA kernel (``kernels/csrc/ivat_update.cu``) for a CUDA matrix,
-the plain PyTorch loop (``kernels/ref.py``) for a CPU one; this module is
-the stable public surface, as ``repro/core/ivat.py`` is.
+it: the CUDA kernels (``kernels/csrc/ivat_update.cu``: the range route for
+a Prim order, the serial recurrence otherwise) for a CUDA matrix, the
+plain PyTorch loop (``kernels/ref.py``) for a CPU one; this module is the
+stable public surface, as ``repro/core/ivat.py`` is.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ def ivat_from_vat(rstar: torch.Tensor) -> torch.Tensor:
     Args:
       rstar: (n, n) float32 — VAT-ordered dissimilarity matrix (the
         ``rstar`` field of a ``VATResult``), or a (b, n, n) stack of them
-        (one launch for the stack on the card). Must be VAT-ordered: the
-        recurrence below is only valid along a recorded Prim traversal.
+        (one call for the stack on the card). Must be VAT-ordered: the
+        recurrence below is the geodesic only along a recorded Prim
+        traversal.
 
     Returns:
       float32 of rstar's shape — D', the max-min path ("geodesic")
@@ -42,6 +44,15 @@ def ivat_from_vat(rstar: torch.Tensor) -> torch.Tensor:
     edge (r, j), so the minimax path cost is that edge's weight capped
     below by the already-known minimax cost D'[j, k] — hence the single
     max per entry and the O(n^2) total.
+
+    For any matrix the recurrence computes, with w_r = D[r, j_r], the
+    largest w on the path between two points of the tree of edges
+    (r, j_r), capped below by 0.  When no i with j_r < i < r has
+    w_i > w_r, for every r — and every Prim order meets that — the path
+    maximum is a range maximum, D'[a, c] = max(0, w_{a+1}, .., w_c) for
+    a < c.  The card checks the condition a lane at a time and writes
+    such lanes as range maxima on every SM; other lanes run the
+    recurrence.  Both give the same values.
     """
     return kops.ivat_from_vat(rstar)
 

@@ -45,8 +45,20 @@ SIGNATURES = {
     "repro_vat_prim_order": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "repro_vat_prim_shared_max_n": (),
     "repro_cuda_error_string": (_I,),
-    # rstar, out, b, n, stream
-    "repro_ivat_from_vat": (_P, _P, _I, _I, _P),
+    # rstar, out, scratch, routes, b, n, stream (the whole op)
+    "repro_ivat_from_vat": (_P, _P, _P, _P, _I, _I, _P),
+    # its stages alone: rstar, j, w, b, n, stream
+    "repro_ivat_parents": (_P, _P, _P, _I, _I, _P),
+    # j, w, pre, suf, sparse, flag, routes, b, n, stream
+    "repro_ivat_route": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # w, pre, suf, sparse, flag, out, b, n, stream
+    "repro_ivat_range": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # rstar, flag, out, b, n, stream (the serial route)
+    "repro_ivat_serial": (_P, _P, _P, _I, _I, _P),
+    # n / b, n: 4-byte words of one lane's sparse table / of the op's
+    # scratch (these two return long long)
+    "repro_ivat_sparse_words": (_I,),
+    "repro_ivat_scratch_words": (_I, _I),
     # X, n, d, take_sqrt, is_bf16, out, stream
     "repro_metric_aux": (_P, _I, _I, _I, _I, _P, _P),
     # X, aux, i0, cent, rad, slack, margin, b, n, d, block, kind, prune,
@@ -85,7 +97,8 @@ SIGNATURES = {
 #: ``vat_prim_order`` and ``prim_persist`` count (b, ...) calls under their
 #: own names, the batched entries of the other kernels under ``*_batch``;
 #: ``knn_graph_segmented`` counts the launches that run every cell of an
-#: anchored kNN search at once.
+#: anchored kNN search at once; ``ivat_from_vat`` counts calls of the op,
+#: each one C call of its four launches.
 LAUNCHES = {"pairwise_dist": 0, "masked_argmin": 0, "ivat_from_vat": 0,
             "prim_persist": 0, "prim_stream_step": 0, "knn_graph": 0,
             "pairwise_dist_batch": 0, "prim_stream_step_batch": 0,
@@ -112,7 +125,6 @@ PRIM_STREAM_LANES = 0
 #: library.
 VAT_PRIM_SHARED_MAX_N = 0
 KNN_BLOCK_ROWS = 0
-
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
@@ -209,6 +221,8 @@ def library() -> ctypes.CDLL:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_ivat_sparse_words.restype = ctypes.c_longlong
+        lib.repro_ivat_scratch_words.restype = ctypes.c_longlong
         MASKED_ARGMIN_CHUNK = lib.repro_masked_argmin_chunk()
         PRIM_STREAM_LANES = lib.repro_prim_stream_lanes()
         VAT_PRIM_SHARED_MAX_N = lib.repro_vat_prim_shared_max_n()

@@ -137,6 +137,10 @@ def vat_prim_order(R: torch.Tensor, i0: torch.Tensor) -> torch.Tensor:
 def ivat_from_vat(rstar: torch.Tensor) -> torch.Tensor:
     """iVAT geodesic transform of VAT-ordered dissimilarities.
 
+    On the card four launches over all lanes (``ivat_update.py``): lanes in
+    Prim order take the range route, others the serial recurrence; on the
+    CPU the recurrence (``ref.ivat_from_vat_ref``), lane by lane.
+
     Args:
       rstar: (n, n) or (b, n, n) float — VAT-ordered matrix/stack.
 

@@ -536,6 +536,107 @@ def ivat_from_vat_ref(rstar: torch.Tensor) -> torch.Tensor:
     return Dp
 
 
+# The range route of the iVAT transform, stage by stage (the plain versions
+# of ``csrc/ivat_update.cu``'s three range-route kernels).  A lane of the
+# recurrence above is the path maximum over the tree of edges (r, j_r);
+# when no i in (j_r, r) has w_i > w_r for any r -- which every Prim order
+# gives -- it is the range maximum D'[a, c] = max(+0, w_{a+1}, .., w_c).
+
+#: Elements one block of the plain stages holds at once (b * rows * n).
+_RANGE_BLOCK_ELEMS = 1 << 24
+
+
+def _row_block(b: int, n: int) -> int:
+    return max(1, _RANGE_BLOCK_ELEMS // max(1, b * n))
+
+
+def _lanes(t: torch.Tensor, matrix: bool) -> torch.Tensor:
+    """A lone matrix (or vector) as a stack of one lane."""
+    return t[None] if t.dim() == (2 if matrix else 1) else t
+
+
+def ivat_parents_ref(rstar: torch.Tensor):
+    """Stage 1: each row's parent in the tree and its edge weight.
+
+    Args:
+      rstar: (n, n) or (b, n, n) float32 VAT-ordered matrix or stack.
+
+    Returns:
+      (j, w): int32 and float32 of shape (n,) or (b, n).  For r >= 1, j[r]
+      is the first-index argmin over k < r of rstar[r, k] in the order of
+      ``signed_key`` (the kernels' packed keys: -0.0 ties +0.0, a positive
+      NaN above +inf), and w[r] is rstar[r, j[r]] with its own bits; row 0
+      has j = 0 and w = -inf.
+    """
+    R = _lanes(rstar.float(), True)
+    b, n, _ = R.shape
+    j = torch.zeros((b, n), dtype=torch.int32, device=R.device)
+    w = torch.full((b, n), -torch.inf, dtype=torch.float32, device=R.device)
+    col = torch.arange(n, device=R.device)
+    step = _row_block(b, n)
+    for r0 in range(1, n, step):
+        rows = R[:, r0:r0 + step]
+        r = torch.arange(r0, r0 + rows.shape[1], device=R.device)
+        keys = torch.where(col[None, :] < r[:, None], signed_key(rows, col),
+                           torch.iinfo(torch.int64).max)
+        jj = torch.argmin(keys, dim=-1)
+        j[:, r0:r0 + rows.shape[1]] = jj.to(torch.int32)
+        w[:, r0:r0 + rows.shape[1]] = torch.gather(rows, 2,
+                                                   jj[..., None])[..., 0]
+    return (j, w) if rstar.dim() == 3 else (j[0], w[0])
+
+
+def ivat_route_ref(j: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stage 2: whether each lane may take the range route.
+
+    A lane passes when no w[r] (r >= 1) is NaN and, for every r >= 2, no i
+    with j[r] < i < r has ``not (w[i] <= w[r])``; the test is written out
+    over each row's whole range, with no table.
+
+    Returns:
+      bool, 0-d for (n,) inputs or (b,) for (b, n).
+    """
+    J = _lanes(j, False).to(torch.int64)
+    W = _lanes(w, False)
+    b, n = W.shape
+    ok = ~torch.isnan(W[:, 1:]).any(dim=1)
+    i = torch.arange(n, device=W.device)
+    step = _row_block(b, n)
+    for r0 in range(2, n, step):
+        r = torch.arange(r0, min(n, r0 + step), device=W.device)
+        inside = (i[None, None, :] > J[:, r0:r0 + r.shape[0], None]) \
+            & (i[None, None, :] < r[None, :, None])
+        above = ~(W[:, None, :] <= W[:, r0:r0 + r.shape[0], None])
+        ok &= ~(inside & above).any(dim=(1, 2))
+    return ok if w.dim() == 2 else ok[0]
+
+
+def ivat_range_ref(w: torch.Tensor) -> torch.Tensor:
+    """Stage 3: the iVAT image as a range maximum of the weights.
+
+    D'[a, c] = D'[c, a] = max(+0, w[a+1], .., w[c]) for a < c, and a zero
+    diagonal; every zero is +0.0.  The upper triangle is a running maximum
+    along each row (rows in blocks), then mirrored.
+
+    Returns:
+      float32 (n, n) for an (n,) w, (b, n, n) for (b, n).
+    """
+    W = _lanes(w.float(), False)
+    b, n = W.shape
+    upper = torch.zeros((b, n, n), dtype=torch.float32, device=W.device)
+    i = torch.arange(n, device=W.device)
+    step = _row_block(b, n)
+    for a0 in range(0, n, step):
+        a = torch.arange(a0, min(n, a0 + step), device=W.device)
+        after = i[None, :] > a[:, None]
+        run = torch.cummax(torch.where(after, W[:, None, :], -torch.inf),
+                           dim=-1).values
+        upper[:, a0:a0 + a.shape[0]] = torch.where(after & (run > 0), run,
+                                                   0.0)
+    D = upper + upper.transpose(1, 2)
+    return D if w.dim() == 2 else D[0]
+
+
 #: The id of an empty top-k slot while lists are merged: it sorts after
 #: every real candidate id, so a masked candidate never displaces one.
 NO_ID = torch.iinfo(torch.int64).max

@@ -23,7 +23,11 @@ import torch.distributed as dist
 from repro_torch import core
 from repro_torch.core.vat import _streamed_seed_pivot, vat, vat_order
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
+from repro_torch.kernels.ivat_update import (ivat_from_vat_cuda,
+                                            ivat_parents_cuda,
+                                            ivat_range_cuda, ivat_route_cuda,
+                                            ivat_serial_cuda,
+                                            reset_route_lanes, route_lanes)
 from repro_torch.kernels.knn_graph import (MAX_K, knn_graph_batch_cuda,
                                           knn_topk_blocked, knn_topk_cuda,
                                           knn_topk_segmented_cuda)
@@ -117,6 +121,74 @@ def test_cuda_ivat_bitwise(cuda):
     batch = ivat_from_vat_cuda(stack)
     for lane in range(3):
         assert torch.equal(batch[lane], ivat_from_vat_cuda(stack[lane]))
+
+
+def _swapped_non_prim(rstar):
+    """rstar with two neighbouring rows (and columns) swapped so that the
+    range route's condition breaks (checked with the plain stages)."""
+    n = rstar.shape[0]
+    for p in range(1, n - 1):
+        perm = torch.arange(n, device=rstar.device)
+        perm[[p, p + 1]] = perm[[p + 1, p]]
+        R2 = rstar[perm][:, perm].contiguous()
+        if not bool(ref.ivat_route_ref(*ref.ivat_parents_ref(R2))):
+            return R2
+    raise AssertionError("no swap breaks the condition")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 63, 64, 65, 700, 4097])
+def test_cuda_ivat_range_route_equals_recurrence(cuda, n):
+    rstar = (_vat_ordered(n, n, cuda) if n > 1
+             else torch.zeros(1, 1, device=cuda))
+    reset_route_lanes()
+    got = ivat_from_vat_cuda(rstar)
+    assert route_lanes() == {"range": 1, "serial": 0}
+    assert torch.equal(got, ref.ivat_from_vat_ref(rstar))
+    assert not bool(torch.signbit(got).any())
+    # each stage against its plain version
+    j, w = ivat_parents_cuda(rstar[None])
+    pj, pw = ref.ivat_parents_ref(rstar[None])
+    assert torch.equal(j, pj)
+    assert torch.equal(w.view(torch.int32), pw.view(torch.int32))
+    ok, tables = ivat_route_cuda(j, w)
+    assert torch.equal(ok, ref.ivat_route_ref(pj, pw))
+    assert torch.equal(ivat_range_cuda(w, tables, ok), ref.ivat_range_ref(pw))
+    assert torch.equal(ivat_serial_cuda(rstar), ref.ivat_from_vat_ref(rstar))
+    # an empty stack keeps its shape and launches nothing
+    _build.reset_launch_counts()
+    reset_route_lanes()
+    empty = ivat_from_vat_cuda(torch.empty(0, n, n, device=cuda))
+    assert empty.shape == (0, n, n)
+    assert _build.LAUNCHES["ivat_from_vat"] == 0
+    assert route_lanes() == {"range": 0, "serial": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_ivat_non_prim_takes_the_serial_route(cuda):
+    prim = _vat_ordered(300, 5, cuda)
+    R2 = _swapped_non_prim(prim)
+    reset_route_lanes()
+    got = ivat_from_vat_cuda(R2)
+    assert route_lanes() == {"range": 0, "serial": 1}
+    assert torch.equal(got, ref.ivat_from_vat_ref(R2))
+    j, w = ivat_parents_cuda(prim)
+    w2 = w.clone()
+    w2[7] = torch.nan                   # a NaN weight fails the check too
+    assert ivat_route_cuda(torch.stack([j, j]), torch.stack([w, w2]))[0] \
+        .tolist() == [True, False]
+
+
+@pytest.mark.cuda
+def test_cuda_ivat_mixed_stack_lanes_equal_solo(cuda):
+    prim = [_vat_ordered(257, s, cuda) for s in range(3)]
+    stack = torch.stack([prim[0], _swapped_non_prim(prim[1]), prim[2]])
+    reset_route_lanes()
+    got = ivat_from_vat_cuda(stack)
+    assert route_lanes() == {"range": 2, "serial": 1}
+    for z in range(3):
+        assert torch.equal(got[z], ivat_from_vat_cuda(stack[z]))
+        assert torch.equal(got[z], ref.ivat_from_vat_ref(stack[z]))
 
 
 @pytest.mark.cuda
