@@ -235,6 +235,7 @@ def phase_environment(torch, build):
     log("environment", torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=ver[-1] if ver else None, build_s=build_s,
         library=str(build.build()), device=torch.cuda.get_device_name(0),
+        pairwise_dist_ptxas=ptxas_report(build, "pairwise_dist.cu"),
         prim_persist_ptxas=ptxas_report(build, "prim_persist.cu"),
         knn_graph_ptxas=ptxas_report(build, "knn_graph.cu"),
         prim_update_ptxas=ptxas_report(build, "prim_update.cu"),
@@ -272,7 +273,9 @@ def check_pairwise(torch, ref, ops, pairwise_dist_cuda, probe_count, gen):
              # blocks of about 2,000 x 7,143), the band render's
              # representatives, and assess()'s Hopkins calls
              (2000, 7143, 64), (256, None, 64),
-             (probe_count(50_000), 50_000, 64))
+             (probe_count(50_000), 50_000, 64),
+             # the ivat rung's matrix at the top of its window
+             (16384, None, 32))
     for n, m, d in cases:
         case_worst = {}
         X = torch.randn(n, d, device="cuda", generator=gen)
@@ -309,7 +312,39 @@ def check_pairwise(torch, ref, ops, pairwise_dist_cuda, probe_count, gen):
                                 "pairwise diagonal is not exactly zero")
         log("kernel-check", kernel="pairwise_dist", n=n, m=m, d=d,
             dtypes=["float32", "bfloat16"], max_abs_err=case_worst)
+    # a self-matrix through ops.pairwise_dist: the pre-pass (norms, the
+    # feature-major copy) and the tiles, which write the zero diagonal
+    X = torch.randn(2048, 64, device="cuda", generator=gen)
+    per_call = {form: launches_per_call(
+        torch, lambda: ops.pairwise_dist(X, form=form), f"self {form}")
+        for form in ("gram", "direct")}
+    require(all(v is None or v <= 2 for v in per_call.values()),
+            f"ops.pairwise_dist of a self-matrix made {per_call} device "
+            "operations a call, want at most 2")
+    log("kernel-check", kernel="pairwise_dist", n=2048, d=64,
+        device_ops_per_self_call=per_call)
     return worst
+
+
+def launches_per_call(torch, fn, label: str, calls: int = 5):
+    """Device operations (kernels, copies) of one ``fn()`` by torch.profiler
+    over ``calls`` calls; a session that records none is tried twice more,
+    and None (with a ``timer-fallback`` line) if none records any."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops_ = device_launches(prof)
+        if ops_:
+            return ops_ / calls
+    log("timer-fallback", call=label, device_ops=None,
+        why="torch.profiler recorded no device operation in 3 sessions")
+    return None
 
 
 def check_argmin(torch, ref, masked_argmin_cuda, gen):
@@ -828,7 +863,13 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
     # pruned == eager, bit for bit, at the fit's own input and seed
     Xt = fv._X.float().contiguous()
     aux = ops.metric_aux(Xt)
-    i0 = seed_pivot(Xt, metric="euclidean")
+    # the seed scan alone: its stream time and its pairwise launches
+    build.reset_launch_counts()
+    i0, seed_ms = event_once_ms(torch, lambda: seed_pivot(
+        Xt, metric="euclidean"))
+    seed_launches = build.launch_counts()["pairwise_dist"]
+    require(seed_launches == 175, f"the seed scan at n={n} made "
+            f"{seed_launches} pairwise launches, want 25 x 7 = 175")
     (o1, e1, s1), pruned_ms = event_once_ms(
         torch, lambda: prim_persist_cuda(Xt, aux, i0))
     (o0, e0, s0), eager_ms = event_once_ms(
@@ -852,6 +893,7 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
         hopkins=rep.hopkins, block_score=rep.block_score, k_est=rep.k_est,
         pruned_equals_eager=True, stats_pruned=s1.tolist(),
         stats_eager=s0.tolist(), eager_tile_fold_cap=(n - 1) * nblk,
+        seed_scan_s=seed_ms / 1e3, seed_scan_launches=seed_launches,
         block=DEFAULT_BLOCK, group=plan["group"], ctas=plan["ctas"],
         rows_staged=plan["rows_staged"], smem_bytes=plan["smem_bytes"],
         barriers_per_step=int(s1[3]) / (n - 1), path_prunes=PERSIST_PRUNE,
@@ -1823,8 +1865,30 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
                    "plain_event_ms": event_ms(torch, plain,
                                               reps=plain_reps, warmup=1)}
             row["bound_ms"], row["bound_by"] = bound_ms(*cost)
+            if name == "pairwise_dist":
+                row["d"] = d
             log("time", **row)
             rows.append(row)
+    # row 1 at the flashvat seed scan's block (25 x 7 of them a fit at
+    # n = 50,000): two operands, (2,000 x 7,143, d = 64)
+    n, m, d = 2000, 7143, 64
+    X = torch.randn(n, d, device="cuda", generator=gen)
+    Y = torch.randn(m, d, device="cuda", generator=gen)
+    kern = lambda: kernels["pairwise_dist"](X, Y)   # noqa: E731
+    plain = lambda: ref.pairwise_dissim_ref(X, Y)   # noqa: E731
+    block = {"kernel": "pairwise_dist", "n": n, "m": m, "d": d,
+             "ms": device_ms(torch, kern, reps=20,
+                             label="pairwise_dist seed block"),
+             "plain_ms": device_ms(torch, plain, reps=20,
+                                   label="pairwise_dist plain seed block"),
+             "library_ms": device_ms(torch, lambda: torch.cdist(X, Y),
+                                     reps=20,
+                                     label="pairwise_dist cdist seed block"),
+             "event_ms": event_ms(torch, kern, reps=20),
+             "plain_event_ms": event_ms(torch, plain, reps=20, warmup=1)}
+    block["bound_ms"], block["bound_by"] = bound_ms(*pairwise_cost(n, m, d))
+    log("time", **block)
+    rows.append(block)
     meta = {
         "pairwise_dist": ("src/repro_torch/kernels/csrc/pairwise_dist.cu",
                           "src/repro/kernels/pairwise_dist.py:120"),
@@ -1847,6 +1911,12 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"]})
+        if name == "pairwise_dist":
+            shapes = {f"{r['n']}x{r.get('m') or r['n']}x{r['d']}": r
+                      for r in rows if r["kernel"] == name}
+            out[-1]["ms_by_shape"] = {k: r["ms"] for k, r in shapes.items()}
+            out[-1]["bound_ms_by_shape"] = {k: r["bound_ms"]
+                                            for k, r in shapes.items()}
         if name == "masked_argmin":
             out[-1]["launches_why"] = (
                 "off the main path: vat_prim_order runs the Prim loop that "

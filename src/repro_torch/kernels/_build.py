@@ -34,10 +34,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: The C interface of the library: function name -> argument types.  The
 #: launch functions return the ``cudaError_t`` of their launches as an int.
 SIGNATURES = {
-    # X, Y, norms_x, norms_y, out, n, m, d, kind, is_bf16, y_is_x, stream
-    "repro_pairwise_dist": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # X, norms, out, b, n, d, kind, is_bf16, stream
+    # X, Y, scratch, out, n, m, d, kind, is_bf16, y_is_x, zero_diag, stream
+    "repro_pairwise_dist": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # X, scratch, out, b, n, d, kind, is_bf16, stream
     "repro_pairwise_dist_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # b, n, m, d, y_is_x: 4-byte words of a call's scratch (long long)
+    "repro_pairwise_scratch_words": (_I, _I, _I, _I, _I),
     # vals, mask, b, n, partial, out, stream
     "repro_masked_argmin": (_P, _P, _I, _I, _P, _P, _P),
     "repro_masked_argmin_chunk": (),
@@ -223,6 +225,7 @@ def library() -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_ivat_sparse_words.restype = ctypes.c_longlong
         lib.repro_ivat_scratch_words.restype = ctypes.c_longlong
+        lib.repro_pairwise_scratch_words.restype = ctypes.c_longlong
         MASKED_ARGMIN_CHUNK = lib.repro_masked_argmin_chunk()
         PRIM_STREAM_LANES = lib.repro_prim_stream_lanes()
         VAT_PRIM_SHARED_MAX_N = lib.repro_vat_prim_shared_max_n()

@@ -106,11 +106,13 @@
 #include <cuda_runtime.h>
 
 #include "argmin_key.cuh"
+#include "cp_async.cuh"
 #include "dissim.cuh"
 
 namespace {
 
-using namespace repro_torch;  // ArgKey, pack_key, Kind, accumulate, finish
+using namespace repro_torch;  // ArgKey, pack_key, Kind, accumulate, finish,
+                              // cp_async
 
 constexpr int BM = 128;       // query rows per CTA
 constexpr int BN = 64;        // candidates per tile (one bit each in a mask)
@@ -168,26 +170,6 @@ __device__ __forceinline__ bool screen(float acc, float nx, float ny,
         return fmaxf(fmaf(-2.0f, acc, nx + ny), 0.0f) <= bound;
     if (KIND == MANHATTAN) return acc <= bound;
     return bound >= 0.0f;   // cosine: its division is the finish itself
-}
-
-// cp.async of 4 or 16 bytes; src_bytes = 0 writes zeros and reads nothing.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem,
-                                         int src_bytes) {
-    const unsigned dst =
-        static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    if (BYTES == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(dst), "l"(gmem), "r"(src_bytes));
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                     :: "r"(dst), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-    asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 // One problem's pointers and sizes, as a CTA sees them.

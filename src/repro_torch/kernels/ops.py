@@ -64,10 +64,10 @@ def pairwise_dist(X: torch.Tensor, Y: torch.Tensor | None = None, *,
       (n, m) float32 dissimilarity matrix ((n, n) when Y is None).
     """
     _dispatch_site("pairwise_dist", X.device)
-    if X.is_cuda:
-        R = pairwise_dist_cuda(X, Y, metric=metric, form=form)
-    else:
-        R = ref.pairwise_dissim_ref(X, Y, metric=metric, form=form)
+    if X.is_cuda:   # the kernel writes the self-matrix's zero diagonal
+        return pairwise_dist_cuda(X, Y, metric=metric, form=form,
+                                  zero_diag=Y is None)
+    R = ref.pairwise_dissim_ref(X, Y, metric=metric, form=form)
     if Y is None:  # exact zero diagonal for self-dissimilarities
         R.fill_diagonal_(0.0)
     return R

@@ -4,11 +4,13 @@ The port of ``repro/kernels/pairwise_dist.py::pairwise_dist_pallas`` and,
 with a lane axis (``pairwise_dist_batch_cuda``), of
 ``pairwise_dist_pallas_batch``.  The kernel is ``csrc/pairwise_dist.cu``
 (its opening note gives the design and what bounds it); this module checks
-the inputs, allocates the output and the row-norm scratch, and launches on
-the current stream.  It has no plain fallback: ``kernels/ops.py`` sends CPU
-tensors to ``ref.py`` instead.
+the inputs, allocates the output and the scratch (row norms, feature-major
+copies of the rows), and launches on the current stream.  It has no plain
+fallback: ``kernels/ops.py`` sends CPU tensors to ``ref.py`` instead.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -40,22 +42,43 @@ def check_cuda(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=256)
+def _scratch_words(b: int, n: int, m: int, d: int, y_is_x: bool) -> int:
+    """f32 words of a call's scratch, as the library lays it out (cached:
+    one C call fewer a launch on the repeated shapes of a path)."""
+    return _build.library().repro_pairwise_scratch_words(b, n, m, d,
+                                                         int(y_is_x))
+
+
+def _scratch(b: int, n: int, m: int, d: int, y_is_x: bool,
+             device) -> torch.Tensor:
+    """The kernel's f32 scratch (row norms, feature-major copies of the
+    rows).  Freed on return while the kernel may still run: the caching
+    allocator hands it out again only to later work on this stream, which
+    runs after the kernel."""
+    return torch.empty(_scratch_words(b, n, m, d, y_is_x),
+                       dtype=torch.float32, device=device)
+
+
 def pairwise_dist_cuda(X: torch.Tensor, Y: torch.Tensor | None = None, *,
-                       metric: str = "euclidean",
-                       form: str = "gram") -> torch.Tensor:
+                       metric: str = "euclidean", form: str = "gram",
+                       zero_diag: bool = False) -> torch.Tensor:
     """(n, m) f32 dissimilarity matrix of X (n, d) against Y (m, d).
 
     Args:
       X: (n, d) contiguous CUDA tensor, float32 or bfloat16 (storage only:
         the kernel accumulates in f32).
       Y: (m, d) like X, same dtype, or None for Y = X (the kernel then
-        reuses X's row norms, and R[i, j] == R[j, i] bit for bit).
+        computes one triangle of tiles and mirrors it, so R[i, j] ==
+        R[j, i] bit for bit).
       metric: one of ``ref.METRICS``.
       form: "gram" or "direct" (euclidean / sqeuclidean only).
+      zero_diag: with Y None, write the diagonal as exactly 0 in the
+        kernel's epilogue (``ops.pairwise_dist`` asks for it); by default
+        the diagonal is the kernel's own value.
 
     Returns:
-      (n, m) float32 matrix; the diagonal of a self matrix is the kernel's
-      own value (``ops.pairwise_dist`` writes the exact zero).
+      (n, m) float32 matrix.
     """
     check_metric(metric)
     check_form(form)
@@ -65,6 +88,8 @@ def pairwise_dist_cuda(X: torch.Tensor, Y: torch.Tensor | None = None, *,
         Y = X
     else:
         check_cuda(Y, "Y")
+        if zero_diag:
+            raise ValueError("zero_diag needs Y=None (a self-matrix)")
     if X.dtype not in _DTYPES or Y.dtype != X.dtype:
         raise ValueError(f"X and Y must share a dtype in {_DTYPES}, got "
                          f"{X.dtype} and {Y.dtype}")
@@ -76,17 +101,11 @@ def pairwise_dist_cuda(X: torch.Tensor, Y: torch.Tensor | None = None, *,
     if n == 0 or m == 0 or d == 0:
         raise ValueError(f"empty input: X {tuple(X.shape)}, Y {tuple(Y.shape)}")
     out = torch.empty((n, m), dtype=torch.float32, device=X.device)
-    # Row-norm scratch, freed on return while the kernel may still run:
-    # the caching allocator hands it out again only to later work on this
-    # stream, which runs after the kernel.
-    norms = torch.empty(n + (0 if y_is_x else m), dtype=torch.float32,
-                        device=X.device)
-    lib = _build.library()
-    err = lib.repro_pairwise_dist(
-        X.data_ptr(), Y.data_ptr(), norms.data_ptr(),
-        norms.data_ptr() + 4 * n, out.data_ptr(), n, m, d,
-        _KINDS[(metric, form)], int(X.dtype == torch.bfloat16), int(y_is_x),
-        torch.cuda.current_stream().cuda_stream)
+    scratch = _scratch(1, n, m, d, y_is_x, X.device)
+    err = _build.library().repro_pairwise_dist(
+        X.data_ptr(), Y.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, m,
+        d, _KINDS[(metric, form)], int(X.dtype == torch.bfloat16),
+        int(y_is_x), int(zero_diag), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "pairwise_dist")
     _build.LAUNCHES["pairwise_dist"] += 1
     return out
@@ -103,10 +122,10 @@ def pairwise_dist_batch_cuda(X: torch.Tensor, *, metric: str = "euclidean",
                              form: str = "gram") -> torch.Tensor:
     """(b, n, n) f32 self-dissimilarity matrices of a (b, n, d) stack.
 
-    One launch (and one row-norm pre-pass over all b·n rows): lane z of the
-    grid computes X[z]'s matrix with the tile code of ``pairwise_dist_cuda``,
-    so lane z equals ``pairwise_dist_cuda(X[z])`` bit for bit off the
-    diagonal; the diagonal is written as exactly 0.
+    One launch (and one pre-pass over all b·n rows): lane z of the grid
+    computes X[z]'s matrix with the tile code of ``pairwise_dist_cuda``, so
+    lane z equals ``pairwise_dist_cuda(X[z], zero_diag=True)`` bit for bit;
+    the diagonal is written as exactly 0.
 
     Args:
       X: (b, n, d) contiguous CUDA tensor, float32 or bfloat16, with
@@ -126,9 +145,9 @@ def pairwise_dist_batch_cuda(X: torch.Tensor, *, metric: str = "euclidean",
     b, n, d = X.shape
     check_lanes(b)
     out = torch.empty((b, n, n), dtype=torch.float32, device=X.device)
-    norms = torch.empty(b * n, dtype=torch.float32, device=X.device)
+    scratch = _scratch(b, n, n, d, True, X.device)
     err = _build.library().repro_pairwise_dist_batch(
-        X.data_ptr(), norms.data_ptr(), out.data_ptr(), b, n, d,
+        X.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, n, d,
         _KINDS[(metric, form)], int(X.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "pairwise_dist_batch")

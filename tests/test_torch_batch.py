@@ -85,7 +85,8 @@ def _tree_weight(X, order):
 
 # ----------------------------------------------- row 2: pairwise_dist_batch --
 
-@pytest.mark.parametrize("b,n,d", [(3, 67, 3), (8, 33, 20), (1, 130, 20)])
+@pytest.mark.parametrize("b,n,d", [(3, 67, 3), (8, 33, 20), (1, 130, 20),
+                                   (3, 129, 33)])
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("metric", ref.METRICS)
 def test_pairwise_batch_matches_reference(metric, form, b, n, d):

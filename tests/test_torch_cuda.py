@@ -78,21 +78,44 @@ def cuda():
     return torch.device("cuda")
 
 
+#: (n, m, d, offset) of the pairwise kernel's cases: m None is the
+#: self-matrix (one triangle of tiles, mirrored); offset > 0 starts X that
+#: many floats into its buffer, a base that is not 16-byte aligned.  Self n
+#: around one and two tiles of 128 (a diagonal tile, ragged off-diagonal
+#: tiles), d across the staging depths (8, 16, 32) and both copy widths.
+PAIRWISE_CASES = ([(301, None, 7, 0), (200, 129, 70, 0)]
+                  + [(n, None, d, 0) for n in (127, 128, 129, 255, 257)
+                     for d in (1, 3, 8, 33, 64)]
+                  + [(129, None, 64, 1), (2000, 713, 64, 0),
+                     (1, 300, 3, 0), (2000, 713, 16, 1)])
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,m,d,offset", PAIRWISE_CASES)
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("metric", ref.METRICS)
-def test_cuda_pairwise_against_plain(cuda, metric, form):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    for n, m, d in ((301, None, 7), (200, 129, 70)):
-        X = torch.randn(n, d, device=cuda, generator=gen)
-        Y = None if m is None else torch.randn(m, d, device=cuda,
-                                               generator=gen)
-        got = pairwise_dist_cuda(X, Y, metric=metric, form=form)
-        want = ref.pairwise_dissim_ref(X, Y, metric=metric, form=form)
-        tol = _tolerance(metric, form, X, Y, want)
-        assert float(torch.amax(torch.abs(got - want))) <= tol
-        if Y is None:
-            assert torch.equal(got, got.T)
+def test_cuda_pairwise_against_plain(cuda, metric, form, n, m, d, offset,
+                                     dtype):
+    """Within the pairwise tolerance of the plain version; a self-matrix is
+    exactly symmetric, and ops.pairwise_dist's (the kernel's zero diagonal)
+    equals it off the diagonal bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(n * 100 + d)
+    buf = torch.randn(offset + n * d, device=cuda, generator=gen)
+    X = buf[offset:].view(n, d).to(getattr(torch, dtype))
+    Y = None if m is None else torch.randn(
+        m, d, device=cuda, generator=gen).to(X.dtype)
+    got = pairwise_dist_cuda(X, Y, metric=metric, form=form)
+    want = ref.pairwise_dissim_ref(X, Y, metric=metric, form=form)
+    tol = _tolerance(metric, form, X.float(), None if Y is None
+                     else Y.float(), want)
+    assert float(torch.amax(torch.abs(got - want))) <= tol
+    if Y is None:
+        assert torch.equal(got, got.T)
+        R = ops.pairwise_dist(X, metric=metric, form=form)
+        assert not bool(torch.diagonal(R).any())
+        off = ~torch.eye(n, dtype=torch.bool, device=cuda)
+        assert torch.equal(R[off], got[off])
 
 
 @pytest.mark.cuda
@@ -290,6 +313,27 @@ def test_cuda_prim_stream_step_against_plain(cuda, metric, form):
     assert float(torch.amax(torch.abs(got - want))) <= tol
     pv, pi = ref.masked_argmin_ref(got, sel)
     assert int(nq) == int(pi) and torch.equal(ev.view(1), pv.view(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 64])
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_prim_stream_row_equals_pairwise_row(cuda, metric, form, d):
+    """The step kernel's pivot row, folded into a frontier of +inf, is the
+    pairwise kernel's row q bit for bit (off q itself, which stays
+    selected)."""
+    n, q = 1000, 417
+    X = torch.randn(n, d, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(d))
+    aux = metric_aux_cuda(X, metric=metric)
+    mind = torch.full((n,), torch.inf, device=cuda)
+    sel = torch.zeros(n, dtype=torch.bool, device=cuda)
+    sel[q] = True
+    row, _, _ = prim_stream_step_cuda(X, aux, torch.tensor(q, device=cuda),
+                                      mind, sel, metric=metric, form=form)
+    R = ops.pairwise_dist(X, metric=metric, form=form)
+    assert torch.equal(row[~sel], R[q][~sel])
 
 
 @pytest.mark.cuda
@@ -680,25 +724,28 @@ def test_cuda_approx_fit_launches_its_kernels(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("metric", ref.METRICS)
-def test_cuda_pairwise_batch_against_plain_and_solo(cuda, metric, form):
+@pytest.mark.parametrize("b,n,d", [(1, 301, 7), (3, 17, 70), (8, 67, 3),
+                                   (2, 257, 64), (8, 1500, 33)])
+def test_cuda_pairwise_batch_against_plain_and_solo(cuda, metric, form, b,
+                                                    n, d):
     """b = 1, 3, 8 at odd n and n below one tile: within the pairwise
     tolerance of the stacked plain version, zero diagonals, and each lane
-    the single kernel's matrix bit for bit (f32 and bf16 storage)."""
-    gen = torch.Generator(device=cuda).manual_seed(4)
-    for b, n, d in ((1, 301, 7), (3, 17, 70), (8, 67, 3)):
-        X = torch.randn(b, n, d, device=cuda, generator=gen)
-        for dtype in (torch.float32, torch.bfloat16):
-            Xc = X.to(dtype)
-            got = pairwise_dist_batch_cuda(Xc, metric=metric, form=form)
-            want = ref.pairwise_dissim_batch_ref(Xc, metric=metric,
-                                                 form=form)
-            tol = _tolerance(metric, form, Xc.float().view(b * n, d), None,
-                             want)
-            assert float(torch.amax(torch.abs(got - want))) <= tol
-            assert not bool(torch.diagonal(got, dim1=1, dim2=2).any())
-            for z in range(b):
-                assert torch.equal(got[z], ops.pairwise_dist(
-                    Xc[z], metric=metric, form=form))
+    the single kernel's matrix bit for bit (f32 and bf16 storage).  At
+    (8, 1500) the batch takes tiles of 128 and the solo call tiles of 64:
+    the tile changes no bit."""
+    gen = torch.Generator(device=cuda).manual_seed(4 + n)
+    X = torch.randn(b, n, d, device=cuda, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        Xc = X.to(dtype)
+        got = pairwise_dist_batch_cuda(Xc, metric=metric, form=form)
+        want = ref.pairwise_dissim_batch_ref(Xc, metric=metric, form=form)
+        tol = _tolerance(metric, form, Xc.float().view(b * n, d), None,
+                         want)
+        assert float(torch.amax(torch.abs(got - want))) <= tol
+        assert not bool(torch.diagonal(got, dim1=1, dim2=2).any())
+        for z in range(b):
+            assert torch.equal(got[z], ops.pairwise_dist(
+                Xc[z], metric=metric, form=form))
 
 
 @pytest.mark.cuda

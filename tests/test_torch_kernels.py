@@ -7,6 +7,8 @@ made with numpy from a seed and handed to both.  The CUDA kernels
 themselves run only on a GPU: ``test_torch_cuda.py`` holds them against
 the plain versions there.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -51,7 +53,8 @@ def _jax_pairwise(X, Y, metric, form, use_pallas):
 
 
 @pytest.mark.parametrize("n,m,d", [(67, None, 5), (100, 37, 10),
-                                   (130, 70, 130)])
+                                   (130, 70, 130), (129, None, 3),
+                                   (257, 131, 33), (2, None, 1)])
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("metric", ref.METRICS)
 def test_pairwise_matches_reference(metric, form, n, m, d):
@@ -266,3 +269,36 @@ def test_build_hash_covers_every_source():
         assert "Replaces: src/repro/kernels/" in head, src.name
         assert "bounds it on the H100" in head, src.name
         assert "Design:" in head, src.name
+
+
+def _c_entries() -> dict:
+    """name -> parameter declarations of every ``extern "C"`` definition in
+    ``csrc/*.cu``."""
+    entries = {}
+    for src in _build.CSRC.glob("*.cu"):
+        for m in re.finditer(r'extern "C"[^(;]*?\b(repro_\w+)\s*\(([^)]*)\)',
+                             src.read_text()):
+            params = [p.strip() for p in m.group(2).split(",")]
+            entries[m.group(1)] = [p for p in params if p]
+    return entries
+
+
+def _ctype(param: str):
+    """The ctypes type a C parameter declaration is bound with."""
+    if "*" in param:
+        return _build.ctypes.c_void_p
+    decl = param.rsplit(None, 1)[0].replace("const ", "").strip()
+    return {"int": _build.ctypes.c_int, "float": _build.ctypes.c_float,
+            "long long": _build.ctypes.c_longlong}[decl]
+
+
+def test_signatures_match_every_c_entry():
+    """``_build.SIGNATURES`` binds every C entry of the library with its own
+    argument count and types: a wrong one would pass a pointer cut to 32
+    bits, or shift every argument after it, and only the card would
+    show it."""
+    entries = _c_entries()
+    assert set(entries) == set(_build.SIGNATURES)
+    for name, params in entries.items():
+        assert [_ctype(p) for p in params] == list(_build.SIGNATURES[name]), \
+            name
