@@ -27,7 +27,10 @@ launch (every anchored cell at once) bit for bit against the kNN kernel
 cell by cell, Borůvka on the card against
 Borůvka on the CPU, the approx order at k = n - 1 against the exact
 orders, and every batched lane bit for bit against its solo kernel and
-solo fit; runs the certification sweep (``numerics/certify.py``, 180 fits);
+solo fit, the recording step of the stepwise engines bit for bit against
+the single step, and their loops at one device operation a step (two on
+the sharded engine: its step and NCCL's copy) in a traced traversal;
+runs the certification sweep (``numerics/certify.py``, 180 fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
 
@@ -110,6 +113,35 @@ def device_launches(prof) -> int:
     return sum(e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total)
+
+
+def ops_per_step(prof, name_part: str):
+    """Device operations a step of a traced step loop: every kernel and
+    copy the card ran from the first launch of the step kernel (its name
+    holds ``name_part``) to its last, NCCL's annotations excluded, over the
+    number of those launches; and that number."""
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("nccl:")),
+                 key=lambda e: e.time_range.start)
+    idx = [i for i, e in enumerate(evs) if name_part in e.name]
+    require(idx, f"no {name_part} kernel in the trace")
+    return (idx[-1] - idx[0] + 1) / len(idx), len(idx)
+
+
+def read_floor_ms(torch, build, x) -> float:
+    """Device time of a kernel that only reads the floats of ``x`` once
+    (``repro_read_floor``), warm: the floor for a step that reads them."""
+    lib = build.library()
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(blocks, dtype=torch.int32, device="cuda")
+
+    def run():
+        build.check(lib.repro_read_floor(
+            x.data_ptr(), x.numel(), blocks, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "read_floor")
+    return device_ms(torch, run, reps=200, label="read_floor")
 
 
 def device_ms(torch, fn, *, reps: int, label: str = "") -> float:
@@ -816,6 +848,59 @@ def event_once_ms(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def stepwise_costs(torch, ops, core, X, seed_pivot, traced_n: int = 8_192):
+    """The stepwise engine's step as its loop runs it, on X (n, d) or a
+    (b, n, d) stack: host us a step (the enqueue of 500 steps, the card
+    idle at the start), stream us a step (CUDA events over the next 2,000),
+    and, from a traced traversal of the first ``traced_n`` points, device
+    operations a step, required to be one: the step kernel and nothing
+    else."""
+    from torch.profiler import ProfilerActivity, profile
+    lead = X.shape[:-1]
+    aux = ops.metric_aux(X)
+    i0 = (torch.stack([seed_pivot(x, metric="euclidean") for x in X])
+          if X.dim() == 3 else seed_pivot(X, metric="euclidean"))
+    mind = torch.full(lead, torch.inf, device="cuda")
+    sel = torch.zeros(lead, dtype=torch.bool, device="cuda")
+    order = torch.zeros(lead, dtype=torch.int64, device="cuda")
+    edges = torch.zeros(lead, device="cuda")
+    order[..., 0] = i0
+    sel.scatter_(-1, order[..., :1], True)
+    step = ops.prim_stream_stepper(X, aux, mind, sel, order, edges)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, 501):
+        step(t)
+    host_us = (time.perf_counter() - t0) * 1e6 / 500
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for t in range(501, 2501):
+        step(t)
+    end.record()
+    end.synchronize()
+    Xt = X[..., :traced_n, :].contiguous()
+    run = (core.vat_matrix_free_batch if X.dim() == 3
+           else core.vat_matrix_free)
+    run(Xt, turbo=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(Xt, turbo=False)
+        torch.cuda.synchronize()
+    per_step, launched = ops_per_step(prof, "stream_step_kernel")
+    require(launched == traced_n - 1 and per_step == 1.0,
+            f"the traced stepwise traversal ran {per_step} device "
+            f"operations a step over {launched} step kernels")
+    by_name = kernel_device_ms(prof)
+    kernel_ms = sum(v for k, v in by_name.items() if "stream_step" in k)
+    return {"host_us_per_step": host_us,
+            "stream_us_per_step": start.elapsed_time(end) * 1e3 / 2000,
+            "traced_n": traced_n, "device_ops_per_step": per_step,
+            "traced_kernel_us_per_step": kernel_ms * 1e3 / launched}
+
+
 def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
                      prim_stream_step_cuda, seed_pivot):
     """The flashvat rung at the top of its auto window, its stepwise engine,
@@ -910,8 +995,11 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
             f"stepwise launch counts {step_launches}")
     require(np.array_equal(fs.order(), order),
             "stepwise and persistent engines give different orders")
-    log("flash-stepwise", n=n, fit_wall_s=wall, launches=step_launches,
-        same_order_as_persistent=True)
+    costs = stepwise_costs(torch, ops, core, fv._X.float().contiguous(),
+                           seed_pivot)
+    log("flash-stepwise", n=n, fit_wall_s=wall,
+        fit_us_per_step=wall * 1e6 / (n - 1), launches=step_launches,
+        same_order_as_persistent=True, **costs)
 
     # flashvat against the materialized ordering of the same conditioned
     # data: the pairwise kernel's matrix and the masked-argmin Prim loop
@@ -986,6 +1074,7 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
     sel = torch.rand(n, device="cuda", generator=gen) < 0.5
     q = torch.tensor([int(i0)], device="cuda")
     want, _, _ = ref.prim_stream_step_ref(Xt, aux, q, mind.clone(), sel)
+    rmind, rsel = mind.clone(), sel.clone()
     got, ev, nq = prim_stream_step_cuda(Xt, aux, q, mind, sel)
     step_err = float(torch.amax(torch.abs(got - want)))
     tol = (16 * F32_EPS * float(torch.amax(aux))) ** 0.5
@@ -994,8 +1083,20 @@ def phase_flash_path(torch, rt, ref, ops, build, core, prim_persist_cuda,
             and torch.equal(ev.view(1), pv.view(1)),
             f"prim_stream_step vs plain: err {step_err} (tol {tol}), pair "
             f"({float(ev)}, {int(nq)}) vs ({float(pv)}, {int(pi)})")
+    # the recording step the engine runs: the single step's frontier and
+    # pair, bit for bit, written into the record and the mask
+    rorder = torch.zeros(n, dtype=torch.int64, device="cuda")
+    rorder[0] = q[0]
+    redges = torch.zeros(n, device="cuda")
+    ops.prim_stream_stepper(Xt, aux, rmind, rsel, rorder, redges)(1)
+    sel[int(nq)] = True
+    require(torch.equal(rmind, got) and int(rorder[1]) == int(nq)
+            and torch.equal(redges[1:2], ev.view(1))
+            and torch.equal(rsel, sel),
+            "the recording step differs from the single step")
     log("kernel-check", kernel="prim_stream_step", n=n, d=d,
-        max_abs_err=step_err, tol=tol, pair_bitwise=True)
+        max_abs_err=step_err, tol=tol, pair_bitwise=True,
+        record_equals_single_step=True)
     return {"launches": launches, "step_launches": step_launches,
             "X": Xt, "aux": aux, "i0": i0, "stats": s1.tolist(),
             "plan": plan, "stepwise_fit_s": wall,
@@ -1094,19 +1195,32 @@ def phase_flash_times(torch, ref, ops, flash, prim_stream_step_cuda,
         step_floor=persist_step_floor(torch, ops, prim_persist_cuda,
                                       seed_pivot, n))
     log("time", **persist)
+    from repro_torch.kernels import _build as build
     mind = torch.full((n,), torch.inf, device=X.device)
     sel = torch.zeros(n, dtype=torch.bool, device=X.device)
     sel[int(i0)] = True
     q = i0.view(1)
+    order = torch.zeros(n, dtype=torch.int64, device=X.device)
+    order[0] = i0
+    edges = torch.zeros(n, device=X.device)
+    # the step as the engine runs it: one call of its step object (one
+    # launch); the single-call wrapper also copies X feature-major and
+    # allocates its scratch each call
+    rec = ops.prim_stream_stepper(X, aux, mind.clone(), sel.clone(), order,
+                                  edges)
     step = {"kernel": "prim_stream_step", "n": n,
-            "ms": device_ms(torch, lambda: prim_stream_step_cuda(
-                X, aux, q, mind, sel), reps=200, label="prim_stream_step"),
+            "ms": device_ms(torch, lambda: rec(1), reps=200,
+                            label="prim_stream_step"),
             "plain_ms": device_ms(torch, lambda: ref.prim_stream_step_ref(
                 X, aux, q, mind, sel), reps=50,
                 label="prim_stream_step plain"),
             "library_ms": None,
-            "event_ms": event_ms(torch, lambda: prim_stream_step_cuda(
-                X, aux, q, mind, sel), reps=200)}
+            "library_ms_why": "no single call: a fold then a masked argmin",
+            "event_ms": event_ms(torch, lambda: rec(1), reps=200),
+            "single_call_ms": device_ms(torch, lambda: prim_stream_step_cuda(
+                X, aux, q, mind, sel), reps=50,
+                label="prim_stream_step single call"),
+            "l2_floor_ms": read_floor_ms(torch, build, X)}
     step["bound_ms"], step["bound_by"] = bound_ms(*stream_step_cost(n, d))
     log("time", **step)
     return persist, step
@@ -1269,14 +1383,22 @@ def phase_shard_path(torch, rt, ref, core, build, flash):
                      if e.device_type == DeviceType.CUDA
                      and e.self_device_time_total
                      and not e.key.startswith("nccl:"))
+    # a step's operations: from the first frontier kernel to the last,
+    # the seed scan and the set-up before them left out
+    per_step, steps = ops_per_step(prof, "frontier_step_kernel")
+    require(steps == nt and per_step <= 2.0,
+            f"the traced sharded fit ran {per_step} device operations a "
+            f"step over {steps} frontier kernels, want at most 2")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log("shard-path", n=n, d=d, world_size=1, backend="nccl",
-        fit_wall_s=wall, launches=launches, peak_alloc_mib=peak / 2 ** 20,
+        fit_wall_s=wall, fit_us_per_step=wall * 1e6 / n, launches=launches,
+        peak_alloc_mib=peak / 2 ** 20,
         equals_prim_persist=True, metrics_n4096_wall_s=metrics,
         traced_n=nt, traced_fit_wall_ms=twall * 1e3, device_busy_ms=busy,
         idle_share=1.0 - busy / (twall * 1e3),
         frontier_kernel_ms_per_step=frontier_ms / nt,
-        nccl_ms_per_step=nccl_ms / nt, device_ops_per_step=ops_traced / nt,
+        nccl_ms_per_step=nccl_ms / nt, device_ops_per_step=per_step,
+        device_ops_per_fit_step=ops_traced / nt,
         top_ms={k[:60]: v for k, v in top})
     return launches, wall
 
@@ -1295,16 +1417,24 @@ def phase_frontier_times(torch, ref, prim_frontier_step_cuda, flash, err,
     out = torch.empty(width, device="cuda")
     order = torch.zeros(1, dtype=torch.int64, device="cuda")
     edges = torch.zeros(1, device="cuda")
+    from repro_torch.kernels import _build as build
+    from repro_torch.kernels import ops
+    # the step as the engine runs it: one call of its step object
+    fstep = ops.prim_frontier_stepper(X, aux, table, mind.clone(), out,
+                                      order, edges)
     row = {"kernel": "prim_frontier_step", "n": n,
-           "ms": device_ms(torch, lambda: prim_frontier_step_cuda(
-               X, aux, table, mind, out, order, edges, 0), reps=200,
-               label="prim_frontier_step"),
+           "ms": device_ms(torch, lambda: fstep(0), reps=200,
+                           label="prim_frontier_step"),
            "plain_ms": device_ms(torch, lambda: ref.prim_frontier_round_ref(
                X, aux, table, mind, order, edges, 0, offset=0), reps=50,
                label="prim_frontier_step plain"),
            "library_ms": None,
-           "event_ms": event_ms(torch, lambda: prim_frontier_step_cuda(
-               X, aux, table, mind, out, order, edges, 0), reps=200)}
+           "library_ms_why": "no single call: a fold then a masked argmin",
+           "event_ms": event_ms(torch, lambda: fstep(0), reps=200),
+           "single_call_ms": device_ms(torch, lambda: prim_frontier_step_cuda(
+               X, aux, table, mind, out, order, edges, 0), reps=50,
+               label="prim_frontier_step single call"),
+           "l2_floor_ms": read_floor_ms(torch, build, X)}
     row["bound_ms"], row["bound_by"] = bound_ms(*frontier_step_cost(n, d))
     log("time", **row)
     return {"name": "prim_frontier_step", "route": "cuda",
@@ -1313,7 +1443,8 @@ def phase_frontier_times(torch, ref, prim_frontier_step_cuda, flash, err,
             "launches": launches["prim_frontier_step"], "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None}
+            "library_ms": None, "event_ms": row["event_ms"],
+            "l2_floor_ms": row["l2_floor_ms"]}
 
 
 def phase_dvat(torch, rt, core, build):
@@ -2193,7 +2324,7 @@ def phase_batch_vat(torch, rt, ops, build, card):
     return launches, fv._X
 
 
-def phase_batch_flash(torch, rt, build, card):
+def phase_batch_flash(torch, rt, ops, core, build, card):
     """fit_many at the top of the batched auto window (b = 4, n = 50,000,
     d = 64): the persistent engine (one launch of four groups of CTAs),
     the stepwise engine (n - 1 batched steps), bit for bit against each
@@ -2246,6 +2377,10 @@ def phase_batch_flash(torch, rt, build, card):
             and torch.equal(fs.result.rstar, fv.result.rstar)
             and np.array_equal(fs.image(use_ivat=True), img_iv),
             "batched stepwise and persistent engines differ")
+    from repro_torch.core.vat import _streamed_seed_pivot
+    costs = stepwise_costs(torch, ops, core, fv._X.float().contiguous(),
+                           _streamed_seed_pivot)
+    walls["fit_stepwise_us_per_step"] = walls["fit_stepwise"] * 1e6 / (n - 1)
     s0, walls["solo_fit_lane0"] = wall_s(torch,
                                          lambda: rt.FastVAT().fit(Xs[0]))
     require(np.array_equal(s0.order(), order[0])
@@ -2271,7 +2406,7 @@ def phase_batch_flash(torch, rt, build, card):
         peak_alloc_mib=peak / 2 ** 20, engines_bitwise=True,
         lane0_equals_solo=True, lanes_equal_solo_n16384=True,
         k_est=[r.k_est for r in reps], hopkins=[r.hopkins for r in reps],
-        prim_persist=kernel)
+        prim_persist=kernel, stepwise=costs)
     return step_launches, Xs
 
 
@@ -2397,21 +2532,30 @@ def phase_batch_times(torch, ref, ops, Xv, Xf, errs, vat_launches,
     Xs = torch.from_numpy(Xf).cuda()
     b2, n2, d2 = Xs.shape
     aux = ops.metric_aux(Xs)
+    from repro_torch.kernels import _build as build
     mind = torch.full((b2, n2), torch.inf, device="cuda")
     sel = torch.zeros((b2, n2), dtype=torch.bool, device="cuda")
     q = torch.arange(b2, device="cuda")
     sel.scatter_(1, q.view(b2, 1), True)
+    order = torch.zeros((b2, n2), dtype=torch.int64, device="cuda")
+    order[:, 0] = q
+    edges = torch.zeros((b2, n2), device="cuda")
+    rec = ops.prim_stream_stepper(Xs, aux, mind.clone(), sel.clone(), order,
+                                  edges)
     nbytes, nops = stream_step_cost(n2, d2)
     st = {"kernel": "prim_stream_step_batch", "b": b2, "n": n2, "d": d2,
-          "ms": device_ms(torch, lambda: prim_stream_step_batch_cuda(
-              Xs, aux, q, mind, sel), reps=200,
-              label="prim_stream_step_batch"),
-          "event_ms": event_ms(torch, lambda: prim_stream_step_batch_cuda(
-              Xs, aux, q, mind, sel), reps=200),
+          "ms": device_ms(torch, lambda: rec(1), reps=200,
+                          label="prim_stream_step_batch"),
+          "event_ms": event_ms(torch, lambda: rec(1), reps=200),
+          "single_call_ms": device_ms(
+              torch, lambda: prim_stream_step_batch_cuda(
+                  Xs, aux, q, mind, sel), reps=50,
+              label="prim_stream_step_batch single call"),
           "plain_ms": device_ms(torch, lambda: ref.prim_stream_step_batch_ref(
               Xs, aux, q, mind, sel), reps=20,
               label="prim_stream_step_batch plain"),
-          "library_ms": None}
+          "library_ms": None,
+          "l2_floor_ms": read_floor_ms(torch, build, Xs)}
     st["bound_ms"], st["bound_by"] = bound_ms(b2 * nbytes, b2 * nops)
     log("time", card=card, **st)
     return [
@@ -2425,15 +2569,18 @@ def phase_batch_times(torch, ref, ops, Xv, Xf, errs, vat_launches,
          "timer": "cuda events", "profiler_ms": pw["ms"],
          "plain_ms": pw["plain_ms"], "bound_ms": pw["bound_ms"],
          "bound_by": pw["bound_by"], "library_ms": pw["library_ms"]},
+        # its stream time too: back to back the steps are device-bound,
+        # and torch.profiler has read it at 37 % of that
         {"name": "prim_stream_step_batch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/prim_stream.cu",
          "replaces": "src/repro/kernels/prim_stream.py:265",
          "launches": step_launches["prim_stream_step_batch"],
-         "max_abs_err": errs["prim_stream_step_batch"], "ms": st["ms"],
+         "max_abs_err": errs["prim_stream_step_batch"], "ms": st["event_ms"],
+         "timer": "cuda events", "profiler_ms": st["ms"],
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": st["bound_by"], "library_ms": None,
-         "library_ms_why": "no single PyTorch call folds a row into b "
-                           "frontiers and takes their masked argmins"},
+         "library_ms_why": "no single call: a fold then a masked argmin",
+         "l2_floor_ms": st["l2_floor_ms"]},
     ]
 
 
@@ -2527,7 +2674,9 @@ def main() -> int:
                      "max_abs_err": errs[name], "ms": row["ms"],
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
-                     "library_ms": row["library_ms"]})
+                     "library_ms": row["library_ms"],
+                     **{k: row[k] for k in ("event_ms", "l2_floor_ms")
+                        if k in row}})
     # the sharded path: the frontier kernel, then the engine over NCCL
     frontier_err = check_frontier_kernel(torch, ref, prim_frontier_step_cuda,
                                          gen)
@@ -2553,7 +2702,7 @@ def main() -> int:
     # the batched path: fit_many through the batched kernels
     errs.update(check_batch_kernels(torch, ref, gen, card))
     vat_launches, Xv = phase_batch_vat(torch, rt, ops, build, card)
-    step_launches, Xf = phase_batch_flash(torch, rt, build, card)
+    step_launches, Xf = phase_batch_flash(torch, rt, ops, core, build, card)
     phase_profile(torch, rt, Xf, label="flashvat fit_many b=4 n=50000",
                   many=True)
     rows.append(phase_knn_batch(torch, ref, build, gen, card))

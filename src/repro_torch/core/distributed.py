@@ -12,7 +12,8 @@ points over the ranks of a process group.
   the rank's rows; each step runs the frontier kernel
   (``kernels.ops.prim_frontier_step``) on the rank's shard, then one
   all-gather of every rank's slot — [key, value, aux, point] — from which
-  every rank takes the next pivot.  Orders and edges equal
+  every rank takes the next pivot (the step built once a traversal:
+  ``kernels.ops.prim_frontier_stepper``).  Orders and edges equal
   ``core.vat.vat_matrix_free``'s bit for bit on any number of ranks.
 
 The reference's ``Mesh`` is a process group here: every function takes
@@ -231,10 +232,10 @@ def vat_matrix_free_sharded(X: torch.Tensor, group=None, *,
     mind = torch.where(ids < n, kref.UNSEEN, torch.inf)
     order = torch.empty(n, dtype=torch.int64, device=dev)
     edges = torch.empty(n, dtype=torch.float32, device=dev)
+    step = kops.prim_frontier_stepper(Xl, aux, table, mind, slot, order,
+                                      edges, offset=offset, metric=metric)
     for t in range(n):
-        mind = kops.prim_frontier_step(Xl, aux, table, mind, slot, order,
-                                       edges, t, offset=offset,
-                                       metric=metric)
+        step(t)
         if t < n - 1:
             _all_gather(table.view(-1), slot, group)
     return FlashVATResult(order=order, edges=edges)

@@ -242,9 +242,11 @@ def _prim_stream_order(Xf: torch.Tensor, aux: torch.Tensor,
                        form: str) -> FlashVATResult:
     """n - 1 fused Prim steps from seed i0 (the stepwise engine).
 
-    The frontier starts at +inf, the seed is selected; each step folds the
-    last pivot's row and picks the next vertex.  Every index stays a device
-    tensor, so the loop enqueues without a host sync.
+    The frontier starts at +inf, the seed is selected and recorded; each
+    step reads its pivot from the order, folds its row and records the next
+    vertex itself (``kernels.ops.prim_stream_stepper``): on the card one
+    launch a step and no other op, so the loop enqueues without a host
+    sync.
     """
     n = Xf.shape[0]
     dev = Xf.device
@@ -255,13 +257,10 @@ def _prim_stream_order(Xf: torch.Tensor, aux: torch.Tensor,
     order = torch.zeros(n, dtype=torch.int64, device=dev)
     order[0:1] = q
     edges = torch.zeros(n, dtype=torch.float32, device=dev)
+    step = kops.prim_stream_stepper(Xf, aux, mind, sel, order, edges,
+                                    metric=metric, form=form)
     for t in range(1, n):
-        mind, ev, nq = kops.prim_stream_step(Xf, aux, q, mind, sel,
-                                             metric=metric, form=form)
-        q = nq.view(1)
-        sel.index_fill_(0, q, True)
-        order[t:t + 1] = q
-        edges[t:t + 1] = ev.view(1)
+        step(t)
     return FlashVATResult(order=order, edges=edges)
 
 
@@ -276,8 +275,8 @@ def vat_matrix_free(X: torch.Tensor, *, metric: str = "euclidean",
       * ``turbo=True`` (default): ``kernels.ops.prim_persist`` — on the
         card one launch of the persistent kernel, all n - 1 steps, in the
         schedule ``PERSIST_PRUNE`` names;
-      * ``turbo=False``: n - 1 launches of the fused step kernel
-        (``kernels.ops.prim_stream_step``).
+      * ``turbo=False``: n - 1 launches of the fused step kernel, each
+        recording its vertex (``kernels.ops.prim_stream_stepper``).
 
     Both give the order and edges of ``vat_order`` on the materialized
     matrix of the same device bit for bit: the same per-pair code, exact
@@ -313,25 +312,21 @@ def _prim_stream_order_batch(Xf: torch.Tensor, aux: torch.Tensor,
                              i0: torch.Tensor, *, metric: str,
                              form: str) -> FlashVATResult:
     """n - 1 batched fused Prim steps from seeds i0 (b,): each step is one
-    launch pair for all lanes.  The order is built step-major, (n, b), so
-    each step's pivots are a contiguous row the kernel reads by device
-    index; no host sync."""
+    launch for all lanes, which reads lane z's pivot from ``order[z, t -
+    1]`` and records its next vertex; no host sync."""
     b, n, _ = Xf.shape
     dev = Xf.device
     mind = torch.full((b, n), torch.inf, dtype=torch.float32, device=dev)
     sel = torch.zeros((b, n), dtype=torch.bool, device=dev)
     sel.scatter_(1, i0.view(b, 1), True)
-    order = torch.zeros((n, b), dtype=torch.int64, device=dev)
-    order[0] = i0
-    edges = torch.zeros((n, b), dtype=torch.float32, device=dev)
+    order = torch.zeros((b, n), dtype=torch.int64, device=dev)
+    order[:, 0] = i0
+    edges = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    step = kops.prim_stream_stepper(Xf, aux, mind, sel, order, edges,
+                                    metric=metric, form=form)
     for t in range(1, n):
-        mind, ev, nq = kops.prim_stream_step(Xf, aux, order[t - 1], mind,
-                                             sel, metric=metric, form=form)
-        order[t] = nq
-        edges[t] = ev
-        sel.scatter_(1, order[t].view(b, 1), True)
-    return FlashVATResult(order=order.T.contiguous(),
-                          edges=edges.T.contiguous())
+        step(t)
+    return FlashVATResult(order=order, edges=edges)
 
 
 def vat_matrix_free_batch(X: torch.Tensor, *, metric: str = "euclidean",

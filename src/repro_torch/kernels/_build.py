@@ -71,16 +71,17 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P),
     # b, n, d, block, kind, max_group, out (5 ints)
     "repro_prim_persist_plan": (_I, _I, _I, _I, _I, _I, _P),
-    # X, aux, q, mind, selected, n, d, kind, partial, out, stream
-    "repro_prim_stream_step": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    # X, aux, q, mind, selected, b, n, d, kind, partial, out, stream
-    "repro_prim_stream_step_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                                     _P, _P),
-    "repro_prim_stream_lanes": (),
-    # X, aux, table, P, W, mind, n, d, kind, offset, order_t, edge_t,
-    # partial, out, stream
-    "repro_prim_frontier_step": (_P, _P, _P, _I, _I, _P, _I, _I, _I,
-                                 ctypes.c_longlong, _P, _P, _P, _P, _P),
+    # XT, X, aux, q, mind, selected, b, n, d, kind, scratch, out, stream
+    "repro_prim_stream_step": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                               _P, _P),
+    # args (ReproStreamRecordArgs*, filled once a traversal), t
+    "repro_prim_stream_record": (_P, _I),
+    # b, n: 8-byte words of a traversal's step scratch (long long)
+    "repro_prim_stream_scratch_words": (_I, _I),
+    # args (ReproFrontierStepArgs*, filled once a traversal), t
+    "repro_prim_frontier_step": (_P, _I),
+    # x, count, blocks, out, stream
+    "repro_read_floor": (_P, ctypes.c_longlong, _I, _P, _P),
     # Xq, Xc, aq, ac, qid, cid, nq, nc, d, k, kind, out_d, out_i, stream
     "repro_knn_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                        _P),
@@ -116,10 +117,6 @@ _LIB = None
 #: Lanes one CTA of ``repro_masked_argmin`` reduces (a compile-time constant
 #: of prim_update.cu), read once when ``library()`` loads the library.
 MASKED_ARGMIN_CHUNK = 0
-
-#: Lanes one CTA of ``repro_prim_stream_step`` covers (prim_stream.cu), read
-#: once with the library.
-PRIM_STREAM_LANES = 0
 
 #: Largest n whose Prim frontier ``repro_vat_prim_order`` keeps in shared
 #: memory, and the query rows of one CTA of the kNN kernel (a segmented
@@ -214,7 +211,7 @@ def build() -> pathlib.Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), argtypes set."""
-    global _LIB, MASKED_ARGMIN_CHUNK, PRIM_STREAM_LANES
+    global _LIB, MASKED_ARGMIN_CHUNK
     global VAT_PRIM_SHARED_MAX_N, KNN_BLOCK_ROWS
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
@@ -226,8 +223,8 @@ def library() -> ctypes.CDLL:
         lib.repro_ivat_sparse_words.restype = ctypes.c_longlong
         lib.repro_ivat_scratch_words.restype = ctypes.c_longlong
         lib.repro_pairwise_scratch_words.restype = ctypes.c_longlong
+        lib.repro_prim_stream_scratch_words.restype = ctypes.c_longlong
         MASKED_ARGMIN_CHUNK = lib.repro_masked_argmin_chunk()
-        PRIM_STREAM_LANES = lib.repro_prim_stream_lanes()
         VAT_PRIM_SHARED_MAX_N = lib.repro_vat_prim_shared_max_n()
         KNN_BLOCK_ROWS = lib.repro_knn_block_rows()
         _LIB = lib

@@ -15,8 +15,15 @@ Batched fits (``fit_many``) take the same wrappers with a leading lane axis:
 ``masked_argmin``, ``vat_prim_order``, ``metric_aux``, ``prim_stream_step``
 and ``prim_persist`` on (b, ...) operands.  Every lane's result equals the call
 on that lane alone, bit for bit, on either device.
+
+The step-by-step engines build their step once a traversal
+(``prim_stream_stepper``, ``prim_frontier_stepper``): on the card each
+step is then one C call and one launch, the checks, the copies and the
+scratch done at the build.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,7 +37,8 @@ from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
                                               pairwise_dist_batch_cuda,
                                               pairwise_dist_cuda)
 from repro_torch.kernels.prim_persist import DEFAULT_BLOCK, prim_persist_cuda
-from repro_torch.kernels.prim_stream import (prim_frontier_step_cuda,
+from repro_torch.kernels.prim_stream import (FrontierStep, StreamRecord,
+                                            prim_frontier_step_cuda,
                                             prim_stream_step_batch_cuda,
                                             prim_stream_step_cuda)
 from repro_torch.kernels.prim_update import (masked_argmin_cuda,
@@ -38,7 +46,8 @@ from repro_torch.kernels.prim_update import (masked_argmin_cuda,
 
 __all__ = ["pairwise_dist", "pairwise_dist_batch", "masked_argmin",
            "vat_prim_order", "ivat_from_vat", "metric_aux", "prim_persist",
-           "prim_stream_step", "prim_frontier_step", "knn_topk",
+           "prim_stream_step", "prim_stream_stepper", "prim_frontier_step",
+           "prim_frontier_stepper", "knn_topk",
            "knn_topk_segmented", "knn_graph", "knn_graph_batch", "MAX_K",
            "launch_counts", "reset_launch_counts"]
 
@@ -199,7 +208,7 @@ def prim_stream_step(X: torch.Tensor, aux: torch.Tensor, q: torch.Tensor,
     """One matrix-free Prim step: fold pivot q's row into ``mind``, then the
     masked first-index (min, argmin).  A (b, n, d) stack (aux, mind,
     selected (b, n), q (b,)) steps every lane at once: on the card one
-    launch pair of the batched kernel.
+    launch of the batched kernel.
 
     Returns:
       (new_mind (n,) f32, edge f32 0-d, next int64 0-d); (b, n), (b,) and
@@ -235,8 +244,8 @@ def prim_frontier_step(X: torch.Tensor, aux: torch.Tensor,
     a ``selected`` mask from the +inf lanes and re-masks the folded
     frontier; the port's kernel is in band itself and needs neither.
 
-    On the card one launch of the frontier kernel (a second one-CTA pass
-    above 256 lanes); on the CPU ``ref.prim_frontier_round_ref``.
+    On the card one launch of the frontier kernel; on the CPU
+    ``ref.prim_frontier_round_ref``.
 
     Args:
       X: (n, d) float32 — the shard; aux (n,) its ``metric_aux``.
@@ -263,6 +272,53 @@ def prim_frontier_step(X: torch.Tensor, aux: torch.Tensor,
         form=form)
     slot.copy_(new_slot)
     return new_mind
+
+
+def prim_stream_stepper(X: torch.Tensor, aux: torch.Tensor,
+                        mind: torch.Tensor, selected: torch.Tensor,
+                        order: torch.Tensor, edges: torch.Tensor, *,
+                        metric: str = "euclidean", form: str = "gram"):
+    """The stepwise engine's recording step for one traversal, built once:
+    ``step(t)`` folds pivot ``order[.., t - 1]`` into ``mind`` and writes
+    the masked first-index minimum to ``order[.., t]``, ``edges[.., t]``
+    and ``selected``, all in place (``ref.prim_stream_record_ref``).  X is
+    (n, d) or a (b, n, d) stack, the other tensors (n,) or (b, n).
+
+    On the card ``prim_stream.StreamRecord``: one C call and one kernel
+    launch a step; on the CPU the plain version bound to the tensors.
+    """
+    _dispatch_site("prim_stream_step", X.device)
+    if X.is_cuda:
+        return StreamRecord(X, aux, mind, selected, order, edges,
+                            metric=metric, form=form)
+    return functools.partial(ref.prim_stream_record_ref, X, aux, mind,
+                             selected, order, edges, metric=metric,
+                             form=form)
+
+
+def prim_frontier_stepper(X: torch.Tensor, aux: torch.Tensor,
+                          table: torch.Tensor, mind: torch.Tensor,
+                          slot: torch.Tensor, order: torch.Tensor,
+                          edges: torch.Tensor, *, offset: int = 0,
+                          metric: str = "euclidean", form: str = "gram"):
+    """The sharded engine's step for one traversal of this rank's shard,
+    built once: ``step(t)`` is ``prim_frontier_step`` at t with ``mind``
+    and ``slot`` updated in place.
+
+    On the card ``prim_stream.FrontierStep``: one C call and one kernel
+    launch a step; on the CPU a call of ``prim_frontier_step`` (the plain
+    ``ref.prim_frontier_round_ref``) a step.
+    """
+    if X.is_cuda:
+        _dispatch_site("prim_frontier_step", X.device)
+        return FrontierStep(X, aux, table, mind, slot, order, edges,
+                            offset=offset, metric=metric, form=form)
+
+    def step(t: int) -> None:
+        mind.copy_(prim_frontier_step(X, aux, table, mind, slot, order,
+                                      edges, t, offset=offset, metric=metric,
+                                      form=form))
+    return step
 
 
 def knn_topk(Xq: torch.Tensor, Xc: torch.Tensor, qid: torch.Tensor,

@@ -306,6 +306,43 @@ def prim_stream_step_ref(X: torch.Tensor, aux: torch.Tensor, q,
     return new_mind, edge, nxt
 
 
+def prim_stream_record_ref(X: torch.Tensor, aux: torch.Tensor,
+                           mind: torch.Tensor, selected: torch.Tensor,
+                           order: torch.Tensor, edges: torch.Tensor, t: int,
+                           *, metric: str = "euclidean", form: str = "gram"
+                           ) -> None:
+    """Step t of the stepwise engine, recorded in place: the plain version
+    of ``prim_stream.StreamRecord``.
+
+    The pivot is ``order[t - 1]``; ``prim_stream_step_ref`` folds its row
+    and takes the masked first-index minimum, which becomes ``order[t]``
+    and ``edges[t]`` and is marked in ``selected``; ``mind`` takes the
+    folded frontier.  A (b, n, d) stack (aux, mind, selected, order, edges
+    (b, n)) steps every lane.
+
+    Args:
+      X: (n, d) float — data points; aux (n,) its ``metric_aux_ref``.
+      mind: (n,) float32 — the frontier, updated in place.
+      selected: (n,) bool — the visited lanes, updated in place.
+      order, edges: (n,) int64 and float32 — the traversal so far.
+      t: 1 <= t < n.
+      metric: one of ``METRICS``.
+      form: "gram" (default) or "direct".
+    """
+    if X.dim() == 3:
+        for z in range(X.shape[0]):
+            prim_stream_record_ref(X[z], aux[z], mind[z], selected[z],
+                                   order[z], edges[z], t, metric=metric,
+                                   form=form)
+        return
+    new_mind, edge, nxt = prim_stream_step_ref(
+        X, aux, order[t - 1:t], mind, selected, metric=metric, form=form)
+    mind.copy_(new_mind)
+    order[t:t + 1] = nxt.view(1)
+    edges[t:t + 1] = edge.view(1)
+    selected.index_fill_(0, nxt.view(1), True)
+
+
 def prim_frontier_step_ref(X: torch.Tensor, aux: torch.Tensor,
                            xq: torch.Tensor, auxq: torch.Tensor,
                            mind: torch.Tensor, *, metric: str = "euclidean",

@@ -35,7 +35,8 @@ from repro_torch.kernels.pairwise_dist import (metric_aux_cuda,
                                               pairwise_dist_batch_cuda,
                                               pairwise_dist_cuda)
 from repro_torch.kernels.prim_persist import prim_persist_cuda
-from repro_torch.kernels.prim_stream import (prim_frontier_step_cuda,
+from repro_torch.kernels.prim_stream import (FrontierStep, StreamRecord,
+                                            prim_frontier_step_cuda,
                                             prim_stream_step_batch_cuda,
                                             prim_stream_step_cuda)
 from repro_torch.kernels.prim_update import (masked_argmin_cuda,
@@ -968,6 +969,280 @@ def test_cuda_fit_many_lanes_equal_solo_fits(cuda, method, turbo):
             fv._X, form=fv.result.meta.numerics.form).cpu().numpy()
         fp = FastVAT(method=method, metric="precomputed").fit_many(Ds)
         np.testing.assert_array_equal(fp.order(), fv.order())
+
+
+# ---------------------------------------- the one-launch step kernels ----
+
+#: (n, d) of the step kernels' cases: one lane, one CTA of 128 and its
+#: edges, two CTAs, and the flash path's n; d not a multiple of 4 and 64.
+STEP_SHAPES = [(n, d) for n in (1, 127, 128, 129, 255, 256, 257, 50_000)
+               for d in (5, 7, 64)]
+METRIC_FORMS = (("euclidean", "gram"), ("sqeuclidean", "gram"),
+                ("cosine", "gram"), ("euclidean", "direct"),
+                ("sqeuclidean", "direct"), ("manhattan", "direct"))
+
+
+def _step_tolerance(metric, form, X, want):
+    """``_tolerance``, and for gram-form sqeuclidean at least the Gram
+    cancellation floor itself (16 eps max |x|^2): a row near 0, such as a
+    lane's distance to itself, carries that absolute error whatever its
+    size."""
+    tol = _tolerance(metric, form, X, None, want)
+    if metric == "sqeuclidean" and form == "gram":
+        sq = float(torch.amax(torch.sum(X.double() ** 2, dim=1)))
+        tol = max(tol, 16 * F32_EPS * sq)
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", STEP_SHAPES)
+@pytest.mark.parametrize("metric,form", METRIC_FORMS)
+def test_cuda_one_launch_step_against_plain(cuda, metric, form, n, d):
+    """The step in one launch against ``ref.prim_stream_step_ref``: the
+    frontier within the pairwise tolerance, the pair the plain argmin of the
+    kernel's own frontier bit for bit (±0.0 and +inf lanes included); one
+    launch a call; and the recording step (the engines' entry) gives the
+    parity entry's frontier and pair bit for bit and marks its vertex."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    X = torch.randn(n, d, device=cuda, generator=gen)
+    aux = metric_aux_cuda(X, metric=metric)
+    u = torch.rand(n, device=cuda, generator=gen)
+    mind = torch.where(u < 0.1, torch.inf, torch.where(
+        u < 0.2, -0.0, 4.0 * torch.rand(n, device=cuda, generator=gen)))
+    sel = torch.rand(n, device=cuda, generator=gen) < 0.3
+    q = torch.tensor([n // 3], device=cuda)
+    want, _, _ = ref.prim_stream_step_ref(X, aux, q, mind.clone(), sel,
+                                          metric=metric, form=form)
+    rmind, rsel = mind.clone(), sel.clone()
+    _build.reset_launch_counts()
+    got, ev, nq = prim_stream_step_cuda(X, aux, q, mind, sel, metric=metric,
+                                        form=form)
+    assert _build.launch_counts()["prim_stream_step"] == 1
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isinf(got), ~fin)
+    if bool(fin.any()):
+        tol = _step_tolerance(metric, form, X, want[fin])
+        assert float(torch.amax(torch.abs(got[fin] - want[fin]))) <= tol
+    pv, pi = ref.masked_argmin_ref(got, sel)
+    assert int(nq) == int(pi) and torch.equal(ev.view(1), pv.view(1))
+    assert torch.equal(torch.signbit(ev), torch.signbit(pv))
+    if n > 1:
+        order = torch.zeros(n, dtype=torch.int64, device=cuda)
+        order[0] = q[0]
+        edges = torch.zeros(n, device=cuda)
+        StreamRecord(X, aux, rmind, rsel, order, edges, metric=metric,
+                     form=form)(1)
+        assert torch.equal(rmind, got)
+        assert int(order[1]) == int(nq)
+        assert torch.equal(edges[1].view(1), ev.view(1))
+        assert torch.equal(torch.signbit(edges[1]), torch.signbit(ev))
+        sel[int(nq)] = True
+        assert torch.equal(rsel, sel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [70_000, 2 ** 31 + 5, None])
+@pytest.mark.parametrize("n,d", STEP_SHAPES)
+@pytest.mark.parametrize("metric,form", METRIC_FORMS)
+def test_cuda_one_launch_frontier_against_plain(cuda, metric, form, n, d,
+                                                offset):
+    """The frontier step in one launch against
+    ``ref.prim_frontier_round_ref``: the pivot recorded exactly, its lane
+    closed, +inf lanes (selected and padding) never revived, the other lanes
+    within the pairwise tolerance, and the new slot the kernel's own
+    first-index minimum bit for bit, with global ids past 2^31 and up to
+    2^32 - 1 (offset None: the last shard that fits)."""
+    gen = torch.Generator(device=cuda).manual_seed(3 * n + d)
+    offset = 2 ** 32 - 1 - n if offset is None else offset
+    X = torch.randn(n, d, device=cuda, generator=gen)
+    aux = metric_aux_cuda(X, metric=metric)
+    width = ref.slot_width(d)
+    piv = n // 2
+
+    def slot(v, gid, local):
+        return ref.make_slot(torch.tensor(v, device=cuda),
+                             torch.tensor(gid, device=cuda),
+                             torch.tensor(v, device=cuda), aux[local],
+                             X[local], width)
+
+    table = torch.stack([slot(7.0, 3, 0), slot(2.5, offset + piv, piv),
+                         slot(2.5, 2 ** 32 - 1, 0)])
+    u = torch.rand(n, device=cuda, generator=gen)
+    mind = torch.where(u < 0.3, torch.inf, torch.where(
+        u < 0.6, ref.UNSEEN, 50.0 * torch.rand(n, device=cuda,
+                                               generator=gen)))
+    order = torch.zeros(4, dtype=torch.int64, device=cuda)
+    edges = torch.zeros(4, device=cuda)
+    porder, pedges = order.clone(), edges.clone()
+    want, _ = ref.prim_frontier_round_ref(
+        X, aux, table, mind.clone(), porder, pedges, 3, offset=offset,
+        metric=metric, form=form)
+    was_inf = torch.isinf(mind)
+    out = torch.empty(width, device=cuda)
+    _build.reset_launch_counts()
+    got = prim_frontier_step_cuda(X, aux, table, mind, out, order, edges, 3,
+                                  offset=offset, metric=metric, form=form)
+    assert _build.launch_counts()["prim_frontier_step"] == 1
+    assert torch.equal(order, porder) and torch.equal(edges, pedges)
+    assert int(order[3]) == offset + piv and float(edges[3]) == 2.5
+    assert torch.isinf(got[piv]) and torch.all(torch.isinf(got[was_inf]))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = ~torch.isinf(got)
+    if bool(fin.any()):
+        tol = _step_tolerance(metric, form, X, want[fin])
+        assert float(torch.amax(torch.abs(got[fin] - want[fin]))) <= tol
+    i = int(torch.argmin(got))
+    assert int(ref.slot_id(out)) == offset + i
+    assert torch.equal(out[:2].view(torch.int64), ref.signed_key(
+        got[i], torch.tensor(offset + i, device=cuda)).view(1))
+    assert torch.equal(out[2:4], torch.stack([got[i], aux[i]]))
+    assert torch.equal(out[4:4 + d], X[i]) and torch.all(out[4 + d:] == 0)
+
+
+def _loop_of_single_steps(X, aux, i0, metric, form):
+    """The stepwise traversal as a loop of parity calls, each with its own
+    scratch, the record kept by torch ops."""
+    n = X.shape[0]
+    q = i0.view(1)
+    mind = torch.full((n,), torch.inf, device=X.device)
+    sel = torch.zeros(n, dtype=torch.bool, device=X.device)
+    sel[q] = True
+    order = torch.zeros(n, dtype=torch.int64, device=X.device)
+    order[0:1] = q
+    edges = torch.zeros(n, device=X.device)
+    for t in range(1, n):
+        mind, ev, nq = prim_stream_step_cuda(X, aux, q, mind, sel,
+                                             metric=metric, form=form)
+        q = nq.view(1)
+        sel[q] = True
+        order[t:t + 1] = q
+        edges[t:t + 1] = ev.view(1)
+    return order, edges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 128, 129, 1000])
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_record_steps_reuse_one_scratch(cuda, metric, n):
+    """n - 1 recording steps on one scratch (every ticket reset by the step
+    that drew it, one CTA or eight) give the loop of parity calls' order and
+    edges, and the persistent kernel's, bit for bit; one launch a step;
+    then the frontier step, n steps on one scratch over a world of one
+    (the table refilled from the slot), gives them too."""
+    X = torch.randn(n, 6, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(n))
+    aux = metric_aux_cuda(X, metric=metric)
+    i0 = _streamed_seed_pivot(X, metric=metric)
+    want_o, want_e = _loop_of_single_steps(X, aux, i0, metric, "gram")
+    _build.reset_launch_counts()
+    got = core.vat_matrix_free(X, metric=metric, turbo=False)
+    assert _build.launch_counts()["prim_stream_step"] == n - 1
+    assert torch.equal(got.order, want_o) and torch.equal(got.edges, want_e)
+    turbo = core.vat_matrix_free(X, metric=metric)
+    assert torch.equal(got.order, turbo.order)
+    assert torch.equal(got.edges, turbo.edges)
+    width = ref.slot_width(X.shape[1])
+    zero = torch.zeros((), device=cuda)
+    table = ref.make_slot(zero, i0, zero, aux[i0], X[i0], width).view(1, -1)
+    slot = torch.empty(width, device=cuda)
+    mind = torch.full((n,), ref.UNSEEN, device=cuda)
+    order = torch.empty(n, dtype=torch.int64, device=cuda)
+    edges = torch.empty(n, device=cuda)
+    step = FrontierStep(X, aux, table, mind, slot, order, edges,
+                        metric=metric)
+    for t in range(n):
+        step(t)
+        table.copy_(slot.view(1, -1))
+    assert _build.launch_counts()["prim_frontier_step"] == n
+    assert torch.equal(order, want_o) and torch.equal(edges, want_e)
+
+
+@pytest.mark.cuda
+def test_cuda_record_traversals_interleaved_on_two_streams(cuda):
+    """Two traversals, each with its own step object and scratch, built and
+    stepped on two streams in turns (a step of one, then of the other,
+    never waiting): each equals its traversal alone, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n = 3000
+    Xs = [torch.randn(n, 16, device=cuda, generator=gen) for _ in range(2)]
+    alone = [core.vat_matrix_free(X, turbo=False) for X in Xs]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    steps, records = [], []
+    torch.cuda.synchronize()
+    for X, stream in zip(Xs, streams):
+        with torch.cuda.stream(stream):
+            aux = metric_aux_cuda(X, metric="euclidean")
+            i0 = _streamed_seed_pivot(X, metric="euclidean")
+            mind = torch.full((n,), torch.inf, device=cuda)
+            sel = torch.zeros(n, dtype=torch.bool, device=cuda)
+            sel[i0] = True
+            order = torch.zeros(n, dtype=torch.int64, device=cuda)
+            order[0] = i0
+            edges = torch.zeros(n, device=cuda)
+            steps.append(StreamRecord(X, aux, mind, sel, order, edges))
+            records.append((order, edges))
+    for t in range(1, n):
+        for step in steps:
+            step(t)
+    torch.cuda.synchronize()
+    for (order, edges), want in zip(records, alone):
+        assert torch.equal(order, want.order)
+        assert torch.equal(edges, want.edges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,form", METRIC_FORMS)
+def test_cuda_record_batch_lanes_equal_solo(cuda, metric, form):
+    """A batched recording traversal (one launch a step for every lane,
+    each lane its own ticket) gives each lane its solo traversal's order
+    and edges bit for bit; one launch a step."""
+    b, n = 3, 1000
+    X = torch.randn(b, n, 7, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(b))
+    _build.reset_launch_counts()
+    got = core.vat_matrix_free_batch(X, metric=metric, form=form,
+                                     turbo=False)
+    counts = _build.launch_counts()
+    assert counts["prim_stream_step_batch"] == n - 1
+    assert counts["prim_stream_step"] == 0
+    for z in range(b):
+        solo = core.vat_matrix_free(X[z], metric=metric, form=form,
+                                    turbo=False)
+        assert torch.equal(got.order[z], solo.order)
+        assert torch.equal(got.edges[z], solo.edges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ref.METRICS)
+def test_cuda_record_loop_equals_persist_and_vat_at_4096(cuda, metric):
+    """The recording loop at n = 4,096 == prim_persist == the materialized
+    vat_order, order and edges bit for bit, the edges the matrix's frontier
+    minima."""
+    X = torch.randn(4_096, 32, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    R = ops.pairwise_dist(X, metric=metric)
+    want = vat_order(R)
+    stepw = core.vat_matrix_free(X, metric=metric, turbo=False)
+    turbo = core.vat_matrix_free(X, metric=metric)
+    assert torch.equal(stepw.order, want) and torch.equal(turbo.order, want)
+    assert torch.equal(stepw.edges, turbo.edges)
+    assert torch.equal(stepw.edges[1:], _frontier_minima(R, want))
+
+
+@pytest.mark.cuda
+def test_cuda_read_floor_reads_without_writing(cuda):
+    """The read-floor entry runs over aligned and unaligned bases and
+    writes nothing for ordinary data."""
+    lib = _build.library()
+    x = torch.randn(1_000_003, device=cuda)
+    out = torch.zeros(264, dtype=torch.int32, device=cuda)
+    for base in (x, x[1:]):
+        err = lib.repro_read_floor(base.data_ptr(), base.numel(), 264,
+                                   out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "read_floor")
+    torch.cuda.synchronize()
+    assert int(torch.count_nonzero(out)) == 0
 
 
 # ------------------------------------------------- the sharded engine ----
