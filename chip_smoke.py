@@ -30,7 +30,14 @@ orders, and every batched lane bit for bit against its solo kernel and
 solo fit, the recording step of the stepwise engines bit for bit against
 the single step, and their loops at one device operation a step (two on
 the sharded engine: its step and NCCL's copy) in a traced traversal;
-runs the certification sweep (``numerics/certify.py``, 180 fits);
+drives ``FastVAT(method="bigvat")`` at n = 1,000,000 (its assignment
+blocks bit for bit against one (n, 256) call, and the same fit from an
+``np.memmap``), ``StreamingVAT(cap=256, d=8)`` over 2,000 points, the
+paper's tables over the seven datasets of ``data/synth.py`` (k-means,
+DBSCAN, PCA and t-SNE, each against its CPU run), k-means and DBSCAN at
+16,384 points and t-SNE at 8,192, and an armed ``kernels.dispatch``
+fault site; runs the certification sweep (``numerics/certify.py``, 180
+fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
 
@@ -307,7 +314,10 @@ def check_pairwise(torch, ref, ops, pairwise_dist_cuda, probe_count, gen):
              (2000, 7143, 64), (256, None, 64),
              (probe_count(50_000), 50_000, 64),
              # the ivat rung's matrix at the top of its window
-             (16384, None, 32))
+             (16384, None, 32),
+             # bigvat's assignment block (and its ragged last one at a
+             # million points), and the kmeans tile of cluster-scale
+             (4096, 256, 8), (576, 256, 8), (16384, 8, 32))
     for n, m, d in cases:
         case_worst = {}
         X = torch.randn(n, d, device="cuda", generator=gen)
@@ -2055,6 +2065,351 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
     return out
 
 
+# ------------------------------- bigvat, streaming, the paper's evaluation ----
+
+#: DBSCAN radius and k-means k per dataset of the paper tables, copied from
+#: the reference's benchmarks/vat_tables.py (``_EPS``, ``_K``).
+PAPER_EPS = {"iris": 0.6, "mall": 10.0, "spotify": 1.6, "blobs": 0.8,
+             "moons": 0.12, "circles": 0.12, "gmm": 0.45}
+PAPER_K = {"iris": 3, "mall": 5, "spotify": 4, "blobs": 3, "moons": 2,
+           "circles": 2, "gmm": 3}
+
+
+def phase_bigvat_path(torch, rt, ref, ops, build, core, card):
+    """``FastVAT(method="bigvat").fit(X)`` at a million points (the
+    reference's ``make_big_blobs``: 5 blobs, d = 8, seed 0), then
+    ``order()``, ``image()``, ``image(use_ivat=True)``, ``assess()``.  The
+    assignment pass (one pairwise launch a 4,096-row block) is held bit for
+    bit against one (n, 256) call, and against the plain version outside
+    the near-tie band; the block is timed for the ``kernels`` line."""
+    from repro_torch.data.synth import make_big_blobs
+    n, d, k, block = 1_000_000, 8, 5, 4096
+    X, lab = make_big_blobs(n=n, k=k, d=d, seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(build)
+    walls = {}
+    fv, walls["fit"] = wall_s(torch,
+                              lambda: rt.FastVAT(method="bigvat").fit(X))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = build.launch_counts()
+    routes = require_range_route("bigvat n=1000000 sample iVAT", 1)
+    order, walls["order"] = wall_s(torch, fv.order)
+    img, walls["image"] = wall_s(torch, fv.image)
+    img_iv, walls["image_ivat"] = wall_s(
+        torch, lambda: fv.image(use_ivat=True))
+    rep, walls["assess"] = wall_s(torch, fv.assess)
+    res = fv.result
+    blocks = -(-n // block)
+    require(fv.method_resolved == "bigvat"
+            and res.meta.device.startswith("cuda"),
+            f"bigvat fit: {fv.method_resolved} on {res.meta.device}")
+    require(launches["pairwise_dist"] == blocks + 1
+            and launches["ivat_from_vat"] == 1
+            and launches["vat_prim_order"] == 1
+            and launches["masked_argmin"] == 0,
+            f"bigvat launch counts {launches}: want {blocks} assignment "
+            "blocks + 1 sample matrix, one Prim and one iVAT launch")
+    require(np.array_equal(np.sort(order), np.arange(n)),
+            "bigvat order is not a permutation")
+    sizes = res.group_sizes
+    require(sizes.shape == (256,) and int(sizes.sum()) == n,
+            f"group sizes {tuple(sizes.shape)} sum to {int(sizes.sum())}")
+    require(rep.k_est == k and rep.clustered,
+            f"{k} blobs gave k_est={rep.k_est}, clustered={rep.clustered}")
+    require(img.shape == (256, 256) and img_iv.shape == (256, 256)
+            and np.isfinite(img).all() and np.isfinite(img_iv).all()
+            and bool((img_iv <= img).all()), "bad bigvat images")
+    runs = 1 + int(np.sum(lab[order][1:] != lab[order][:-1]))
+    # a second fit (the first paid one-time costs), then the stages, each
+    # the core function on the fit's own data
+    _, walls["fit_again"] = wall_s(
+        torch, lambda: rt.FastVAT(method="bigvat").fit(X))
+    from repro_torch.api.validation import validate_points
+    from repro_torch.numerics import resolve
+    stages = {}
+    t0 = time.perf_counter()
+    validate_points(X)
+    resolve(X, metric="euclidean")
+    stages["host_prepass"] = time.perf_counter() - t0
+    Xt = fv._X
+    sample, stages["svat_sample"] = wall_s(
+        torch, lambda: core.svat_from(Xt, res.sample_idx[0], s=256))
+    require(torch.equal(sample.sample_idx, res.sample_idx),
+            "the sample refit differs from the fit's")
+    P = Xt.index_select(0, res.sample_idx)
+    (labels, dists), stages["assign_pass"] = wall_s(
+        torch, lambda: core.nearest_prototype_assign(Xt, P, block=block))
+    # the block loop against one (n, 256) call of the same kernel
+    D = ops.pairwise_dist(Xt, P)                       # (n, 256), 1 GB
+    mind, lab_one = torch.min(D, dim=1)
+    require(torch.equal(res.extension_labels, lab_one)
+            and torch.equal(labels, lab_one) and torch.equal(dists, mind),
+            "the assignment blocks differ from one (n, 256) call")
+    # against the plain version: equal labels outside the near-tie band,
+    # where the squared distances to the two nearest prototypes lie within
+    # twice the bound on a gram entry's d^2 (a flip needs both entries off
+    # by that much in opposite directions); the band must hold few points
+    err_sq = 16 * F32_EPS * float(torch.amax(torch.sum(Xt * Xt, 1)))
+    two = torch.topk(D, 2, dim=1, largest=False).values.double()
+    near = (two[:, 1] ** 2 - two[:, 0] ** 2) <= 2 * err_sq
+    del D, two
+    n_near = int(near.sum())
+    require(n_near <= n // 100,
+            f"{n_near} of {n} points in the near-tie band (over 1 %)")
+    lab_plain = torch.argmin(ref.pairwise_dissim_ref(Xt, P), dim=1)
+    differ = lab_plain != lab_one
+    require(not bool((differ & ~near).any()),
+            f"{int((differ & ~near).sum())} labels differ from the plain "
+            "version outside the near-tie band")
+    # the assignment block: kernel, plain version, cdist, bound
+    blk = Xt[:block]
+    kern = lambda: ops.pairwise_dist(blk, P)                # noqa: E731
+    plain = lambda: ref.pairwise_dissim_ref(blk, P)         # noqa: E731
+    row = {"n": block, "m": 256, "d": d, "launches": blocks,
+           "ms": device_ms(torch, kern, reps=50,
+                           label="pairwise_dist assignment block"),
+           "plain_ms": device_ms(torch, plain, reps=50,
+                                 label="pairwise_dist plain assignment"),
+           "library_ms": device_ms(torch, lambda: torch.cdist(blk, P),
+                                   reps=50,
+                                   label="pairwise_dist cdist assignment"),
+           "event_ms": event_ms(torch, kern, reps=50)}
+    row["bound_ms"], row["bound_by"] = bound_ms(*pairwise_cost(block, 256, d))
+    log("time", kernel="pairwise_dist", **row)
+    log("bigvat-path", n=n, d=d, k=k, block=block, card=card,
+        method=fv.method_resolved, launches=launches, ivat_routes=routes,
+        walls_s=walls, stages_s=stages, peak_alloc_mib=peak / 2 ** 20,
+        runs=runs,
+        hopkins=rep.hopkins, block_score=rep.block_score, k_est=rep.k_est,
+        near_tie_points=n_near, near_tie_bound_sq=2 * err_sq,
+        labels_differ_from_plain=int(differ.sum()),
+        blocks_equal_one_call=True)
+    return fv, X, row
+
+
+def phase_bigvat_memmap(torch, rt, fv, X):
+    """The same points from an np.memmap under the git-ignored build
+    directory (deleted after): the fit copies them to the card once and
+    skips the numerics pre-pass; order, labels and group sizes are the
+    ndarray fit's bit for bit."""
+    path = os.path.join(ROOT, "build", "smoke", "bigvat_points.f32")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        mm = np.memmap(path, dtype=np.float32, mode="w+", shape=X.shape)
+        mm[:] = X
+        mm.flush()
+        del mm
+        ro = np.memmap(path, dtype=np.float32, mode="r", shape=X.shape)
+        fm, wall = wall_s(torch, lambda: rt.FastVAT(method="bigvat").fit(ro))
+        del ro
+    finally:
+        os.remove(path)
+    a, b = fm.result, fv.result
+    require(a.meta.numerics is None, "memmap input went through the "
+            "numerics pre-pass")
+    same = {f: bool(torch.equal(getattr(a, f), getattr(b, f)))
+            for f in ("order", "extension_labels", "group_sizes",
+                      "sample_idx")}
+    require(all(same.values()), f"memmap fit differs from the ndarray "
+            f"fit: {same}")
+    log("bigvat-memmap", n=X.shape[0], fit_wall_s=wall, equal=same)
+
+
+def phase_streaming(torch, core):
+    """``StreamingVAT(cap=256, d=8)`` (the reference docstring's example)
+    takes 2,000 points in 200-point chunks: one blob (4 chunks), then three
+    more (2 chunks each).  ``order()`` == ``core.vat`` of the reservoir on
+    the card, bit for bit.  A single blob has no block structure, so its
+    k_est counts noise; the stream must read unclustered (block score <
+    0.3) on it, then clustered, with k_est rising from the second blob's
+    reading to 4 at the end."""
+    from repro_torch.core.streaming import StreamingVAT
+    rng = np.random.default_rng(0)
+    centers = rng.normal(scale=8.0, size=(4, 8))
+    chunks = [centers[c] + rng.normal(size=(200, 8))
+              for c in (0, 0, 0, 0, 1, 1, 2, 2, 3, 3)]
+    sv = StreamingVAT(cap=256, d=8)
+    ingest_s, query_s, trail = 0.0, [], []
+    for chunk in chunks:
+        t0 = time.perf_counter()
+        sv.update(chunk)
+        ingest_s += time.perf_counter() - t0
+        rep, q = wall_s(torch, sv.tendency)
+        query_s.append(q)
+        trail.append(rep)
+    order, order_s = wall_s(torch, sv.order)
+    want = core.vat(torch.from_numpy(sv.pts).cuda()).order.cpu().numpy()
+    require(np.array_equal(order, want),
+            "StreamingVAT order differs from core.vat of its reservoir")
+    s_one, k_two = trail[3][1], trail[5][2]
+    s_end, k_end = trail[-1][1], trail[-1][2]
+    require(s_one < 0.3 and s_end > 0.5 and 2 <= k_two < k_end == 4,
+            f"stream tendency trail (hopkins, score, k_est): {trail}")
+    log("streaming", cap=256, d=8, n_seen=sv.n_seen, reservoir=len(sv.pts),
+        absorbed=int(sv.counts.sum()), ingest_host_s=ingest_s,
+        query_s=query_s, order_s=order_s,
+        trail=[{"hopkins": h, "block_score": s, "k_est": k}
+               for h, s, k in trail])
+
+
+def phase_paper_eval(torch, rt, core):
+    """Tables 2 and 3 of the paper on the card, over the seven datasets:
+    vat and ivat (``FastVAT(method="ivat")``), Hopkins, block score and
+    k_est; k-means and DBSCAN ARI against the labels, each also run on the
+    CPU from the same start (ARI >= 0.99 between them); PCA's variances
+    against the CPU's; the reference tests' bars; then t-SNE on the two
+    cases of ``tests/test_tsne.py``."""
+    from repro_torch.data.synth import DATASETS, make_dataset
+    rows = {}
+    for name in DATASETS:
+        X, y = make_dataset(name)
+        fv, wall = wall_s(torch, lambda: rt.FastVAT(method="ivat").fit(X))
+        rep = fv.assess()
+        iv, rstar = fv.result.ivat_image, fv.result.rstar
+        require(bool(torch.isfinite(iv).all()) and bool((iv <= rstar).all()),
+                f"{name}: bad iVAT image")
+        Xc, Xh = torch.from_numpy(X).cuda(), torch.from_numpy(X)
+        i0 = torch.randint(0, len(X), (), device="cuda", generator=torch.
+                           Generator(device="cuda").manual_seed(0))
+        km = core.kmeans_from(Xc, i0, k=PAPER_K[name])[0]
+        km_cpu = core.kmeans_from(Xh, int(i0), k=PAPER_K[name])[0]
+        db = core.dbscan(Xc, eps=PAPER_EPS[name])
+        db_cpu = core.dbscan(Xh, eps=PAPER_EPS[name])
+        agree = (core.adjusted_rand_index(km, km_cpu),
+                 core.adjusted_rand_index(db, db_cpu))
+        require(km.is_cuda and db.is_cuda and min(agree) >= 0.99,
+                f"{name}: card vs CPU ARI (kmeans, dbscan) {agree}")
+        var = torch.var(core.pca(Xc), dim=0).cpu().double().numpy()
+        var_cpu = torch.var(core.pca(Xh), dim=0).double().numpy()
+        require(var[0] >= var[1] and np.allclose(var, var_cpu, rtol=1e-3),
+                f"{name}: PCA variances {var} vs CPU {var_cpu}")
+        rows[name] = {
+            "n": len(X), "d": X.shape[1], "fit_wall_s": wall,
+            "hopkins": rep.hopkins, "block_score": rep.block_score,
+            "k_est": rep.k_est,
+            "kmeans_ari": (None if y is None
+                           else core.adjusted_rand_index(km, y)),
+            "dbscan_ari": (None if y is None
+                           else core.adjusted_rand_index(db, y)),
+            "kmeans_card_vs_cpu_ari": agree[0],
+            "dbscan_card_vs_cpu_ari": agree[1]}
+        log("paper-eval", dataset=name, **rows[name])
+    require(rows["blobs"]["kmeans_ari"] > 0.95,
+            f"blobs k-means ARI {rows['blobs']['kmeans_ari']}")
+    require(rows["circles"]["dbscan_ari"] > 0.95
+            > rows["circles"]["kmeans_ari"] + 0.5,
+            f"circles: {rows['circles']}")
+    require(rows["moons"]["dbscan_ari"] > 0.9, f"moons: {rows['moons']}")
+    # t-SNE: separates two clusters, shows no structure on spotify
+    rng = np.random.default_rng(0)
+    X2 = torch.from_numpy(np.concatenate([
+        rng.normal(scale=0.3, size=(40, 10)),
+        rng.normal(scale=0.3, size=(40, 10)) + 4.0]).astype(np.float32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Y, wall2 = wall_s(torch, lambda: core.tsne(X2, gen, perplexity=15.0,
+                                               iters=300))
+    a, b = Y[:40].cpu().numpy(), Y[40:].cpu().numpy()
+    gap2 = float(np.linalg.norm(a.mean(0) - b.mean(0)))
+    spread2 = float(max(a.std(), b.std()))
+    require(bool(torch.isfinite(Y).all()) and gap2 > 2.0 * spread2,
+            f"t-SNE two clusters: gap {gap2}, spread {spread2}")
+    Xs = torch.from_numpy(make_dataset("spotify")[0][:150]).cuda()
+    Ys, wall_s2 = wall_s(torch, lambda: core.tsne(
+        Xs, torch.Generator(device="cuda").manual_seed(0), perplexity=20.0,
+        iters=250))
+    lab = core.kmeans(Ys, torch.Generator(device="cuda").manual_seed(1),
+                      k=2)[0].cpu().numpy()
+    Yn = Ys.cpu().numpy()
+    a, b = Yn[lab == 0], Yn[lab == 1]
+    gap_s = float(np.linalg.norm(a.mean(0) - b.mean(0)))
+    spread_s = float(max(a.std(), b.std()))
+    require(gap_s < 4.0 * spread_s,
+            f"t-SNE on spotify: gap {gap_s}, spread {spread_s}")
+    log("paper-eval", tsne_two_clusters={"gap": gap2, "spread": spread2,
+                                         "wall_s": wall2},
+        tsne_spotify={"gap": gap_s, "spread": spread_s, "wall_s": wall_s2})
+
+
+def phase_cluster_scale(torch, core, build):
+    """One timed run of each evaluation tool at a size an analyst would
+    call real: k-means (k = 8, 50 iterations) and DBSCAN at n = 16,384,
+    d = 32, t-SNE (500 iterations) at n = 8,192, d = 32; 8 blobs each."""
+    from repro_torch.core.cluster import _dbscan
+    out = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        res, wall = wall_s(torch, fn)
+        out[label] = {"wall_s": wall,
+                      "peak_alloc_mib": (torch.cuda.max_memory_allocated()
+                                         - base) / 2 ** 20,
+                      "pairwise_launches":
+                          build.launch_counts()["pairwise_dist"]}
+        return res
+
+    n, d, k = 16_384, 32, 8
+    truth = np.repeat(np.arange(k), -(-n // k))[:n]
+    X = torch.from_numpy(blobs(n, d, k=k, seed=3)).cuda()
+    labels, _, inertia = timed("kmeans", lambda: core.kmeans(
+        X, torch.Generator(device="cuda").manual_seed(0), k=k, iters=50))
+    (db, sweeps) = timed("dbscan", lambda: _dbscan(X, 8.0, 5))
+    out["kmeans"]["ari"] = core.adjusted_rand_index(labels, truth)
+    out["dbscan"].update(ari=core.adjusted_rand_index(db, truth),
+                         sweeps=sweeps, eps=8.0,
+                         noise=int((db < 0).sum()))
+    require(out["kmeans"]["pairwise_launches"] == 51
+            and out["dbscan"]["pairwise_launches"] == 1,
+            f"cluster-scale pairwise launches {out}")
+    require(out["kmeans"]["ari"] >= 0.99 and out["dbscan"]["ari"] >= 0.99
+            and bool(torch.isfinite(inertia)),
+            f"cluster-scale k-means / DBSCAN on 8 blobs: {out}")
+    nt = 8_192
+    Xt = torch.from_numpy(blobs(nt, d, k=k, seed=4)).cuda()
+    Y = timed("tsne", lambda: core.tsne(
+        Xt, torch.Generator(device="cuda").manual_seed(0), iters=500))
+    require(Y.shape == (nt, 2) and bool(torch.isfinite(Y).all())
+            and out["tsne"]["pairwise_launches"] == 1,
+            f"t-SNE at n={nt}: {tuple(Y.shape)}, {out['tsne']}")
+    truth_t = np.repeat(np.arange(k), -(-nt // k))[:nt]
+    out["tsne"]["kmeans_on_embedding_ari"] = core.adjusted_rand_index(
+        core.kmeans(Y, torch.Generator(device="cuda").manual_seed(0),
+                    k=k)[0], truth_t)
+    log("cluster-scale", n=n, d=d, tsne_n=nt, **out)
+
+
+def phase_fault_site(torch, ops):
+    """``kernels.dispatch`` armed around one ``ops.pairwise_dist`` on the
+    card: FaultInjected, with the reference's context keys; after
+    ``disarm_all()`` the same call runs."""
+    from repro_torch import faults
+    X = torch.randn(512, 8, device="cuda")
+    seen = []
+    faults.disarm_all()
+    faults.arm("kernels.dispatch",
+               match=lambda ctx: seen.append(dict(ctx)) or True)
+    try:
+        ops.pairwise_dist(X)
+        raised = None
+    except faults.FaultInjected as exc:
+        raised = exc.site
+    finally:
+        faults.disarm_all()
+    R = ops.pairwise_dist(X)
+    torch.cuda.synchronize()
+    require(raised == "kernels.dispatch" and len(seen) == 1
+            and seen[0]["use_pallas"] is True
+            and seen[0]["op"] == "pairwise_dist",
+            f"armed kernels.dispatch: raised {raised}, contexts {seen}")
+    require(R.shape == (512, 512) and not faults.armed(),
+            "the disarmed call failed")
+    log("fault-site", raised=raised, context=seen[0], after_disarm="ran")
+
+
 # ------------------------------------------------------- batched fits ----
 
 def check_batch_kernels(torch, ref, gen, card):
@@ -2708,8 +3063,23 @@ def main() -> int:
     rows.append(phase_knn_batch(torch, ref, build, gen, card))
     rows += phase_batch_times(torch, ref, ops, Xv, Xf, errs, vat_launches,
                               step_launches, card)
+    # the eleventh slice: bigvat, streaming, the paper's evaluation, faults
+    t_new = time.perf_counter()
+    fv_big, X_big, assign_row = phase_bigvat_path(torch, rt, ref, ops, build,
+                                                  core, card)
+    phase_bigvat_memmap(torch, rt, fv_big, X_big)
+    del fv_big, X_big
+    phase_streaming(torch, core)
+    phase_paper_eval(torch, rt, core)
+    phase_cluster_scale(torch, core, build)
+    phase_fault_site(torch, ops)
+    new_s = time.perf_counter() - t_new
+    row1 = next(r for r in rows if r["name"] == "pairwise_dist")
+    row1["assignment_block"] = assign_row
+    row1["ms_by_shape"]["4096x256x8"] = assign_row["ms"]
+    row1["bound_ms_by_shape"]["4096x256x8"] = assign_row["bound_ms"]
     phase_certify(torch)
-    log("done", total_s=time.perf_counter() - t0)
+    log("done", total_s=time.perf_counter() - t0, new_phases_s=new_s)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,14 @@ The same surface as ``repro.FastVAT`` for the rungs ported so far:
                                                error on ``meta.approx``
 
 plus the opt-in rungs ``ivat`` (the geodesic image), ``svat`` (the VAT of
-a maximin sample) and ``dvat`` (matrix-free distributed VAT over a
-``torch.distributed`` process group of more than one rank, with the svat
-image).  When the default process group has more than one rank, flashvat
-shards its traversal over it from n = 4,096 (``turbo=None``, the gram
-form), each rank calling ``fit`` on the same points.  The fit runs on
+a maximin sample), ``bigvat`` (the svat sample extended to all n points by
+a tiled nearest-prototype pass; np.memmap input is copied to the device
+once and skips the numerics pre-pass) and ``dvat`` (matrix-free
+distributed VAT over a ``torch.distributed`` process group of more than
+one rank, with the svat image).  When the default process group has more
+than one rank, flashvat shards its traversal over it from n = 4,096
+(``turbo=None``, the gram form), each rank calling ``fit`` on the same
+points.  The fit runs on
 ``device`` (default
 "cuda": the CUDA kernels of ``kernels/csrc``); ``device="cpu"`` runs the
 plain PyTorch versions.  Without a GPU the default device raises
@@ -57,6 +60,7 @@ from repro_torch.api.result import (SALT_ASSESS, SALT_HOPKINS, ResultMeta,
                                     device_scope)
 from repro_torch.api.validation import (InvalidInput, validate_dissimilarity,
                                        validate_points)
+from repro_torch.core.bigvat import DEFAULT_BLOCK
 from repro_torch.numerics import as_policy
 from repro_torch.numerics import resolve as resolve_numerics
 
@@ -85,7 +89,9 @@ class FastVAT:
     seed:      the single seed every sampling path (device and host side)
                derives from — see ``ResultMeta``.
     sample_size: m, the representatives the banded render of flashvat and
-               approx draws (its image and ``rstar`` are (m, m)).
+               approx draws (its image and ``rstar`` are (m, m)), and the s
+               of the svat and bigvat samples.
+    block:     rows a tile of bigvat's nearest-prototype pass.
     turbo:     flashvat's traversal engine — None (default) the persistent
                kernel, or the sharded engine under a process group of more
                than one rank from n = 4,096; True the solo persistent
@@ -107,9 +113,9 @@ class FastVAT:
     """
 
     def __init__(self, method: str = "auto", *, metric: str = "euclidean",
-                 sample_size: int = 256, turbo: bool | None = None,
-                 knn_k: int = 15, seed: int = 0, validate: bool = True,
-                 numerics="auto", device="cuda"):
+                 sample_size: int = 256, block: int = DEFAULT_BLOCK,
+                 turbo: bool | None = None, knn_k: int = 15, seed: int = 0,
+                 validate: bool = True, numerics="auto", device="cuda"):
         if method in registry.UNPORTED:
             raise registry.not_ported(method)
         methods = registry.methods()
@@ -120,6 +126,7 @@ class FastVAT:
         self.method = method
         self.metric = metric
         self.sample_size = sample_size
+        self.block = block
         self.turbo = turbo
         self.knn_k = knn_k
         self.seed = seed
@@ -210,8 +217,8 @@ class FastVAT:
                           sample_size=self.sample_size, numerics=num_report)
         with device_scope(dev):
             self.result = fitter(data, meta, RungOptions(
-                sample_size=self.sample_size, turbo=self.turbo,
-                knn_k=self.knn_k,
+                sample_size=self.sample_size, block=self.block,
+                turbo=self.turbo, knn_k=self.knn_k,
                 num_form=(num_report.form if num_report is not None
                           else "gram")))
         self.method_resolved = method
@@ -222,8 +229,8 @@ class FastVAT:
         """Run the resolved rung on one dataset.
 
         Args:
-          X: (n, d) array-like of points (numpy, or a tensor on any
-            device), or — with ``metric="precomputed"`` — an (n, n)
+          X: (n, d) array-like of points (numpy, np.memmap, or a tensor on
+            any device), or — with ``metric="precomputed"`` — an (n, n)
             dissimilarity matrix (square, symmetric, zero diagonal).
 
         Returns:
@@ -301,13 +308,14 @@ class FastVAT:
 
     def order(self) -> np.ndarray:
         """VAT ordering, as a host array: of all n points (vat, ivat,
-        flashvat, approx, dvat) or of the sample (svat — ``sample_indices()``
-        maps it back to dataset rows); (b, n) after ``fit_many``."""
+        bigvat, flashvat, approx, dvat) or of the sample (svat —
+        ``sample_indices()`` maps it back to dataset rows); (b, n) after
+        ``fit_many``."""
         return self._require_fit().order.cpu().numpy()
 
     def sample_indices(self) -> np.ndarray | None:
         """Dataset rows of the representatives (flashvat, approx) or of the
-        maximin sample (svat, dvat), else None."""
+        maximin sample (svat, bigvat, dvat), else None."""
         idx = self._require_fit().sample_idx
         return None if idx is None else idx.cpu().numpy()
 
@@ -321,7 +329,9 @@ class FastVAT:
     def _hopkins_subsample(self, X: torch.Tensor, meta: ResultMeta,
                            cap: int = 2_048) -> torch.Tensor:
         """Uniform random rows of X (all of them up to ``cap``) for the
-        Hopkins statistic, as f32; the rows come from ``meta.host_rng``."""
+        Hopkins statistic, as f32; the rows come from ``meta.host_rng``.
+        Maximin prototypes are spread out on purpose, which biases Hopkins
+        toward 0.5, so svat and bigvat probe the data, not their sample."""
         n = X.shape[0]
         if n <= cap:
             return X.float()

@@ -6,15 +6,15 @@ adapter that runs a ``repro_torch.core`` rung and wraps its output into
 the uniform ``TendencyResult``), its capability flags and its
 auto-selection threshold.
 
-The port registers the ``vat``, ``ivat``, ``svat``, ``flashvat``,
-``approx`` and ``dvat`` rungs; the first, fourth and fifth cover every n
-under auto-selection.  The reference's other rungs (both opt-in) are listed
-in ``UNPORTED``: ``FastVAT`` raises ``NotImplementedError`` naming the one
-asked for instead of quietly running another.
+The port registers the ``vat``, ``ivat``, ``svat``, ``bigvat``,
+``flashvat``, ``approx`` and ``dvat`` rungs; ``vat``, ``flashvat`` and
+``approx`` cover every n under auto-selection.  The reference's other rung
+(``embed``, opt-in) is listed in ``UNPORTED``: ``FastVAT`` raises
+``NotImplementedError`` naming it instead of quietly running another.
 
 >>> from repro_torch.api import registry
 >>> sorted(registry.registered())
-['approx', 'dvat', 'flashvat', 'ivat', 'svat', 'vat']
+['approx', 'bigvat', 'dvat', 'flashvat', 'ivat', 'svat', 'vat']
 >>> registry.select_method(100), registry.select_method(10_000)
 ('vat', 'flashvat')
 >>> registry.select_method(1_000_000)
@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from repro_torch import core
 from repro_torch.api.result import SALT_FIT, ResultMeta, TendencyResult
+from repro_torch.core.bigvat import DEFAULT_BLOCK
 from repro_torch.kernels import ops as kops
 
 #: Auto-selection thresholds, the reference's: materialized exact VAT up to
@@ -51,9 +52,9 @@ MEDIUM_N = 50_000
 #: more than they parallelize.
 FLASH_SHARD_MIN_N = 4_096
 
-#: Rungs of the reference the port does not have yet; both are opt-in (no
+#: Rungs of the reference the port does not have yet; opt-in (no
 #: auto-selection threshold), so auto-selection never reaches them.
-UNPORTED = ("bigvat", "embed")
+UNPORTED = ("embed",)
 
 
 class RungOptions(NamedTuple):
@@ -61,7 +62,8 @@ class RungOptions(NamedTuple):
     ``ResultMeta``).
 
     ``sample_size`` is m, the representatives flashvat's banded render
-    draws (and the s of svat and of dvat's image).  ``turbo`` picks
+    draws (and the s of svat, bigvat and dvat's image).  ``block`` is the
+    row-block size of bigvat's tiled assignment pass.  ``turbo`` picks
     flashvat's traversal engine: None (default) lets the rung choose — the
     persistent kernel solo, or the sharded engine when the default process
     group has more than one rank and n is worth the collectives; True
@@ -76,6 +78,7 @@ class RungOptions(NamedTuple):
     cancellation).  The facade sets it from ``numerics.resolve``.
     """
     sample_size: int = 256
+    block: int = DEFAULT_BLOCK
     turbo: bool | None = None
     knn_k: int = 15
     num_form: str = "gram"
@@ -250,6 +253,22 @@ def _fit_svat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     return TendencyResult(order=res.vat.order, rstar=res.vat.rstar,
                           ivat_image=None, sample_idx=res.sample_idx,
                           extension_labels=None, meta=meta)
+
+
+def _fit_bigvat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
+    """Big-VAT: the svat sample (the same start as svat's, from
+    ``meta.generator(SALT_FIT)``), its iVAT image, and the tiled
+    nearest-prototype extension to all n points; ``order`` is all n
+    points, ``rstar`` and ``ivat_image`` the sample's, and the image is
+    expanded by ``group_sizes``."""
+    res = core.bigvat(data.float(), meta.generator(SALT_FIT),
+                      s=opts.sample_size, block=opts.block,
+                      metric=meta.metric)
+    return TendencyResult(order=res.order, rstar=res.sample.vat.rstar,
+                          ivat_image=res.ivat,
+                          sample_idx=res.sample.sample_idx,
+                          extension_labels=res.labels,
+                          group_sizes=res.group_sizes, meta=meta)
 
 
 def _flash_groups(n: int, m: int):
@@ -438,6 +457,10 @@ register(Rung(
 register(Rung(
     name="svat", fit=_fit_svat, auto_threshold=None,
     description="maximin sample VAT, O(ns + s^2); opt-in"))
+register(Rung(
+    name="bigvat", fit=_fit_bigvat, auto_threshold=None,
+    description="maximin sample VAT + tiled nearest-prototype extension "
+                "to all n points, no (n, n) object; opt-in"))
 register(Rung(
     name="flashvat", fit=_fit_flashvat, fit_batch=_fit_flashvat_batch,
     supports_precomputed=False, auto_threshold=MEDIUM_N,

@@ -1,26 +1,33 @@
 """Fast-VAT core on PyTorch: the ``vat``, ``ivat``, ``flashvat``,
-``approx``, ``svat`` and ``dvat`` rungs' modules, the sharded flashvat
-engine on ``torch.distributed``, and the pure-Python oracle ``naive``.
+``approx``, ``svat``, ``bigvat`` and ``dvat`` rungs' modules, the sharded
+flashvat engine on ``torch.distributed``, ``StreamingVAT``, the paper's
+evaluation tools (``kmeans``, ``dbscan``, ``adjusted_rand_index``, ``pca``,
+``tsne``), and the pure-Python oracle ``naive``.
 
 The user-facing facade with automatic method selection is
-``repro_torch.api.FastVAT``; ``bigvat``'s pipeline and the streaming rungs
-of ``repro.core`` are later slices of the port.  ``torch.distributed`` is
-part of torch, so the distributed module needs no import guard.
+``repro_torch.api.FastVAT``.  ``torch.distributed`` is part of torch, so
+the distributed module needs no import guard.
 """
 from repro_torch.core.approx_mst import (AnchorCells, ApproxStats,
                                          ApproxVATResult, MSTEdges,
                                          anchor_cells, approx_vat,
                                          boruvka_mst, knn_graph_anchored,
                                          mst_vat_order)
-from repro_torch.core.bigvat import expand_image
+from repro_torch.core.bigvat import (BigVATResult, bigvat, bigvat_from,
+                                     expand_image, nearest_prototype_assign,
+                                     smoothed_image)
+from repro_torch.core.cluster import (adjusted_rand_index, dbscan, kmeans,
+                                      kmeans_from, pca)
 from repro_torch.core.distributed import (DVATResult, dvat,
                                           pairwise_dist_sharded,
                                           vat_matrix_free_sharded)
 from repro_torch.core.hopkins import hopkins, hopkins_draws, hopkins_from_draws
 from repro_torch.core.ivat import (ivat, ivat_batch, ivat_batch_from_dist,
                                    ivat_batch_from_vat, ivat_from_vat)
+from repro_torch.core.streaming import StreamingVAT
 from repro_torch.core.svat import (SVATResult, maximin_sample,
                                    maximin_sample_from, svat, svat_from)
+from repro_torch.core.tsne import tsne, tsne_from
 from repro_torch.core.vat import (FlashVATResult, VATResult,
                                   block_structure_score, reorder,
                                   reorder_batch, vat, vat_batch,
@@ -41,4 +48,8 @@ __all__ = [
     "svat", "svat_from", "maximin_sample", "maximin_sample_from",
     "SVATResult", "dvat", "DVATResult", "pairwise_dist_sharded",
     "vat_matrix_free_sharded",
+    "bigvat", "bigvat_from", "BigVATResult", "nearest_prototype_assign",
+    "smoothed_image", "StreamingVAT",
+    "kmeans", "kmeans_from", "dbscan", "adjusted_rand_index", "pca",
+    "tsne", "tsne_from",
 ]

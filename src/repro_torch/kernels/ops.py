@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from repro_torch import faults
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.ivat_update import ivat_from_vat_cuda
@@ -53,8 +54,14 @@ __all__ = ["pairwise_dist", "pairwise_dist_batch", "masked_argmin",
 
 
 def _dispatch_site(op: str, device: torch.device) -> None:
-    """The ``kernels.dispatch`` fault-injection site, a no-op until the
-    port has its fault registry (the reference's ``repro.faults``)."""
+    """The ``kernels.dispatch`` fault-injection site, called at the top of
+    every public wrapper.  The context carries the reference's keys,
+    ``op`` and ``use_pallas`` (True when the call goes to a CUDA kernel),
+    and the ``device``; disarmed, ``fault_point`` returns after one dict
+    truthiness check."""
+    faults.fault_point("kernels.dispatch", context={
+        "op": op, "use_pallas": device.type == "cuda",
+        "device": str(device)})
 
 
 def pairwise_dist(X: torch.Tensor, Y: torch.Tensor | None = None, *,

@@ -14,12 +14,34 @@ matrix in) is an API-layer concept and never reaches this module.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.numerics.condition import check_form
 
 #: Metrics every pairwise path (plain version and CUDA tile) implements.
 METRICS = ("euclidean", "sqeuclidean", "manhattan", "cosine")
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run the block's f32 matmuls in full f32 (no TF32), whatever the
+    caller set for the process, and restore the caller's setting after.
+
+    Uses ``torch.backends.cuda.matmul.fp32_precision`` where torch has it
+    (mixing it with the legacy ``allow_tf32`` flag makes torch raise),
+    else ``allow_tf32``.
+    """
+    m = torch.backends.cuda.matmul
+    attr, off = (("fp32_precision", "ieee") if hasattr(m, "fp32_precision")
+                 else ("allow_tf32", False))
+    saved = getattr(m, attr)
+    setattr(m, attr, off)
+    try:
+        yield
+    finally:
+        setattr(m, attr, saved)
 
 
 def check_metric(metric: str):

@@ -1,9 +1,8 @@
 """Conditioning pre-pass: scale diagnostics, κ, and the policy resolver.
 
 The port's own copy of ``repro/numerics/condition.py``: host-side numpy,
-ported verbatim apart from the fault hook at the bf16 certification, which
-is a local no-op (``_fault_point``) with the reference's site name until
-the port has its fault registry.
+ported verbatim; its bf16 certification carries the port's
+``kernels.numerics_trip`` fault site (``repro_torch.faults``).
 
 The fast engines buy speed with the Gram decomposition ``‖x‖² + ‖y‖² −
 2 x·y``, whose cancellation error is ABSOLUTE — up to ``C·eps·max‖x‖²``
@@ -67,6 +66,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import faults
+
 #: Largest condition estimate at which the Gram-form tiles are
 #: certifiably order-safe (see module docstring for the derivation:
 #: 64·eps·max_sq ≤ gap/16  ⇔  κ ≤ 1/(1024·eps_f32) = 8192).
@@ -91,12 +92,6 @@ _F32_EPS = float(np.finfo(np.float32).eps)
 _MODES = ("fast", "safe", "auto")
 _DTYPES = ("f32", "bf16")
 _FORMS = ("gram", "direct")
-
-
-def _fault_point(site: str, *, context: dict | None = None) -> bool:
-    """The fault-injection site ``site``: returns True when a fault was
-    injected there.  A no-op here (nothing is ever armed)."""
-    return False
 
 
 def lb_slack_ulps(form: str) -> float:
@@ -352,9 +347,12 @@ def resolve(X, *, metric: str, policy: NumericsPolicy | str | None = None,
     if policy.dtype == "bf16":
         kappa_eff = stats.kappa_centered if condition else stats.kappa
         certified = conditionable and kappa_eff <= KAPPA_BF16
-        if _fault_point("kernels.numerics_trip",
-                        context={"metric": metric, "mode": policy.mode,
-                                 "kappa": kappa_eff, "certified": certified}):
+        try:
+            faults.fault_point("kernels.numerics_trip",
+                               context={"metric": metric, "mode": policy.mode,
+                                        "kappa": kappa_eff,
+                                        "certified": certified})
+        except faults.FaultInjected:
             certified = False
         if certified:
             Xout = _quantize_bf16(Xout)

@@ -1403,6 +1403,135 @@ def test_cuda_sharded_over_every_card(cuda, tmp_path):
     assert f"NCCL_WORLD_OK {cards}" in out, err[-3000:]
 
 
+# ------------------------------------- bigvat, streaming, faults, eval ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1_000, 4_096, 50_001])
+def test_cuda_bigvat_block_loop_equals_one_call(cuda, block):
+    """The assignment pass, block by block, gives the (argmin, min) of one
+    (n, s) ``pairwise_dist`` call bit for bit (the kernel computes each
+    entry from its own row and column), and the fit launches the pairwise
+    kernel once a block plus once for the sample."""
+    from repro_torch.data.synth import make_big_blobs
+    X = torch.from_numpy(make_big_blobs(50_001)[0]).to(cuda)
+    _build.reset_launch_counts()
+    res = core.bigvat_from(X, 17, s=256, block=block)
+    counts = _build.launch_counts()
+    assert counts["pairwise_dist"] == -(-50_001 // block) + 1
+    assert counts["vat_prim_order"] == 1 and counts["ivat_from_vat"] == 1
+    P = X.index_select(0, res.sample.sample_idx)
+    D = ops.pairwise_dist(X, P)
+    mind, lab = torch.min(D, dim=1)
+    assert torch.equal(res.labels, lab)
+    assert torch.equal(res.proto_dist, mind)
+    assert torch.equal(torch.sort(res.order).values,
+                       torch.arange(50_001, device=cuda))
+    assert int(res.group_sizes.sum()) == 50_001
+
+
+@pytest.mark.cuda
+def test_cuda_bigvat_memmap_equals_tensor(cuda, tmp_path):
+    from repro_torch import FastVAT
+    from repro_torch.data.synth import make_big_blobs
+    X = make_big_blobs(30_000)[0]
+    mm = np.memmap(tmp_path / "X.f32", dtype=np.float32, mode="w+",
+                   shape=X.shape)
+    mm[:] = X
+    mm.flush()
+    a = FastVAT(method="bigvat").fit(mm).result
+    b = FastVAT(method="bigvat").fit(X).result
+    assert a.order.is_cuda
+    for f in ("order", "extension_labels", "group_sizes", "sample_idx"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_order_equals_vat(cuda):
+    """StreamingVAT on the card: the reservoir is the CPU stream's (host
+    numpy), and ``order()`` is ``core.vat`` of it on the card, bit for
+    bit."""
+    from repro_torch.core.streaming import StreamingVAT
+    rng = np.random.default_rng(0)
+    sv = StreamingVAT(cap=256, d=8)
+    host = StreamingVAT(cap=256, d=8, device="cpu")
+    for c in range(4):
+        chunk = rng.normal(size=(200, 8)) + 10.0 * c
+        sv.update(chunk)
+        host.update(chunk)
+    np.testing.assert_array_equal(sv.pts, host.pts)
+    want = core.vat(torch.from_numpy(sv.pts).to(cuda)).order
+    np.testing.assert_array_equal(sv.order(), want.cpu().numpy())
+    h, score, k = sv.tendency()
+    assert 0.0 < h < 1.0 and k >= 2
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_fault_site(cuda):
+    """An armed ``kernels.dispatch`` raises from the wrapper on the card,
+    with ``use_pallas`` True; disarmed, the same call runs."""
+    from repro_torch import faults
+    X = torch.randn(64, 8, device=cuda)
+    seen = []
+    faults.disarm_all()
+    try:
+        faults.arm("kernels.dispatch",
+                   match=lambda ctx: seen.append(dict(ctx)) or True)
+        with pytest.raises(faults.FaultInjected):
+            ops.pairwise_dist(X)
+    finally:
+        faults.disarm_all()
+    assert seen == [{"op": "pairwise_dist", "use_pallas": True,
+                     "device": str(X.device)}]
+    assert ops.pairwise_dist(X).shape == (64, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["blobs", "moons", "circles", "gmm"])
+def test_cuda_kmeans_dbscan_agree_with_cpu(cuda, name):
+    from repro_torch.data.synth import make_dataset
+    eps = {"blobs": 0.8, "moons": 0.12, "circles": 0.12, "gmm": 0.45}
+    X, _ = make_dataset(name)
+    Xc, Xh = torch.from_numpy(X).to(cuda), torch.from_numpy(X)
+    k = 2 if name in ("moons", "circles") else 3
+    km_c = core.kmeans_from(Xc, 5, k=k)[0]
+    km_h = core.kmeans_from(Xh, 5, k=k)[0]
+    assert core.adjusted_rand_index(km_c, km_h) >= 0.99
+    db_c = core.dbscan(Xc, eps=eps[name])
+    db_h = core.dbscan(Xh, eps=eps[name])
+    assert db_c.is_cuda
+    assert core.adjusted_rand_index(db_c, db_h) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_eval_products_ignore_a_global_tf32(cuda):
+    """k-means centres, t-SNE steps and PCA on the card are the same bits
+    with TF32 switched on for the process as with it off: their products
+    run in full f32."""
+    from repro_torch.data.synth import make_dataset
+    X = torch.from_numpy(make_dataset("gmm")[0]).to(cuda)
+    Y0 = 1e-2 * torch.randn((X.shape[0], 2), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(0))
+
+    def run():
+        _, centres, inertia = core.kmeans_from(X, 5, k=3)
+        return (centres, inertia, core.tsne_from(X, Y0, iters=20),
+                core.pca(X, k=2))
+
+    m = torch.backends.cuda.matmul
+    attr, on, off = (("fp32_precision", "tf32", "ieee")
+                     if hasattr(m, "fp32_precision")
+                     else ("allow_tf32", True, False))
+    saved = getattr(m, attr)
+    try:
+        setattr(m, attr, off)
+        want = run()
+        setattr(m, attr, on)
+        got = run()
+    finally:
+        setattr(m, attr, saved)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
 if __name__ == "__main__":
     import torch.multiprocessing as mp
     _world = int(sys.argv[1])
