@@ -36,8 +36,17 @@ blocks bit for bit against one (n, 256) call, and the same fit from an
 paper's tables over the seven datasets of ``data/synth.py`` (k-means,
 DBSCAN, PCA and t-SNE, each against its CPU run), k-means and DBSCAN at
 16,384 points and t-SNE at 8,192, and an armed ``kernels.dispatch``
-fault site; runs the certification sweep (``numerics/certify.py``, 180
-fits);
+fault site; drives the serving layer, ``TendencyServer(ServeConfig(
+device="cuda"))``: 64 mixed requests from 8 client threads (``vat`` and
+``ivat`` padded to the 2,048 bucket, ``flashvat`` at 50,000), each result
+bit for bit its solo fit, with fewer batches than requests, every
+resilience counter 0 and the served kernels launched (``serve-mixed``);
+``vat`` and ``ivat`` at bucket boundaries and with repeated rows
+(``serve-pad``); cold first requests against warm latencies and the host
+pre-pass (``serve-warm``); the SLO router's rungs with predicted against
+measured walls (``serve-slo``); and the six chaos scenarios with their
+counter pins, flashvat's ladder at 50,000 (``serve-chaos``); runs the certification sweep
+(``numerics/certify.py``, 180 fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
 
@@ -2939,6 +2948,295 @@ def phase_batch_times(torch, ref, ops, Xv, Xf, errs, vat_launches,
     ]
 
 
+# ------------------------------------------------------- serving layer ----
+
+#: The fields a served result shares bit for bit with its solo fit.
+SERVE_FIELDS = ("order", "rstar", "ivat_image", "sample_idx",
+                "extension_labels", "group_sizes")
+
+#: The kernels of the served path and the wrapper counts that show them:
+#: rows 2 (the vat/ivat matrices, the band renders), 3' (the Prim loop),
+#: 4 (iVAT), 5 (the flashvat traversal) and 1a (its seed scan); row 3 runs
+#: no step of any of them.
+SERVED_KERNELS = ("pairwise_dist_batch", "vat_prim_order", "ivat_from_vat",
+                  "prim_persist", "pairwise_dist")
+SERVED_KERNEL_SYMBOLS = ("pairwise_tile_kernel", "vat_prim_order_kernel",
+                         "range_kernel", "prim_persist_kernel")
+
+
+def served_diff(torch, a, b) -> list:
+    """The fields in which a served result and its solo fit differ."""
+    return [f for f in SERVE_FIELDS
+            if (getattr(a, f) is None) != (getattr(b, f) is None)
+            or (getattr(a, f) is not None
+                and not torch.equal(getattr(a, f), getattr(b, f)))]
+
+
+def pct_ms(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values), q)) * 1e3
+
+
+def phase_serve_mixed(torch, rt, build, card):
+    """``TendencyServer(ServeConfig(device="cuda"))`` under 64 requests from
+    8 client threads (window 2 ms, at most 8 a batch): 48 ``auto`` at n
+    drawn from 1,025..2,048 (bucket 2,048, d = 32, half euclidean, half
+    cosine), 8 ``ivat`` at n = 1,500, d = 32, and 8 ``flashvat`` at
+    n = 50,000, d = 64 (4 datasets, each twice), in a seeded shuffle; each
+    client submits its 8 requests, then waits for them (latency: submit to
+    the future's completion).  Every served result == its solo
+    ``FastVAT(method=...).fit`` bit for bit (flashvat's representatives,
+    labels and band sizes included); fewer batches than requests; every
+    resilience counter 0; the served path's kernels launched (counts
+    zeroed just before, read just after; torch.profiler's kernel names)
+    and row 3 not."""
+    from concurrent.futures import ThreadPoolExecutor
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import (ResilienceStats, ServeConfig,
+                                   TendencyServer, trace_census)
+    rng = np.random.default_rng(22)
+    reqs = [("auto", ("euclidean", "cosine")[i % 2],
+             blobs(int(rng.integers(1025, 2049)), 32, k=8, seed=100 + i))
+            for i in range(48)]
+    reqs += [("ivat", "euclidean", blobs(1500, 32, k=8, seed=200 + i))
+             for i in range(8)]
+    flash = [blobs(50_000, 64, k=8, seed=300 + j) for j in range(4)]
+    reqs += [("flashvat", "euclidean", flash[i % 4]) for i in range(8)]
+    reqs = [reqs[i] for i in rng.permutation(len(reqs))]
+    done = [0.0] * len(reqs)
+
+    def client(c):
+        futs = []
+        for i in range(c, len(reqs), 8):
+            method, metric, X = reqs[i]
+            t0 = time.perf_counter()
+            fut = srv.submit(X, method=method, metric=metric,
+                             timeout_s=120.0)
+            fut.add_done_callback(
+                lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+            futs.append((i, t0, fut))
+        return [(i, fut.result(timeout=300), t0) for i, t0, fut in futs]
+
+    builds0 = trace_census()["traces"]
+    build.reset_launch_counts()
+    with TendencyServer(ServeConfig(window_s=0.002, max_batch=8)) as srv:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                got = [r for part in pool.map(client, range(8))
+                       for r in part]
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+    out = {i: (res, done[i] - t_sub) for i, res, t_sub in got}
+    launches = build.launch_counts()
+    names = " ".join(kernel_device_ms(prof))
+    require(all(launches[k] > 0 for k in SERVED_KERNELS)
+            and launches["masked_argmin"] == 0,
+            f"served path launch counts {launches}")
+    if names:
+        require(all(s in names for s in SERVED_KERNEL_SYMBOLS)
+                and "masked_argmin_kernel" not in names,
+                f"served path kernels in the trace: {names[:2000]}")
+    else:
+        log("timer-fallback", call="serve-mixed trace",
+            why="torch.profiler recorded no device event; the launch "
+                "counts alone show the served kernels")
+    require(stats.dispatched_batches < len(reqs)
+            and stats.dispatched_requests == len(reqs)
+            and stats.timeouts == 0 and stats.rejected == 0,
+            f"serve-mixed scheduler counters {stats}")
+    require(stats.resilience == ResilienceStats(),
+            f"disarmed server's resilience counters {stats.resilience}")
+    solo, by_rung = {}, {}
+    for i, (method, metric, X) in enumerate(reqs):
+        res, lat = out[i]
+        key = (method, metric, id(X))
+        if key not in solo:
+            solo[key] = rt.FastVAT(method=method, metric=metric).fit(
+                X).result
+        diff = served_diff(torch, res, solo[key])
+        require(not diff and res.order.is_cuda,
+                f"served {method} {metric} n={len(X)} differs from its solo "
+                f"fit in {diff}")
+        by_rung.setdefault(res.meta.method, []).append(lat)
+    log("serve-mixed", card=card, requests=len(reqs), clients=8,
+        wall_s=wall, batches=stats.dispatched_batches,
+        coalesce_rate=stats.coalesce_rate,
+        builds=trace_census()["traces"] - builds0,
+        cache={"hits": stats.cache.hits, "misses": stats.cache.misses,
+               "evictions": stats.cache.evictions},
+        latency_ms={r: {"n": len(v), "p50": pct_ms(v, 50),
+                        "p99": pct_ms(v, 99)} for r, v in by_rung.items()},
+        launches=launches, resilience="all 0", bitwise_vs_solo=len(reqs))
+    return launches
+
+
+def phase_serve_pad(torch, rt, card):
+    """Served ``vat`` and ``ivat`` at n = 1,023, 1,024, 1,025, 2,047, 2,048
+    under euclidean, sqeuclidean and cosine (d = 32: padded with copies of
+    row 0 to the buckets 1,024 and 2,048), and at n = 1,025 with 100 rows
+    repeated from others (real zero-weight Prim edges beside the padding):
+    order, R* and the iVAT image == the solo fit's bit for bit."""
+    from repro_torch.serve import ServeConfig, TendencyServer, bucket_n
+    cases = [(n, metric, blobs(n, 32, k=8, seed=400 + n))
+             for n in (1023, 1024, 1025, 2047, 2048)
+             for metric in ("euclidean", "sqeuclidean", "cosine")]
+    Xr = blobs(1025, 32, k=8, seed=499)
+    Xr[925:] = Xr[np.random.default_rng(4).integers(0, 925, size=100)]
+    cases.append((1025, "euclidean", Xr))
+    checked = 0
+    t0 = time.perf_counter()
+    with TendencyServer(ServeConfig(window_s=0.001)) as srv:
+        for n, metric, X in cases:
+            for method in ("vat", "ivat"):
+                res = srv.submit(X, method=method, metric=metric).result(
+                    timeout=300)
+                want = rt.FastVAT(method=method, metric=metric).fit(X).result
+                diff = served_diff(torch, res, want)
+                require(not diff, f"served {method} {metric} n={n} (bucket "
+                        f"{bucket_n(n)}) differs from its solo fit in "
+                        f"{diff}")
+                checked += 1
+    log("serve-pad", card=card, checked=checked, wall_s=time.perf_counter()
+        - t0, ns=[1023, 1024, 1025, 2047, 2048],
+        metrics=["euclidean", "sqeuclidean", "cosine"],
+        repeated_rows={"n": 1025, "rows": 100}, bitwise_vs_solo=True)
+
+
+SERVE_KEYS = (("vat", 2048, 32), ("ivat", 2048, 32), ("flashvat", 50_000, 64))
+
+
+def kernel_counts(prof) -> dict:
+    """Launches by kernel name that a torch.profiler run recorded."""
+    from torch.autograd import DeviceType
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
+def phase_serve_warm(torch, srv, card, prim_ms):
+    """For each key (vat and ivat at 2,048 × 32, flashvat at 50,000 × 64)
+    on a server whose kernel library loaded when it started: the cold
+    first request (its program's build binds the rung's fitter and runs
+    nothing; the request pays its kernels' first launches at this shape)
+    against the p50/p99 of 16 warm ones; ``warm()`` of the same key and
+    the warm requests build nothing (census); the host pre-pass of one
+    submit (``validate_points`` and ``numerics.resolve``, median of 5);
+    the device time of a warm request (torch.profiler, counted only from
+    a trace that holds every request's Prim kernel at no less than 0.8 of
+    ``prim_ms``, that kernel's CUDA-event time at the key's shape in this
+    run, else "not measured") against its p50 wall, the host share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api.validation import validate_points
+    from repro_torch.numerics import resolve
+    from repro_torch.serve import trace_census
+    rows = {}
+    for method, n, d in SERVE_KEYS:
+        X = blobs(n, d, k=8, seed=500 + n)
+        prepass = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            validate_points(X)
+            resolve(np.asarray(X, dtype=np.float32), metric="euclidean",
+                    policy=srv.config.numerics)
+            prepass.append(time.perf_counter() - t0)
+        census = trace_census()["traces"]
+        t0 = time.perf_counter()
+        srv.submit(X, method=method).result(timeout=300)
+        cold = time.perf_counter() - t0
+        require(trace_census()["traces"] == census + 1,
+                f"{method}-{n}: the cold request built "
+                f"{trace_census()['traces'] - census} programs")
+        srv.warm(n, d, method=method)
+        warm = []
+        for _ in range(16):
+            t0 = time.perf_counter()
+            srv.submit(X, method=method).result(timeout=300)
+            warm.append(time.perf_counter() - t0)
+        require(trace_census()["traces"] == census + 1,
+                f"{method}-{n}: warm() or a warm request built a program")
+        # a profiler session now and then loses launches or reads them
+        # short: count the trace only when it holds the Prim kernel of
+        # every request it spans, each near that kernel's event time
+        reps = 2 if method == "flashvat" else 4
+        prim = ("prim_persist_kernel" if method == "flashvat"
+                else "vat_prim_order_kernel")
+        device, tries = 0.0, 0
+        while device == 0.0 and tries < 5:
+            tries += 1
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    srv.submit(X, method=method).result(timeout=300)
+            seen = sum(c for k, c in kernel_counts(prof).items()
+                       if prim in k)
+            by_name = kernel_device_ms(prof)
+            prim_traced = sum(v for k, v in by_name.items() if prim in k)
+            if seen == reps and prim_traced >= 0.8 * reps * prim_ms[prim]:
+                device = sum(by_name.values()) / reps
+        p50 = pct_ms(warm, 50)
+        rows[f"{method}-{n}"] = {
+            "cold_ms": cold * 1e3, "warm_p50_ms": p50,
+            "warm_p99_ms": pct_ms(warm, 99),
+            "prepass_ms": pct_ms(prepass, 50),
+            "device_ms": device if device > 0 else "not measured",
+            "host_share": 1.0 - device / p50 if device > 0
+            else "not measured", "trace_sessions": tries}
+        log("serve-warm", card=card, key=f"{method}-{n}x{d}",
+            **rows[f"{method}-{n}"])
+    c = srv.stats().cache
+    log("serve-warm", card=card, cache={"hits": c.hits, "misses": c.misses,
+                                        "evictions": c.evictions,
+                                        "size": c.size})
+    return rows
+
+
+def phase_serve_slo(torch, rt, srv, card):
+    """The cost-model router (``method="auto"`` with ``slo_ms``) at SLOs of
+    5, 20, 100 and 1,000 ms for n = 2,048 (d = 32) and n = 50,000 (d = 64):
+    the rung it picks, its predicted wall, the measured wall of one warm
+    served request of that rung (after a first one) and of one warm
+    solo ``FastVAT(method=rung).fit`` of the same points."""
+    from repro_torch.api.registry import predict_latency_us
+    from repro_torch.serve import resolve_key
+    measured, solo, out = {}, {}, []
+    for n, d in ((2048, 32), (50_000, 64)):
+        X = blobs(n, d, k=8, seed=500 + n)
+        for slo in (5.0, 20.0, 100.0, 1000.0):
+            rung = resolve_key(n, d, slo_ms=slo, config=srv.config).rung
+            if (rung, n) not in measured:
+                srv.submit(X, slo_ms=slo).result(timeout=300)
+                t0 = time.perf_counter()
+                res = srv.submit(X, slo_ms=slo).result(timeout=300)
+                measured[(rung, n)] = time.perf_counter() - t0
+                fv = rt.FastVAT(method=rung)
+                fv.fit(X)
+                _, solo[(rung, n)] = wall_s(torch, lambda: fv.fit(X))
+                require(res.meta.method == rung,
+                        f"slo {slo} n={n}: served {res.meta.method}, "
+                        f"routed {rung}")
+            out.append({"n": n, "slo_ms": slo, "rung": rung,
+                        "predicted_ms": predict_latency_us(rung, n) / 1e3,
+                        "measured_ms": measured[(rung, n)] * 1e3,
+                        "solo_fit_ms": solo[(rung, n)] * 1e3})
+    log("serve-slo", card=card, routes=out)
+
+
+def phase_serve_chaos(torch, card):
+    """The six ``repro_torch.launch.chaos`` scenarios in this process on
+    the card, with their exact counter pins (the fallback scenario serves
+    flashvat at 50,000 × 64 on the ladder's turbo=False level: row 10
+    launched once a Prim step, row 5 not, the solo stepwise and persistent
+    fits' bits)."""
+    from repro_torch.launch import chaos
+    lines = []
+    t0 = time.perf_counter()
+    failed = chaos.run(list(chaos.SCENARIOS), "cuda", out=lines.append)
+    require(failed == 0, f"chaos scenarios failed: {lines}")
+    log("serve-chaos", card=card, scenarios=lines,
+        wall_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2964,6 +3262,7 @@ def main() -> int:
     from repro_torch.kernels.prim_update import (masked_argmin_cuda,
                                                  vat_prim_order_cuda)
     import torch.distributed as dist
+    from repro_torch.serve import ServeConfig, TendencyServer
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     require(not bad, f"the port imported {bad}")
@@ -3074,12 +3373,28 @@ def main() -> int:
     phase_cluster_scale(torch, core, build)
     phase_fault_site(torch, ops)
     new_s = time.perf_counter() - t_new
+    # the twelfth slice: the serving layer on the card
+    t_serve = time.perf_counter()
+    served = phase_serve_mixed(torch, rt, build, card)
+    phase_serve_pad(torch, rt, card)
+    with TendencyServer(ServeConfig(window_s=0.001)) as srv:
+        phase_serve_warm(torch, srv, card, {
+            "vat_prim_order_kernel": next(
+                r["ms"] for r in rows if r["name"] == "vat_prim_order"),
+            "prim_persist_kernel": persist["ms"]})
+        phase_serve_slo(torch, rt, srv, card)
+    phase_serve_chaos(torch, card)
+    serve_s = time.perf_counter() - t_serve
+    for row in rows:
+        if row["name"] in served:
+            row["served_launches"] = served[row["name"]]
     row1 = next(r for r in rows if r["name"] == "pairwise_dist")
     row1["assignment_block"] = assign_row
     row1["ms_by_shape"]["4096x256x8"] = assign_row["ms"]
     row1["bound_ms_by_shape"]["4096x256x8"] = assign_row["bound_ms"]
     phase_certify(torch)
-    log("done", total_s=time.perf_counter() - t0, new_phases_s=new_s)
+    log("done", total_s=time.perf_counter() - t0, new_phases_s=new_s,
+        serve_phases_s=serve_s)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -88,6 +88,92 @@ Fitter = Callable[[Any, ResultMeta, RungOptions], TendencyResult]
 
 
 @dataclasses.dataclass(frozen=True)
+class LatencyModel:
+    """Per-rung wall-time model — the SLO router's cost data.
+
+    ``predict_us(n, batch) = base_us + batch * (per_point_us * n +
+    per_sq_point_us * n^2)``.  The coefficients of the built-in rungs are
+    fitted to fit walls measured on the card (the calibration note above
+    the registrations); they exist to *rank* rungs and gate SLOs, they are
+    not latency promises.
+
+    Attributes:
+      base_us: fixed dispatch + host-glue cost per fit.
+      per_point_us: O(n) coefficient (kNN edges, sampling passes, the
+        matrix-free engines' step floor).
+      per_sq_point_us: O(n^2) coefficient (materialized matrices, the
+        matrix-free engines' recompute work).
+      cap_n: feasibility ceiling — the (n, n) memory wall of the
+        materialized rungs; the router never offers a rung past it no
+        matter how generous the SLO.
+    """
+
+    base_us: float
+    per_point_us: float = 0.0
+    per_sq_point_us: float = 0.0
+    cap_n: int | None = None
+
+    def predict_us(self, n: int, batch: int = 1) -> float:
+        """Predicted wall microseconds for a (batch, n, d)-ish fit."""
+        per = self.per_point_us * n + self.per_sq_point_us * float(n) * n
+        return self.base_us + batch * per
+
+    def feasible(self, n: int) -> bool:
+        """Whether the rung is offered at all at this n."""
+        return self.cap_n is None or n <= self.cap_n
+
+
+def predict_latency_us(method: str, n: int, *, batch: int = 1) -> float | None:
+    """Predicted fit latency of a registered rung; None when unmodeled."""
+    model = get_rung(method).latency_model
+    return None if model is None else model.predict_us(n, batch=batch)
+
+
+def select_method_for_slo(n: int, slo_us: float, *, batch: int = 1,
+                          restrict=None) -> str:
+    """Pick the rung to run under a latency SLO (the serving router).
+
+    Among the feasible, latency-modeled rungs (optionally restricted to a
+    candidate set), return the **highest-fidelity rung the budget
+    affords** — fidelity read from each rung's explicit ``fidelity`` rank,
+    not proxied by predicted cost, since a coarser rung can predict
+    costlier at small n.  Ties in fidelity go to the cheaper rung.  When
+    no candidate fits the SLO, degrade to the cheapest feasible rung (best
+    effort beats an error under load); callers that need a hard guarantee
+    compare ``predict_latency_us`` against the SLO themselves.
+
+    Args:
+      n: points per dataset.
+      slo_us: the latency budget in microseconds.
+      batch: datasets per dispatch (coalesced serving amortizes base
+        cost but multiplies per-dataset work).
+      restrict: iterable of method names to choose among; None means
+        every registered rung with a latency model.
+
+    Returns:
+      The selected method name.
+
+    Raises:
+      LookupError: no feasible modeled candidate exists.
+    """
+    names = tuple(restrict) if restrict is not None else registered()
+    cands = []
+    for name in names:
+        model = get_rung(name).latency_model
+        if model is not None and model.feasible(n):
+            cands.append((name, model.predict_us(n, batch=batch)))
+    if not cands:
+        raise LookupError(
+            f"no latency-modeled rung is feasible at n={n} "
+            f"(candidates considered: {list(names)})")
+    fitting = [c for c in cands if c[1] <= slo_us]
+    if fitting:
+        return max(fitting,
+                   key=lambda c: (get_rung(c[0]).fidelity, -c[1]))[0]
+    return min(cands, key=lambda c: c[1])[0]
+
+
+@dataclasses.dataclass(frozen=True)
 class Rung:
     """One registered VAT method.
 
@@ -102,6 +188,13 @@ class Rung:
         (math.inf = unbounded fallback); None = never auto-selected.
       check: environment requirement run before a fit with n (dvat's
         process group), raising when it is not met; None = none.
+      latency_model: wall-time model for SLO routing
+        (``select_method_for_slo``); None = the router never offers the
+        rung (it stays reachable through an explicit ``method=``).
+      fidelity: explicit rank of how faithful the rung's picture is
+        (higher = more faithful: exact geodesic > exact raw > banded
+        render > sampled/approximate); the SLO router picks the
+        highest-fidelity rung that fits the budget.
       description: one-liner for docs/tooling.
     """
 
@@ -111,6 +204,8 @@ class Rung:
     supports_precomputed: bool = False
     auto_threshold: float | None = None
     check: Callable[[int], None] | None = None
+    latency_model: LatencyModel | None = None
+    fidelity: float = 0.0
     description: str = ""
 
     @property
@@ -446,29 +541,74 @@ def _fit_dvat(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
                           extension_labels=None, meta=meta)
 
 
+# Latency-model calibration, fitted to fit walls measured on one NVIDIA H100
+# 80GB HBM3 at a 700 W power limit by chip_smoke.py (PERF.md §5 and §6
+# give the runs): vat 12.7 ms at n = 2,048 and 34.2 ms for fit_many of 8
+# lanes at 2,048; ivat 11.5 ms at 2,048 and 109 ms at 16,384; flashvat
+# 11.9 ms at 2,048, 310 ms at 50,000 and 1.30 s for 4 lanes at 50,000;
+# approx 5.13 s and bigvat 0.337 s at 1,000,000; svat 94.3 ms at
+# 50,000.
+#
+#   * vat and ivat share per_point / per_sq_point, solved from the lanes'
+#     cost (8 lanes against one at 2,048) and ivat's growth from 2,048 to
+#     16,384; each base is its fit at 2,048 less that per-lane cost.
+#   * flashvat: per_point is the persistent kernel's 3.40 us step floor;
+#     base and per_sq_point are a least-squares fit (relative error) to
+#     the three walls.  4 lanes cost more than 4 solo fits (the lanes'
+#     rows leave shared memory), so the 50,000-point walls alone would
+#     give a negative base; the 2,048-point wall holds the fixed cost of
+#     the seed scan, the traversal's launch and the render.
+#   * approx, bigvat and svat: one wall each, all of it per point.
+#
+# cap_n = 20_000 is the materialized rungs' (n, n) memory wall (1.6 GB
+# f32 a lane), as in the reference.  dvat carries no model: its cost is
+# shaped by the process group, not by n.
+_MATERIALIZE_CAP_N = 20_000
+_VAT_PER_POINT_US = 0.837
+_VAT_PER_SQ_POINT_US = 3.24e-4
+
 register(Rung(
     name="vat", fit=_fit_vat, fit_batch=_fit_vat_batch,
     supports_precomputed=True, auto_threshold=SMALL_N,
+    latency_model=LatencyModel(base_us=9.63e3,
+                               per_point_us=_VAT_PER_POINT_US,
+                               per_sq_point_us=_VAT_PER_SQ_POINT_US,
+                               cap_n=_MATERIALIZE_CAP_N),
+    fidelity=50.0,
     description="exact VAT — O(n^2) matrix fits easily"))
 register(Rung(
     name="ivat", fit=_fit_ivat, fit_batch=_fit_ivat_batch,
     supports_precomputed=True, auto_threshold=None,
+    latency_model=LatencyModel(base_us=8.43e3,
+                               per_point_us=_VAT_PER_POINT_US,
+                               per_sq_point_us=_VAT_PER_SQ_POINT_US,
+                               cap_n=_MATERIALIZE_CAP_N),
+    fidelity=60.0,
     description="exact VAT + geodesic (iVAT) image; opt-in"))
 register(Rung(
     name="svat", fit=_fit_svat, auto_threshold=None,
+    latency_model=LatencyModel(base_us=0.0, per_point_us=1.886),
+    fidelity=30.0,
     description="maximin sample VAT, O(ns + s^2); opt-in"))
 register(Rung(
     name="bigvat", fit=_fit_bigvat, auto_threshold=None,
+    latency_model=LatencyModel(base_us=0.0, per_point_us=0.337),
+    fidelity=20.0,
     description="maximin sample VAT + tiled nearest-prototype extension "
                 "to all n points, no (n, n) object; opt-in"))
 register(Rung(
     name="flashvat", fit=_fit_flashvat, fit_batch=_fit_flashvat_batch,
     supports_precomputed=False, auto_threshold=MEDIUM_N,
+    latency_model=LatencyModel(base_us=4.65e3, per_point_us=3.40,
+                               per_sq_point_us=5.77e-5),
+    fidelity=40.0,
     description="matrix-free exact VAT (Flash-VAT): persistent Prim kernel, "
                 "O(n·d) memory, no (n, n) object"))
 register(Rung(
     name="approx", fit=_fit_approx, supports_precomputed=False,
     auto_threshold=math.inf,
+    latency_model=LatencyModel(base_us=0.0, per_point_us=5.13),
+    fidelity=10.0,
     description="kNN-graph Borůvka MST ordering (kNN kernel), O(n·k) "
                 "memory, the million-point rung; error on meta.approx"))
 register(Rung(

@@ -1532,6 +1532,125 @@ def test_cuda_eval_products_ignore_a_global_tf32(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
+
+# ------------------------------------------------------- serving layer ----
+
+SERVE_FIELDS = ("order", "rstar", "ivat_image", "sample_idx",
+                "extension_labels", "group_sizes")
+
+
+def _serve_blobs(n, d, seed, repeats=0):
+    """Four Gaussian blobs; ``repeats`` rows copied from earlier rows, so
+    real duplicates (zero-weight Prim edges) sit beside the padding."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=8.0, size=(4, d))
+    X = centers[np.arange(n) % 4] + rng.normal(size=(n, d))
+    if repeats:
+        X[n - repeats:] = X[rng.integers(0, n - repeats, size=repeats)]
+    return X.astype(np.float32)
+
+
+def _served_same(a, b):
+    return [f for f in SERVE_FIELDS
+            if (getattr(a, f) is None) != (getattr(b, f) is None)
+            or (getattr(a, f) is not None
+                and not torch.equal(getattr(a, f), getattr(b, f)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ref.METRICS)
+@pytest.mark.parametrize("n,repeats", [(63, 0), (64, 0), (65, 0), (1023, 0),
+                                       (1024, 0), (1025, 0), (1025, 100),
+                                       (300, 150)])
+def test_cuda_served_padded_rungs_equal_solo(cuda, n, repeats, metric):
+    """Served vat and ivat on the card (padded to the bucket with copies
+    of row 0, restricted on the card) == the solo fit bit for bit, at
+    bucket boundaries and with repeated rows; the results stay on the
+    card."""
+    from repro_torch import FastVAT
+    from repro_torch.serve import ServeConfig, TendencyServer
+    X = _serve_blobs(n, 16, seed=n + repeats, repeats=repeats)
+    with TendencyServer(ServeConfig(window_s=0.001)) as srv:
+        for method in ("vat", "ivat"):
+            served = srv.submit(X, method=method, metric=metric).result(
+                timeout=300)
+            solo = FastVAT(method=method, metric=metric).fit(X).result
+            assert served.order.is_cuda
+            assert _served_same(served, solo) == [], (method, metric, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_cuda_served_flashvat_lanes_equal_solo(cuda, metric):
+    """Three same-n flashvat requests ride one batched dispatch (the
+    persistent kernel with a group of CTAs a lane); each lane's order,
+    band image, representatives, labels and band sizes == its solo
+    fit."""
+    from repro_torch import FastVAT
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ServeConfig, TendencyServer
+    Xs = [_serve_blobs(3000, 32, seed=s, repeats=40 * s) for s in range(3)]
+    with TendencyServer(ServeConfig(window_s=5.0, max_batch=3)) as srv:
+        srv.warm(3000, 32, method="flashvat", metric=metric, batch=3)
+        _build.reset_launch_counts()
+        futs = [srv.submit(X, method="flashvat", metric=metric) for X in Xs]
+        served = [f.result(timeout=300) for f in futs]
+        counts = _build.launch_counts()
+        assert srv.stats().dispatched_batches == 1
+    assert counts["prim_persist"] == 1 and counts["masked_argmin"] == 0
+    for X, res in zip(Xs, served):
+        solo = FastVAT(method="flashvat", metric=metric).fit(X).result
+        assert _served_same(res, solo) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(2000, 32), (50_000, 64)])
+def test_cuda_ladder_stepwise_level_launches_row_10(cuda, n, d):
+    """A flashvat primary whose persistent-kernel program fails to build is
+    served by the ladder's turbo=False level, up to the top of flashvat's
+    window: the batched step kernel (row 10) runs once a Prim step, the
+    persistent kernel does not, and the result is the solo stepwise fit's
+    bits; the counters read one fallback."""
+    from repro_torch import FastVAT, faults
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (ResilienceStats, RetryPolicy, ServeConfig,
+                                   TendencyServer)
+    X = _serve_blobs(n, d, seed=7)
+    faults.disarm_all()
+    try:
+        faults.arm("serve.build", times=-1,
+                   match=lambda ctx: ctx["key"].turbo is not False)
+        with TendencyServer(ServeConfig(
+                window_s=0.001, retry=RetryPolicy(max_attempts=1))) as srv:
+            _build.reset_launch_counts()
+            served = srv.submit(X, method="flashvat").result(timeout=300)
+            counts = _build.launch_counts()
+            stats = srv.stats().resilience
+    finally:
+        faults.disarm_all()
+    assert counts["prim_persist"] == 0
+    assert counts["prim_stream_step_batch"] == len(X) - 1
+    assert stats == ResilienceStats(fallbacks=1, degraded=1)
+    solo = FastVAT(method="flashvat", turbo=False).fit(X).result
+    assert _served_same(served, solo) == []
+
+
+@pytest.mark.cuda
+def test_cuda_disarmed_server_counters_read_zero(cuda):
+    """Every rung served on the card with faults disarmed: results == solo
+    fits and every resilience counter reads 0, so no failing kernel hides
+    behind the ladder."""
+    from repro_torch import FastVAT, faults
+    from repro_torch.serve import ResilienceStats, ServeConfig, TendencyServer
+    faults.disarm_all()
+    X = _serve_blobs(1500, 32, seed=3)
+    with TendencyServer(ServeConfig(window_s=0.001)) as srv:
+        for method in ("vat", "ivat", "flashvat"):
+            served = srv.submit(X, method=method).result(timeout=300)
+            solo = FastVAT(method=method).fit(X).result
+            assert _served_same(served, solo) == []
+        assert srv.stats().resilience == ResilienceStats()
+
 if __name__ == "__main__":
     import torch.multiprocessing as mp
     _world = int(sys.argv[1])
