@@ -45,7 +45,21 @@ resilience counter 0 and the served kernels launched (``serve-mixed``);
 (``serve-pad``); cold first requests against warm latencies and the host
 pre-pass (``serve-warm``); the SLO router's rungs with predicted against
 measured walls (``serve-slo``); and the six chaos scenarios with their
-counter pins, flashvat's ladder at 50,000 (``serve-chaos``); runs the certification sweep
+counter pins, flashvat's ladder at 50,000 (``serve-chaos``); drives the
+``embed`` rung: ``FastVAT().fit(X, encoder=fn)`` on two blobs of 1,000 × 32
+through a tanh projection on the card (``embed-encoder``),
+``FastVAT().fit_embeddings`` of full-width gemma-2b (18 layers, f32, from
+``init_params`` seed 0) at B = 4, S = 512 (2,048 rows: ``vat``) and
+S = 1,024 (4,096 rows: ``flashvat``) (``embed-gemma``) and of full-width
+internvl2-1b at B = 4, S = 512 (1,024 text rows: ``vat``) (``embed-vlm``),
+each bit for bit the plain fit of the same activations with the inner
+rung's kernels launched, and the kernels on each fit's own activations
+against their plain versions (row 1 on the ``vat`` matrix, every seed-scan
+block and the render; ``prim_persist`` by tree weight and edges, with its
+plain time), the probes over gemma's run (``probes``: the final layer's
+taps and the embedding table, rstar == the VAT image of the maximin
+sample, row 1 on the sample against its plain version) and the card's 2-layer forwards against the CPU's within 1e-4 of
+scale (``model-parity``); runs the certification sweep
 (``numerics/certify.py``, 180 fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
@@ -3237,6 +3251,450 @@ def phase_serve_chaos(torch, card):
         wall_s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------- the embed rung (DeepVAT) ----
+
+#: The inner rung's kernels an embed fit plus ``image(use_ivat=True)`` must
+#: launch, by wrapper count and by the symbol a trace shows: rows 1, 3' and
+#: 4 on ``vat``; rows 1a and 1 (one wrapper: the seed scan and the solo
+#: band render), 5 and 4 on ``flashvat`` (whose band render also orders
+#: its representatives with row 3').
+EMBED_KERNELS = {"vat": ("pairwise_dist", "vat_prim_order", "ivat_from_vat"),
+                 "flashvat": ("pairwise_dist", "prim_persist",
+                              "ivat_from_vat")}
+EMBED_SYMBOLS = {"vat": ("pairwise_tile_kernel", "vat_prim_order_kernel",
+                         "range_kernel"),
+                 "flashvat": ("pairwise_tile_kernel", "prim_persist_kernel",
+                              "range_kernel")}
+
+
+def peak_reset(torch) -> int:
+    """Restart the peak count; returns the bytes allocated now, the base a
+    phase's peak is read over (earlier phases leave tensors alive)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gb(torch, base: int) -> float:
+    """Peak card memory since the last ``peak_reset`` over ``base``, GB."""
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def params_gb(params) -> float:
+    leaves = list(params["layers"].values()) + [
+        v for k, v in params.items() if k != "layers"]
+    return sum(t.numel() * t.element_size() for t in leaves) / 1e9
+
+
+class method_walls:
+    """Host walls of the named methods of ``cls`` while the block runs, in
+    s by name: each call synchronizes the card before and after it, so a
+    stage of a real fit is timed and not a copy of it (``_admit`` waits on
+    the forward's launches through its copy to the host either way)."""
+
+    def __init__(self, torch, cls, names):
+        self.torch, self.cls, self.walls = torch, cls, {}
+        self.saved = {name: getattr(cls, name) for name in names}
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.walls[name] = (self.walls.get(name, 0.0)
+                                + time.perf_counter() - t0)
+            return out
+        return call
+
+    def __enter__(self):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, self._timed(name, fn))
+        return self.walls
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+
+def embed_vs_plain(torch, rt, build, fit, acts, rung, label, dev):
+    """``fit()`` (an embed fit that returns its FastVAT) with counts zeroed
+    before it and read after it and ``image(use_ivat=True)``, held bit for
+    bit against ``FastVAT().fit(acts)``: order, R*, the iVAT image, the
+    band fields.  Returns (fv, launches, fit wall s, the walls of its
+    embed front end and of its admission and pre-pass in s)."""
+    reset_counts(build)
+    with method_walls(torch, rt.FastVAT,
+                      ("_fit_embed_front", "_admit")) as walls:
+        fv, wall = wall_s(torch, fit)
+    img_iv = fv.image(use_ivat=True)
+    launches = build.launch_counts()
+    plain = rt.FastVAT(device=dev).fit(acts)
+    require(fv.result.meta.method == "embed",
+            f"{label}: meta.method {fv.result.meta.method!r}")
+    require(plain.method_resolved == rung,
+            f"{label}: {acts.shape[0]} rows resolved to "
+            f"{plain.method_resolved!r}, want {rung!r}")
+    diff = served_diff(torch, fv.result, plain.result)
+    require(not diff and np.array_equal(img_iv, plain.image(use_ivat=True)),
+            f"{label}: the embed fit differs from the plain fit in "
+            f"{diff or ['the iVAT image']}")
+    missing = [k for k in EMBED_KERNELS[rung] if launches[k] == 0]
+    require(not missing, f"{label}: {missing} not launched: {launches}")
+    return fv, launches, wall, walls
+
+
+def pairwise_vs_plain(torch, ref, pairwise_dist_cuda, X, Y, metric, form,
+                      label) -> dict:
+    """Row 1 against its plain version on the same card tensors, and, for
+    euclidean, both against the f64 distances.  The tolerance is
+    ``check_pairwise``'s (the gram bound 16 eps max|x|² under the square
+    root on the euclidean gram form, 1e-5 of scale otherwise), which holds
+    there at d <= 64, scaled by d / 64 above it: an f32 sum of d products
+    rounds within d eps / 2 of its terms' magnitude, so the bound on an
+    entry grows as d (under the square root, as sqrt(d / 64))."""
+    d = X.shape[1]
+    grow = max(1.0, d / 64)
+    K = pairwise_dist_cuda(X, Y, metric=metric, form=form)
+    P = ref.pairwise_dissim_ref(X, Y, metric=metric, form=form)
+    if metric == "euclidean" and form == "gram":
+        sq = torch.sum(X.float() ** 2, dim=1)
+        if Y is not None:
+            sq = torch.cat([sq, torch.sum(Y.float() ** 2, dim=1)])
+        tol = (16 * F32_EPS * float(torch.amax(sq)) * grow) ** 0.5
+    else:
+        tol = (1e-5 * float(torch.amax(torch.abs(P))) + 1e-6) * grow
+    out = {"d": d, "max_abs_err": float(torch.amax(torch.abs(K - P))),
+           "tol": tol}
+    if metric == "euclidean":
+        Xd = X.double()
+        Yd = Xd if Y is None else Y.double()
+        T = torch.sqrt(torch.clamp_min(
+            torch.sum(Xd * Xd, dim=1)[:, None] + torch.sum(Yd * Yd, dim=1)
+            - 2.0 * (Xd @ Yd.T), 0.0))
+        if Y is None:
+            T.fill_diagonal_(0.0)
+        out["kernel_vs_f64"] = float(torch.amax(torch.abs(K.double() - T)))
+        out["plain_vs_f64"] = float(torch.amax(torch.abs(P.double() - T)))
+    worst = max(out["max_abs_err"], out.get("kernel_vs_f64", 0.0))
+    require(worst <= tol, f"{label}: pairwise {metric}/{form} "
+            f"{tuple(X.shape)} x {None if Y is None else tuple(Y.shape)}: "
+            f"{out} exceeds tol {tol}")
+    return out
+
+
+def embed_kernels_vs_plain(torch, ref, ops, kern, fv, rung, label) -> dict:
+    """The embed fit's kernels against their plain versions on the fit's
+    own data (``fv._X``, d = d_model) at the shapes the fit gave them:
+    row 1 on the ``vat`` matrix, or on every seed-scan block of the
+    ``flashvat`` fit, and on the band render's representatives; row 5 on
+    the ``flashvat`` traversal, its order the fit's bit for bit and held
+    against ``ref.prim_persist_ref`` by tree weight (``EXCESS_F32``) and
+    by the MST's edge weights as multisets within the gram tolerance.
+    The first row-1 case and row 5 are timed by CUDA events beside the
+    plain version, ``torch.cdist`` and the bound."""
+    from repro_torch.core.vat import PERSIST_PRUNE, SEED_BLOCK, _split
+    meta, res = fv.result.meta, fv.result
+    metric, form = meta.metric, meta.numerics.form
+    X = fv._X.float().contiguous()
+    n, d = X.shape
+    if rung == "vat":
+        cases = [("matrix", X, None)]
+    else:
+        br, bc = _split(n, SEED_BLOCK[0]), _split(n, SEED_BLOCK[1])
+        cases = [(f"seed_block_{a}_{c}", X[a:a + br], X[c:c + bc])
+                 for a in range(0, n, br) for c in range(0, n, bc)]
+        cases.append(("render", X.index_select(0, res.sample_idx), None))
+    out = {"pairwise_dist": {
+        name: pairwise_vs_plain(torch, ref, kern["pairwise_dist"], A, B,
+                                metric, form, f"{label} {name}")
+        for name, A, B in cases}}
+    name, A, B = cases[0]
+    m = None if B is None else B.shape[0]
+    timed = {"shape": [A.shape[0], m, d],
+             "ms": event_ms(torch, lambda: kern["pairwise_dist"](
+                 A, B, metric=metric, form=form), reps=10, warmup=1),
+             "plain_ms": event_ms(torch, lambda: ref.pairwise_dissim_ref(
+                 A, B, metric=metric, form=form), reps=10, warmup=1),
+             "library_ms": event_ms(torch, lambda: torch.cdist(
+                 A, A if B is None else B), reps=10, warmup=1)}
+    timed["bound_ms"], timed["bound_by"] = bound_ms(
+        *pairwise_cost(A.shape[0], m, d))
+    out["pairwise_dist"]["timed"] = timed
+    if rung == "flashvat":
+        aux = ops.metric_aux(X, metric=metric)
+        i0 = kern["seed_pivot"](X, metric=metric, form=form)
+        (order, edges, stats), ms = event_once_ms(
+            torch, lambda: kern["prim_persist"](X, aux, i0, metric=metric,
+                                                form=form,
+                                                prune=PERSIST_PRUNE))
+        require(torch.equal(order, res.order),
+                f"{label}: prim_persist order differs from the fit's")
+        (porder, pedges), plain_ms = event_once_ms(
+            torch, lambda: ref.prim_persist_ref(X, aux, i0, metric=metric,
+                                                form=form))
+        wk = tree_weight(torch, X, order)
+        wp = tree_weight(torch, X, porder)
+        excess = abs(wk - wp) / wp
+        require(excess <= EXCESS_F32, f"{label}: prim_persist vs plain: "
+                f"tree weight {wk} vs {wp}, relative {excess} > "
+                f"{EXCESS_F32}")
+        err = float(torch.amax(torch.abs(torch.sort(edges).values
+                                         - torch.sort(pedges).values)))
+        tol = (16 * F32_EPS * float(torch.amax(aux))) ** 0.5
+        require(err <= tol, f"{label}: prim_persist edges vs plain: {err} "
+                f"> {tol}")
+        persist = {"n": n, "d": d, "ms": ms, "plain_ms": plain_ms,
+                   "plain_timer": "cuda events, one call",
+                   "plain_tree_weight_rel_excess": excess,
+                   "plain_edges_max_abs_err": err, "plain_edges_tol": tol,
+                   "same_order_as_plain": bool(torch.equal(porder, order))}
+        persist["bound_ms"], persist["bound_by"] = bound_ms(
+            *persist_cost(n, d, int(stats[2])))
+        out["prim_persist"] = persist
+    return out
+
+
+def phase_embed_encoder(torch, rt, build, dev="cuda"):
+    """``FastVAT().fit(X, encoder=fn)`` on the card: two blobs of 1,000 × 32,
+    ``fn`` a tanh projection to 16 dimensions on the card."""
+    X = blobs(2000, 32, k=2, seed=5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    W = torch.randn(32, 16, generator=gen, device=dev) / (8 * 32 ** 0.5)
+
+    def fn(x):
+        return torch.tanh(torch.as_tensor(x, device=dev) @ W)
+
+    base = peak_reset(torch)
+    acts = fn(X)
+    fv, launches, wall, _ = embed_vs_plain(
+        torch, rt, build, lambda: rt.FastVAT(device=dev).fit(X, encoder=fn),
+        acts, "vat", "embed-encoder", dev)
+    meta = fv.result.meta
+    rep = fv.assess()
+    require("fn@" in meta.encoder, f"meta.encoder {meta.encoder!r}")
+    require(meta.n == 2000 and rep.clustered,
+            f"two blobs through tanh: n={meta.n}, {rep}")
+    log("embed-encoder", n=meta.n, d_in=32, d_act=16, encoder=meta.encoder,
+        inner="vat", launches=launches, fit_ms=wall * 1e3,
+        hopkins=rep.hopkins, block_score=rep.block_score, k_est=rep.k_est,
+        same_as_plain_fit=True, peak_gb=peak_gb(torch, base))
+    return launches
+
+
+def forward_flops(cfg, B: int, S: int) -> float:
+    """f32 operations of a ``return_hidden`` forward over B rows of S
+    positions: two per multiply-add of the q/k/v/o and FFN products, and
+    of the full (S, S) score and value products of every head (the
+    reference's q-chunked attention forms every chunk's full row block and
+    masks it)."""
+    D = cfg.d_model
+    per_token = (2 * cfg.q_dim * D + 2 * cfg.kv_dim * D
+                 + (3 if cfg.gated else 2) * D * cfg.d_ff)
+    attn = 2 * cfg.eff_heads * S * S * cfg.head_dim
+    return 2.0 * cfg.n_layers * B * (S * per_token + attn)
+
+
+def embed_trace(torch, rt, acts, fingerprint, rung, dev="cuda") -> dict:
+    """The device time by kernel of one traced ``fit(acts, encoder=)`` plus
+    its ``image(use_ivat=True)`` (torch.profiler; tracing slows the host).
+    ``profiler_shows_rung`` says whether the trace holds every symbol of
+    ``EMBED_SYMBOLS[rung]``; a trace can lose launches (the hard check is
+    the wrapper counts), and one that records no device time reads "not
+    measured"."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fv = rt.FastVAT(device=dev).fit(acts, encoder=fingerprint)
+        fv.image(use_ivat=True)
+        torch.cuda.synchronize()
+    by_name = kernel_device_ms(prof)
+    if not by_name:
+        return {"traced_device_ms": "not measured",
+                "profiler_shows_rung": "not measured"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"traced_device_ms": sum(by_name.values()),
+            "traced_top_ms": {name[:48]: ms for name, ms in top},
+            "profiler_shows_rung": all(
+                any(sym in name for name in by_name)
+                for sym in EMBED_SYMBOLS[rung])}
+
+
+def embed_model(torch, rt, ref, ops, kern, build, cfg, shapes, label,
+                dev="cuda"):
+    """Full-width ``cfg`` from ``init_params`` (f32, seed 0) on the card;
+    for each (B, S, rung) of ``shapes`` a ``make_batch`` batch, its forward
+    (CUDA events), ``fit_embeddings`` held bit for bit against the plain fit
+    of the same activations with the walls of its embed front end and
+    pre-pass, its kernels against their plain versions on its data, and
+    one traced embed fit.  Returns (params, the first batch, launches
+    summed over the fits)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.monitor import encode_batch, model_fingerprint
+    base = peak_reset(torch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, init_s = wall_s(torch, lambda: M.init_params(cfg, gen,
+                                                        device=dev))
+    fingerprint = model_fingerprint(cfg, params)
+    total, first = {}, None
+    for B, S, rung in shapes:
+        batch = make_batch(cfg, ShapeConfig("embed", S, B, "prefill"),
+                           device=dev)
+        first = first or batch
+        torch.cuda.reset_peak_memory_stats()
+        acts = encode_batch(params, cfg, batch)     # and the warm-up
+        forward_ms = event_ms(torch, lambda: encode_batch(params, cfg, batch),
+                              reps=1, warmup=0)
+        require(bool(torch.isfinite(acts).all()),
+                f"{label}: non-finite hidden states")
+        tag = f"{label} B={B} S={S}"
+        fv, launches, fit_s, walls = embed_vs_plain(
+            torch, rt, build,
+            lambda: rt.FastVAT(device=dev).fit_embeddings(params, cfg, batch),
+            acts, rung, tag, dev)
+        meta = fv.result.meta
+        require(meta.n == acts.shape[0] and meta.encoder == fingerprint
+                and meta.encoder.startswith(f"{cfg.name}@"),
+                f"{label}: meta n={meta.n}, encoder={meta.encoder!r}")
+        vs_plain = embed_kernels_vs_plain(torch, ref, ops, kern, fv, rung,
+                                          tag)
+        trace = embed_trace(torch, rt, acts, fingerprint, rung, dev)
+        rep = fv.assess()
+        flops = forward_flops(cfg, B, S)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(label, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+            batch=B, seq=S, rows=meta.n, inner=rung, encoder=meta.encoder,
+            param_gb=params_gb(params), init_s=init_s,
+            forward_ms=forward_ms, forward_tflop=flops / 1e12,
+            forward_tflop_per_s=flops / forward_ms / 1e9,
+            forward_bound_ms=flops / PEAK_F32_OPS_PER_S * 1e3,
+            fit_embeddings_ms=fit_s * 1e3,
+            embed_fit_ms=walls["_fit_embed_front"] * 1e3,
+            host_prepass_ms=walls["_admit"] * 1e3, launches=launches,
+            kernels_vs_plain=vs_plain, **trace,
+            hopkins=rep.hopkins, block_score=rep.block_score, k_est=rep.k_est,
+            same_as_plain_fit=True, peak_gb=peak_gb(torch, base))
+        del fv, acts
+    return params, first, total
+
+
+def phase_embed_probes(torch, core, ref, ops, kern, cfg, params, batch,
+                       dev="cuda"):
+    """``activation_report`` on the final layer's taps and
+    ``embedding_tendency`` on the (vocab, d_model) table (sample 128 each):
+    scores in [0, 1], a (128, 128) rstar equal bit for bit to the VAT image
+    of ``core.maximin_sample``'s rows from a generator of the same seed,
+    and row 1 on those rows against its plain version."""
+    from repro_torch.models import model as M
+    from repro_torch.monitor import activation_report, embedding_tendency
+    base = peak_reset(torch)
+    with torch.inference_mode():
+        _, _, taps = M.forward(params, cfg, batch, return_hidden=True,
+                               taps=True)
+    final = taps["layer_out"][-1]
+    out = {}
+    for name, report, acts in (
+            ("acts_final", activation_report, final),
+            ("embed_table", embedding_tendency, params["embed"])):
+        rep, wall = wall_s(torch, lambda: report(
+            acts, torch.Generator(device=dev).manual_seed(0), sample=128))
+        rows = acts.reshape(-1, acts.shape[-1]).float()
+        idx = core.maximin_sample(
+            rows, 128, torch.Generator(device=dev).manual_seed(0))
+        want = core.vat_from_dist(ops.pairwise_dist(rows[idx])).rstar
+        sample_err = pairwise_vs_plain(
+            torch, ref, kern["pairwise_dist"], rows[idx], None, "euclidean",
+            "gram", f"probe {name} sample")
+        h, score = float(rep.hopkins), float(rep.block_score)
+        require(0 <= h <= 1 and 0 <= score <= 1,
+                f"probe {name}: hopkins {h}, block score {score}")
+        require(tuple(rep.rstar.shape) == (128, 128)
+                and torch.equal(rep.rstar, want),
+                f"probe {name}: rstar {tuple(rep.rstar.shape)} is not the "
+                "VAT image of the maximin sample")
+        out[name] = {"rows": rows.shape[0], "d": rows.shape[1],
+                     "ms": wall * 1e3, "hopkins": h, "block_score": score,
+                     "k_est": int(rep.k_est),
+                     "pairwise_vs_plain": sample_err}
+    log("probes", arch=cfg.name, taps_shape=list(taps["layer_out"].shape),
+        reports=out, rstar_equals_maximin_vat=True, held_gb=base / 1e9,
+        peak_gb=peak_gb(torch, base))
+
+
+def phase_model_parity(torch, cfg, dev="cuda"):
+    """The card's forward against the CPU's on the same weights (the
+    card's, copied): full width, 2 layers, B = 1, 128 text tokens (vlm:
+    after its patches).  Each of hidden states, logits and taps within
+    1e-4 of its scale."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    cfg = cfg.replace(n_layers=2)
+    base = peak_reset(torch)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
+    batch = make_batch(cfg, ShapeConfig("parity", 128 + extra, 1, "prefill"),
+                       device=dev)
+    host = {k: v.cpu() for k, v in params.items() if k != "layers"}
+    host["layers"] = {k: v.cpu() for k, v in params["layers"].items()}
+    host_batch = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                  for k, v in batch.items()}
+    ratios = {}
+    with torch.inference_mode():
+        got = M.forward(params, cfg, batch, taps=True)
+        got_h = M.forward(params, cfg, batch, return_hidden=True)[0]
+        want, cpu_s = wall_s(torch, lambda: M.forward(host, cfg, host_batch,
+                                                      taps=True))
+        want_h = M.forward(host, cfg, host_batch, return_hidden=True)[0]
+    for name, a, b in (("hidden", got_h, want_h), ("logits", got[0], want[0]),
+                       ("taps", got[2]["layer_out"], want[2]["layer_out"])):
+        ratios[name] = float((a.cpu() - b).abs().max()
+                             / b.abs().max())
+    require(all(r <= 1e-4 for r in ratios.values()),
+            f"{cfg.name}: card against CPU max |diff| / max |cpu| {ratios}, "
+            "want <= 1e-4")
+    log("model-parity", arch=cfg.name, layers=2, d_model=cfg.d_model,
+        tokens=128, patches=extra, ratio_max_abs_over_scale=ratios,
+        bound=1e-4, cpu_forward_s=cpu_s, peak_gb=peak_gb(torch, base))
+
+
+def phase_embed(torch, rt, core, ref, ops, kern, build, dev="cuda"):
+    """The embed rung on the card: a callable encoder, then full-width
+    gemma-2b and internvl2-1b through ``fit_embeddings``, the probes over
+    gemma's run, and the card-against-CPU forwards.  ``kern`` holds the
+    wrappers ``pairwise_dist`` and ``prim_persist`` and ``seed_pivot``.
+    Returns the launches of the embed fits by kernel."""
+    from repro_torch import configs
+    launches = phase_embed_encoder(torch, rt, build, dev)
+    gemma = configs.get_config("gemma-2b")
+    params, batch, counts = embed_model(
+        torch, rt, ref, ops, kern, build, gemma,
+        ((4, 512, "vat"), (4, 1024, "flashvat")), "embed-gemma", dev)
+    for k, v in counts.items():
+        launches[k] += v
+    phase_embed_probes(torch, core, ref, ops, kern, gemma, params, batch,
+                       dev)
+    del params, batch
+    torch.cuda.empty_cache()
+    params, _, counts = embed_model(
+        torch, rt, ref, ops, kern, build, configs.get_config("internvl2-1b"),
+        ((4, 512, "vat"),), "embed-vlm", dev)
+    for k, v in counts.items():
+        launches[k] += v
+    del params
+    torch.cuda.empty_cache()
+    for name in ("gemma-2b", "internvl2-1b"):
+        phase_model_parity(torch, configs.get_config(name), dev)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3385,16 +3843,24 @@ def main() -> int:
         phase_serve_slo(torch, rt, srv, card)
     phase_serve_chaos(torch, card)
     serve_s = time.perf_counter() - t_serve
+    # the thirteenth slice: the embed rung on the model zoo's forward
+    t_embed = time.perf_counter()
+    embedded = phase_embed(torch, rt, core, ref, ops, {
+        "pairwise_dist": pairwise_dist_cuda, "prim_persist": prim_persist_cuda,
+        "seed_pivot": _streamed_seed_pivot}, build)
+    embed_s = time.perf_counter() - t_embed
     for row in rows:
         if row["name"] in served:
             row["served_launches"] = served[row["name"]]
+        if row["name"] in embedded:
+            row["embed_launches"] = embedded[row["name"]]
     row1 = next(r for r in rows if r["name"] == "pairwise_dist")
     row1["assignment_block"] = assign_row
     row1["ms_by_shape"]["4096x256x8"] = assign_row["ms"]
     row1["bound_ms_by_shape"]["4096x256x8"] = assign_row["bound_ms"]
     phase_certify(torch)
     log("done", total_s=time.perf_counter() - t0, new_phases_s=new_s,
-        serve_phases_s=serve_s)
+        serve_phases_s=serve_s, embed_phases_s=embed_s)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

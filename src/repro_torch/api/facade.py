@@ -14,7 +14,11 @@ a maximin sample), ``bigvat`` (the svat sample extended to all n points by
 a tiled nearest-prototype pass; np.memmap input is copied to the device
 once and skips the numerics pre-pass) and ``dvat`` (matrix-free
 distributed VAT over a ``torch.distributed`` process group of more than
-one rank, with the svat image).  When the default process group has more
+one rank, with the svat image), and the embeddings front end ``embed``
+(DeepVAT: ``fit(X, encoder=fn)`` runs the ladder on ``fn(X)``, and
+``fit_embeddings(params, cfg, batch)`` on a zoo model's final hidden
+states, on the card; the encoder's fingerprint lands on
+``result.meta.encoder``).  When the default process group has more
 than one rank, flashvat shards its traversal over it from n = 4,096
 (``turbo=None``, the gram form), each rank calling ``fit`` on the same
 points.  The fit runs on
@@ -61,6 +65,7 @@ from repro_torch.api.result import (SALT_ASSESS, SALT_HOPKINS, ResultMeta,
 from repro_torch.api.validation import (InvalidInput, validate_dissimilarity,
                                        validate_points)
 from repro_torch.core.bigvat import DEFAULT_BLOCK
+from repro_torch.monitor.probes import encode_batch, model_fingerprint
 from repro_torch.numerics import as_policy
 from repro_torch.numerics import resolve as resolve_numerics
 
@@ -76,14 +81,21 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _on(t: torch.Tensor, dev: torch.device) -> bool:
+    """Whether ``t`` lives on ``dev`` ("cuda" meaning the current card)."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return t.device == dev
+
+
 class FastVAT:
     """Facade over the registered rungs with auto-selection.
 
     Parameters
     ----------
     method:    "auto" or any name in ``registry.methods()``; "auto" picks
-               by n at fit time.  A rung of the reference that is not
-               ported yet raises ``NotImplementedError``.
+               by n at fit time.  "embed" needs an encoder (``fit(X,
+               encoder=…)`` or ``fit_embeddings``).
     metric:    "euclidean" | "sqeuclidean" | "manhattan" | "cosine", or
                "precomputed" to pass ``fit`` an (n, n) matrix directly.
     seed:      the single seed every sampling path (device and host side)
@@ -116,8 +128,6 @@ class FastVAT:
                  sample_size: int = 256, block: int = DEFAULT_BLOCK,
                  turbo: bool | None = None, knn_k: int = 15, seed: int = 0,
                  validate: bool = True, numerics="auto", device="cuda"):
-        if method in registry.UNPORTED:
-            raise registry.not_ported(method)
         methods = registry.methods()
         if method not in methods:
             raise ValueError(f"method must be one of {methods}, "
@@ -161,12 +171,17 @@ class FastVAT:
 
     # ------------------------------------------------------------- fit ----
 
-    def _admit(self, X, *, batched: bool = False):
+    def _admit(self, X, *, batched: bool = False, name: str = "X"):
         """Admission, the numerics pre-pass and the move to the fit's
         device, for one dataset or a (b, ...) stack: (data tensor,
-        ``NumericsReport``, or None for precomputed or np.memmap input)."""
+        ``NumericsReport``, or None for precomputed or np.memmap input).
+        An f32 tensor already on the fit's device that the pre-pass leaves
+        as it is is copied there, not through the host (the checks read a
+        host copy); the copy is detached, so the fit neither follows the
+        caller's later edits nor carries the caller's autograd graph."""
         dev = _device(self.device)
-        if isinstance(X, torch.Tensor):
+        src = X if isinstance(X, torch.Tensor) else None
+        if src is not None:
             X = self._tensor_to_host(X)
         if self.metric == "precomputed":
             if self.validate:
@@ -174,7 +189,8 @@ class FastVAT:
             return torch.tensor(as_dissimilarity(X, batched=batched),
                                 device=dev), None
         if self.validate:
-            validate_points(X, batched=batched, metric=self.metric)
+            validate_points(X, batched=batched, name=name,
+                            metric=self.metric)
         if batched:
             X = np.asarray(X, np.float32)
             if X.ndim != 3:
@@ -187,6 +203,10 @@ class FastVAT:
         Xr, num_report = resolve_numerics(X, metric=self.metric,
                                           policy=self.numerics,
                                           batched=batched)
+        if (src is not None and src.dtype == torch.float32 and _on(src, dev)
+                and not num_report.conditioned and num_report.dtype == "f32"):
+            return (src.detach().clone(memory_format=torch.contiguous_format),
+                    num_report)
         data = torch.tensor(Xr, device=dev)
         if num_report.dtype == "bf16":  # exact: Xr is bf16-quantized
             data = data.to(torch.bfloat16)
@@ -208,13 +228,14 @@ class FastVAT:
         return X.numpy()
 
     def _run(self, fitter, data, method: str, num_report,
-             batch: int | None) -> "FastVAT":
+             batch: int | None, encoder: str | None = None) -> "FastVAT":
         """Run a rung's fitter on admitted data and keep the result."""
         dev = data.device
         meta = ResultMeta(method=method, metric=self.metric,
                           n=int(data.shape[0 if batch is None else 1]),
                           batch=batch, seed=self.seed, device=str(dev),
-                          sample_size=self.sample_size, numerics=num_report)
+                          sample_size=self.sample_size, encoder=encoder,
+                          numerics=num_report)
         with device_scope(dev):
             self.result = fitter(data, meta, RungOptions(
                 sample_size=self.sample_size, block=self.block,
@@ -225,17 +246,29 @@ class FastVAT:
         self._X = data
         return self
 
-    def fit(self, X) -> "FastVAT":
+    def fit(self, X, *, encoder=None) -> "FastVAT":
         """Run the resolved rung on one dataset.
 
         Args:
           X: (n, d) array-like of points (numpy, np.memmap, or a tensor on
             any device), or — with ``metric="precomputed"`` — an (n, n)
             dissimilarity matrix (square, symmetric, zero diagonal).
+          encoder: route through the ``embed`` front-end rung
+            (DeepVAT-style).  A callable maps X to an (n, d) activation
+            matrix (any leading shape; flattened to rows; a tensor on the
+            fit's device is copied there, detached) which the ladder then
+            assesses; a string means X is *already* the activation matrix
+            and the string is its encoder fingerprint.  Either way
+            ``result.meta.encoder`` records provenance and the inner rung
+            is auto-selected by activation count.
 
         Returns:
           self; ``self.result`` is the rung's ``TendencyResult``.
         """
+        if encoder is not None:
+            return self._fit_embed_front(X, encoder)
+        if self.method == "embed":
+            raise registry.encoder_required()
         data, num_report = self._admit(X)
         precomputed = self.metric == "precomputed"
         n = int(data.shape[0])
@@ -248,6 +281,61 @@ class FastVAT:
         if rung.check is not None:
             rung.check(n)
         return self._run(rung.fit, data, method, num_report, None)
+
+    def _fit_embed_front(self, X, encoder) -> "FastVAT":
+        """fit(X, encoder=...) tail: encode, then run the embed rung.
+
+        Encoding (``registry.encode_rows``, the rung's own routine)
+        happens here, not inside the rung's fitter, so the
+        activations, admitted and pre-passed as any fit's points, become
+        ``self._X``: ``assess()``'s Hopkins probe then reads the embedding
+        space the fit assessed, the DeepVAT semantics.
+        """
+        if self.metric == "precomputed":
+            raise ValueError("encoder= assesses activations; it is "
+                             "incompatible with metric='precomputed'")
+        if self.method not in ("auto", "embed"):
+            raise ValueError("encoder= routes through the 'embed' rung; "
+                             "method must be 'auto' or 'embed', got "
+                             f"{self.method!r}")
+        acts, fingerprint = registry.encode_rows(encoder, X)
+        data, num_report = self._admit(acts, name="activations")
+        return self._run(registry.get_rung("embed").fit, data, "embed",
+                         num_report, None, encoder=fingerprint)
+
+    def fit_embeddings(self, params, cfg, batch) -> "FastVAT":
+        """Assess the cluster tendency of a model's activations.
+
+        The DeepVAT workflow for the model zoo: one forward pass on the
+        params' device, the final hidden states flattened to
+        (batch*seq, d_model) rows (``monitor.probes.encode_batch``), then
+        the ``embed`` rung, which delegates to the exact/approx ladder by
+        activation count.  The model's fingerprint — architecture identity
+        + a weights digest — lands on ``result.meta.encoder``.
+
+        Args:
+          params: model parameters (``models.model.init_params``), on the
+            fit's device.
+          cfg: the ``ModelConfig`` matching params.
+          batch: input batch dict (``data.tokens.make_batch``) — tokens
+            plus any family extras (patches).
+
+        Returns:
+          self; ``self.result`` is a standard ``TendencyResult``.
+
+        Raises:
+          ValueError: the params live on another device than the fit's;
+            the model never runs elsewhere in the fit's place.
+        """
+        dev = _device(self.device)
+        if not _on(params["embed"], dev):
+            raise ValueError(
+                f"fit_embeddings: the params live on "
+                f"{params['embed'].device}, and FastVAT(device="
+                f"{self.device!r}) fits on {dev}; move the params there "
+                "(or fit on their device)")
+        acts = encode_batch(params, cfg, batch)
+        return self.fit(acts, encoder=model_fingerprint(cfg, params))
 
     def fit_many(self, Xs) -> "FastVAT":
         """Assess a stack of datasets in the launches of one fit.

@@ -6,15 +6,14 @@ adapter that runs a ``repro_torch.core`` rung and wraps its output into
 the uniform ``TendencyResult``), its capability flags and its
 auto-selection threshold.
 
-The port registers the ``vat``, ``ivat``, ``svat``, ``bigvat``,
-``flashvat``, ``approx`` and ``dvat`` rungs; ``vat``, ``flashvat`` and
-``approx`` cover every n under auto-selection.  The reference's other rung
-(``embed``, opt-in) is listed in ``UNPORTED``: ``FastVAT`` raises
-``NotImplementedError`` naming it instead of quietly running another.
+The port registers every rung of the reference: ``vat``, ``ivat``,
+``svat``, ``bigvat``, ``flashvat``, ``approx``, ``dvat`` and ``embed``;
+``vat``, ``flashvat`` and ``approx`` cover every n under auto-selection.
+``UNPORTED`` lists the reference's rungs the port lacks: none.
 
 >>> from repro_torch.api import registry
 >>> sorted(registry.registered())
-['approx', 'bigvat', 'dvat', 'flashvat', 'ivat', 'svat', 'vat']
+['approx', 'bigvat', 'dvat', 'embed', 'flashvat', 'ivat', 'svat', 'vat']
 >>> registry.select_method(100), registry.select_method(10_000)
 ('vat', 'flashvat')
 >>> registry.select_method(1_000_000)
@@ -40,6 +39,7 @@ from repro_torch import core
 from repro_torch.api.result import SALT_FIT, ResultMeta, TendencyResult
 from repro_torch.core.bigvat import DEFAULT_BLOCK
 from repro_torch.kernels import ops as kops
+from repro_torch.monitor.probes import callable_fingerprint
 
 #: Auto-selection thresholds, the reference's: materialized exact VAT up to
 #: SMALL_N, matrix-free exact VAT (flashvat) to MEDIUM_N, the kNN-graph
@@ -52,9 +52,8 @@ MEDIUM_N = 50_000
 #: more than they parallelize.
 FLASH_SHARD_MIN_N = 4_096
 
-#: Rungs of the reference the port does not have yet; opt-in (no
-#: auto-selection threshold), so auto-selection never reaches them.
-UNPORTED = ("embed",)
+#: Rungs of the reference the port does not have: none is left.
+UNPORTED: tuple[str, ...] = ()
 
 
 class RungOptions(NamedTuple):
@@ -76,11 +75,17 @@ class RungOptions(NamedTuple):
     ``num_form`` is the numerics shield's tile-form plan: "gram" (default
     — the ‖x‖²+‖y‖²−2x·y form) or "direct" (per-coordinate (x−y)², no
     cancellation).  The facade sets it from ``numerics.resolve``.
+
+    ``encoder`` is the ``embed`` rung's model hook: a callable mapping the
+    fit input to an (n, d) activation matrix (DeepVAT-style).  The facade
+    encodes before dispatch and leaves this None; set it when driving the
+    rung directly through the registry.
     """
     sample_size: int = 256
     block: int = DEFAULT_BLOCK
     turbo: bool | None = None
     knn_k: int = 15
+    encoder: Any = None
     num_form: str = "gram"
 
 
@@ -227,17 +232,8 @@ def register(rung: Rung, *, overwrite: bool = False) -> Rung:
     return rung
 
 
-def not_ported(name: str) -> NotImplementedError:
-    """The error for a rung the reference has and the port does not yet."""
-    return NotImplementedError(
-        f"rung {name!r} is not ported to repro_torch yet; ported rungs: "
-        f"{registered()}")
-
-
 def get_rung(name: str) -> Rung:
     """Look up a registered rung by method name."""
-    if name in UNPORTED:
-        raise not_ported(name)
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -514,6 +510,61 @@ def _fit_approx(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
     return _band_render(Xf, res.order, meta, opts)
 
 
+def encoder_required() -> ValueError:
+    """The ``embed`` rung's error for a fit with no encoder."""
+    return ValueError(
+        "method='embed' needs an encoder: pass options.encoder (a "
+        "callable X -> activations), or pre-encoded activations with "
+        "the encoder fingerprint on meta.encoder — e.g. via "
+        "FastVAT.fit(X, encoder=...) / FastVAT.fit_embeddings(...)")
+
+
+def encode_rows(encoder, X):
+    """Activations of X as f32 rows, and their encoder's fingerprint.
+
+    A callable encoder runs on X (fingerprint: ``callable_fingerprint``);
+    a string means X is already the activations and the string is their
+    fingerprint.  Any leading shape is flattened to rows.  A tensor keeps
+    its device and leaves autograd; anything else becomes a numpy array.
+    """
+    if callable(encoder):
+        acts, fingerprint = encoder(X), callable_fingerprint(encoder)
+    else:
+        acts, fingerprint = X, str(encoder)
+    acts = (acts.detach().float() if isinstance(acts, torch.Tensor)
+            else np.asarray(acts, np.float32))
+    if acts.ndim > 2:
+        acts = acts.reshape(-1, acts.shape[-1])
+    return acts, fingerprint
+
+
+def _fit_embed(data, meta: ResultMeta, opts: RungOptions) -> TendencyResult:
+    """The embeddings front-end rung (DeepVAT): assess activations.
+
+    Raw inputs (pixels, tokens) are rarely clusterable; learned
+    embeddings are.  This rung maps the input through an encoder —
+    ``opts.encoder`` (a callable X -> (n, d) activations), or the data is
+    already pre-encoded and ``meta.encoder`` carries the fingerprint —
+    then delegates to whatever rung ``select_method`` picks for the
+    activation count (``encode_rows``).  Activations that are a tensor on
+    the fit's device stay there; others are copied there.  ``meta.method``
+    stays "embed" and ``meta.encoder`` records provenance; everything else
+    (images, assess) is the inner rung's standard output.
+    """
+    enc = opts.encoder
+    if callable(enc):
+        acts, fingerprint = encode_rows(enc, data)
+        meta = dataclasses.replace(meta, encoder=meta.encoder or fingerprint)
+    elif meta.encoder:
+        acts, _ = encode_rows(meta.encoder, data)   # pre-encoded
+    else:
+        raise encoder_required()
+    acts = torch.as_tensor(acts, device=torch.device(meta.device))
+    meta = dataclasses.replace(meta, n=int(acts.shape[0]))
+    inner = get_rung(select_method(meta.n))
+    return inner.fit(acts, meta, opts)
+
+
 def _check_dvat(n: int):
     """dvat needs a process group of more than one rank whose size divides
     n: RuntimeError below two ranks (as the reference below two devices),
@@ -615,3 +666,8 @@ register(Rung(
     name="dvat", fit=_fit_dvat, check=_check_dvat, auto_threshold=None,
     description="matrix-free distributed VAT over a torch.distributed "
                 "process group; needs more than one rank"))
+register(Rung(
+    name="embed", fit=_fit_embed, auto_threshold=None,
+    description="embeddings front-end (DeepVAT): encode, then run the "
+                "exact/approx ladder on activations; encoder "
+                "fingerprint on meta.encoder"))

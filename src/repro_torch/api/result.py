@@ -78,6 +78,9 @@ class ResultMeta:
       approx: the approx rung's error report (``core.ApproxStats``: k,
         kNN mode, Borůvka passes, components before repair, repaired edges
         and their weight, tree weight); None for every other rung.
+      encoder: fingerprint of the encoder that produced the fitted
+        activations (the ``embed`` rung, ``FastVAT.fit(X, encoder=…)`` /
+        ``fit_embeddings``); None when the fit ran on raw input points.
       numerics: the numerics shield's plan for this fit
         (``numerics.NumericsReport``): condition estimate κ, policy mode,
         tile form, storage dtype, whether the conditioning transform ran,
@@ -92,6 +95,7 @@ class ResultMeta:
     device: str = "cuda"
     sample_size: int | None = None
     approx: ApproxStats | None = None
+    encoder: str | None = None
     numerics: NumericsReport | None = None
 
     def generator(self, salt: int = SALT_FIT,

@@ -2,7 +2,9 @@
 ``approx``, ``svat``, ``bigvat`` and ``dvat`` rungs' modules, the sharded
 flashvat engine on ``torch.distributed``, ``StreamingVAT``, the paper's
 evaluation tools (``kmeans``, ``dbscan``, ``adjusted_rand_index``, ``pca``,
-``tsne``), and the pure-Python oracle ``naive``.
+``tsne``), the pure-Python oracle ``naive``, and the diagnostics of
+``core/diagnostics.py`` (``activation_report``, ``embedding_tendency``,
+``router_tendency``, ``TendencyReport``).
 
 The user-facing facade with automatic method selection is
 ``repro_torch.api.FastVAT``.  ``torch.distributed`` is part of torch, so
@@ -35,6 +37,19 @@ from repro_torch.core.vat import (FlashVATResult, VATResult,
                                   vat_matrix_free, vat_matrix_free_batch,
                                   vat_order, vat_order_batch)
 
+_DIAG_NAMES = ("activation_report", "embedding_tendency", "router_tendency",
+               "TendencyReport")
+
+
+def __getattr__(name):
+    # Lazy: the diagnostics live in repro_torch.monitor.probes, which
+    # imports repro_torch.core primitives — an eager import would cycle.
+    if name in _DIAG_NAMES:
+        from repro_torch.core import diagnostics
+        return getattr(diagnostics, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "vat", "vat_from_dist", "vat_order", "reorder", "VATResult",
     "vat_batch", "vat_batch_from_dist", "vat_order_batch", "reorder_batch",
@@ -51,5 +66,5 @@ __all__ = [
     "bigvat", "bigvat_from", "BigVATResult", "nearest_prototype_assign",
     "smoothed_image", "StreamingVAT",
     "kmeans", "kmeans_from", "dbscan", "adjusted_rand_index", "pca",
-    "tsne", "tsne_from",
+    "tsne", "tsne_from", *_DIAG_NAMES,
 ]

@@ -1,6 +1,8 @@
-"""Datasets of the paper's evaluation, generated in place from a seed
-(``synth.py``).  The training corpus of ``repro.data`` comes with the
-training stack."""
+"""Datasets generated in place from a seed: the paper's evaluation sets
+(``synth.py``) and the synthetic token corpus the model zoo reads
+(``tokens.py``)."""
 from repro_torch.data.synth import DATASETS, make_big_blobs, make_dataset
+from repro_torch.data.tokens import SyntheticCorpus, make_batch
 
-__all__ = ["DATASETS", "make_dataset", "make_big_blobs"]
+__all__ = ["DATASETS", "make_dataset", "make_big_blobs", "SyntheticCorpus",
+           "make_batch"]

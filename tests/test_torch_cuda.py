@@ -907,6 +907,28 @@ def test_cuda_prim_persist_rows_staged_and_in_global(cuda, n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4096, 2048), (20_000, 1024)])
+def test_cuda_prim_persist_rows_in_global_against_plain(cuda, n, d):
+    """Rows past shared memory (the embed path's d = 2,048 at 4,096 rows,
+    and d = 1,024) against ``ref.prim_persist_ref`` on the same tensors:
+    by spanning-tree weight (EXCESS_F32 = 1e-5) and by the edges as
+    multisets within the pairwise tolerance."""
+    from repro_torch.kernels.prim_persist import persist_plan
+    X = torch.from_numpy(_contig_blobs(n, d=d, k=8)).to(cuda)
+    aux, i0 = _persist_inputs(X)
+    assert not persist_plan(1, n, d)["rows_staged"]
+    order, edges, _ = prim_persist_cuda(X, aux, i0, prune=False)
+    porder, pedges = ref.prim_persist_ref(X, aux, i0)
+    R = torch.cdist(X.double(), X.double())
+    wk = float(torch.sum(_frontier_minima(R, order)))
+    wp = float(torch.sum(_frontier_minima(R, porder)))
+    assert abs(wk - wp) / wp <= 1e-5
+    assert float(torch.amax(torch.abs(torch.sort(edges).values
+                                      - torch.sort(pedges).values))) <= \
+        _tolerance("euclidean", "gram", X, None, edges)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("metric", ref.METRICS)
 def test_cuda_knn_batch_equals_solo_and_plain(cuda, metric):
     """Each lane's lists are the single kernel's and the pairwise kernel's
@@ -1650,6 +1672,96 @@ def test_cuda_disarmed_server_counters_read_zero(cuda):
             solo = FastVAT(method=method).fit(X).result
             assert _served_same(served, solo) == []
         assert srv.stats().resilience == ResilienceStats()
+
+
+# ------------------------------------------- the embed rung (DeepVAT) ----
+
+def _embed_model(name, device, **replace):
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    cfg = configs.get_config(name).replace(**replace)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return cfg, M.init_params(cfg, gen, device=device)
+
+
+def _same_fit(a, b):
+    ra, rb = a.result, b.result
+    assert torch.equal(ra.order, rb.order)
+    assert torch.equal(ra.rstar, rb.rstar)
+    assert np.array_equal(a.image(use_ivat=True), b.image(use_ivat=True))
+    for f in ("sample_idx", "extension_labels", "group_sizes"):
+        x, y = getattr(ra, f), getattr(rb, f)
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,rung", [(512, "vat"), (1024, "flashvat")])
+def test_cuda_embed_fit_equals_plain_fit(cuda, seq, rung):
+    """fit_embeddings of a 2-layer full-width gemma-2b (B = 4: 2,048 and
+    4,096 activation rows) == FastVAT().fit of the same activations, bit
+    for bit, with the rung's kernels launched."""
+    from repro_torch import FastVAT
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.monitor import encode_batch
+    cfg, params = _embed_model("gemma-2b", cuda, n_layers=2)
+    batch = make_batch(cfg, ShapeConfig("e", seq, 4, "prefill"))
+    acts = encode_batch(params, cfg, batch)
+    assert acts.device.type == "cuda" and bool(torch.isfinite(acts).all())
+    _build.reset_launch_counts()
+    fv = FastVAT().fit_embeddings(params, cfg, batch)
+    fv.image(use_ivat=True)
+    counts = _build.launch_counts()
+    plain = FastVAT().fit(acts)
+    assert plain.method_resolved == rung and fv.result.meta.n == 4 * seq
+    assert fv.result.meta.encoder.startswith("gemma-2b@")
+    _same_fit(fv, plain)
+    want = (("pairwise_dist", "vat_prim_order", "ivat_from_vat")
+            if rung == "vat" else
+            ("pairwise_dist", "prim_persist", "ivat_from_vat"))
+    assert all(counts[k] > 0 for k in want), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemma-2b", "internvl2-1b"])
+def test_cuda_model_forward_matches_cpu(cuda, name):
+    """A full-width 2-layer forward on the card against the CPU's on the
+    same weights: hidden states, logits and taps within 1e-4 of each
+    tensor's scale (f32 products, no TF32, summed in another order)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    cfg, params = _embed_model(name, cuda, n_layers=2)
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
+    batch = make_batch(cfg, ShapeConfig("p", 64 + extra, 1, "prefill"))
+    host = {k: v.cpu() for k, v in params.items() if k != "layers"}
+    host["layers"] = {k: v.cpu() for k, v in params["layers"].items()}
+    with torch.inference_mode():
+        logits, _, taps = M.forward(params, cfg, batch, taps=True)
+        hidden, _ = M.forward(params, cfg, batch, return_hidden=True)
+        cpu_batch = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                     for k, v in batch.items()}
+        want_l, _, want_t = M.forward(host, cfg, cpu_batch, taps=True)
+        want_h, _ = M.forward(host, cfg, cpu_batch, return_hidden=True)
+    for got, want in ((logits, want_l), (hidden, want_h),
+                      (taps["layer_out"], want_t["layer_out"])):
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_fit_embeddings_refuses_cpu_params(cuda):
+    from repro_torch import FastVAT, configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    cfg = configs.smoke_config("gemma-2b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = make_batch(cfg, ShapeConfig("e", 32, 2, "prefill"))
+    with pytest.raises(ValueError, match="params live on cpu"):
+        FastVAT().fit_embeddings(params, cfg, batch)
+
 
 if __name__ == "__main__":
     import torch.multiprocessing as mp
