@@ -59,7 +59,21 @@ block and the render; ``prim_persist`` by tree weight and edges, with its
 plain time), the probes over gemma's run (``probes``: the final layer's
 taps and the embedding table, rstar == the VAT image of the maximin
 sample, row 1 on the sample against its plain version) and the card's 2-layer forwards against the CPU's within 1e-4 of
-scale (``model-parity``); runs the certification sweep
+scale (``model-parity``); drives the other families at their published
+widths (f32, ``init_params`` seed 0, ``make_batch``; ``model-size`` prints
+each one's weights and the depth cut one card's 80 GB forces): rwkv6-3b
+(32 layers; ``vat`` at B 4, S 512 and ``flashvat`` at S 1,024), zamba2-2.7b
+(54 layers), whisper-large-v3 (32 + 32 layers, 1,500 frames),
+phi3.5-moe-42b-a6.6b (8 of 32 layers) and deepseek-v3-671b (1 of 61
+layers and its MTP block, labels in the batch), each through
+``fit_embeddings`` (``embed-*``: bit for bit the plain fit, its kernels
+against their plain versions), ``router_tendency`` on the moe configs'
+last router logits (``router-probe``), and ``prefill`` of 128 tokens then
+32 ``decode_step``s against the forward of the same 160 (``decode-*``:
+within 2e-3 of scale, 5e-3 hybrid, under an f32 cache; prefill and a
+step timed under the bfloat16 cache), with ``model-parity`` for four of
+them (phi3.5-moe at 1 layer with the same expert ids, rwkv6 at 2, zamba2
+at one super-block, whisper at 1 + 1); runs the certification sweep
 (``numerics/certify.py``, 180 fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
@@ -3281,10 +3295,23 @@ def peak_gb(torch, base: int) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
+def tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
+
+
+def tree_to(tree, device):
+    """A params tree (nested dicts of tensors) copied to ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 def params_gb(params) -> float:
-    leaves = list(params["layers"].values()) + [
-        v for k, v in params.items() if k != "layers"]
-    return sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(params)) / 1e9
 
 
 class method_walls:
@@ -3483,17 +3510,74 @@ def phase_embed_encoder(torch, rt, build, dev="cuda"):
     return launches
 
 
-def forward_flops(cfg, B: int, S: int) -> float:
-    """f32 operations of a ``return_hidden`` forward over B rows of S
-    positions: two per multiply-add of the q/k/v/o and FFN products, and
-    of the full (S, S) score and value products of every head (the
+def attn_macs(cfg, S: int, K: int | None = None):
+    """Multiply-adds of one attention sublayer over S queries against K
+    keys (default S): (per token of the projections, per sequence of the
+    score and value products, formed in full for every head: the
     reference's q-chunked attention forms every chunk's full row block and
     masks it)."""
-    D = cfg.d_model
-    per_token = (2 * cfg.q_dim * D + 2 * cfg.kv_dim * D
-                 + (3 if cfg.gated else 2) * D * cfg.d_ff)
-    attn = 2 * cfg.eff_heads * S * S * cfg.head_dim
-    return 2.0 * cfg.n_layers * B * (S * per_token + attn)
+    D, K = cfg.d_model, S if K is None else K
+    if cfg.use_mla:
+        H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+        proj = (D * cfg.q_lora_rank + cfg.q_lora_rank * H * (dn + dr)
+                + D * (cfg.kv_lora_rank + dr)
+                + cfg.kv_lora_rank * H * (dn + dv) + H * dv * D)
+        return proj, H * S * K * (dn + dr + dv)
+    proj = 2 * cfg.q_dim * D + 2 * cfg.kv_dim * D
+    return proj, 2 * cfg.eff_heads * S * K * cfg.head_dim
+
+
+def ffn_macs(cfg, d_ff: int) -> int:
+    return (3 if cfg.gated else 2) * cfg.d_model * d_ff
+
+
+def forward_flops(cfg, B: int, S: int, labels: bool = False) -> float:
+    """f32 operations of a ``return_hidden`` forward over B rows of S
+    positions, two per multiply-add of its products: attention
+    (``attn_macs``) and FFNs; for moe the router, every slot of the
+    (E, cap, D) dispatch buffer through its expert (empty slots too: the
+    batched products form them) and the shared experts, and with
+    ``labels`` DeepSeek-V3's MTP block and its vocabulary product; for ssm
+    RWKV-6's six D×D products, the decay LoRA, the channel mix and the WKV
+    state update (about three per state entry a token); for hybrid the Mamba2 projections
+    and SSD chunk products around the shared block; for audio the encoder
+    over ``enc_seq`` frames and each decoder layer's cross-attention."""
+    D, T = cfg.d_model, B * S
+    proj, attn = attn_macs(cfg, S)
+    dense = T * (proj + ffn_macs(cfg, cfg.d_ff)) + B * attn
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        macs = cfg.n_layers * dense
+    elif fam == "moe":
+        E, K, Fe = cfg.n_experts, cfg.top_k, cfg.d_ff_expert or cfg.d_ff
+        cap = max(int(K * T * cfg.capacity_factor / E), 1)
+        layer = (T * (proj + D * E) + B * attn + E * cap * ffn_macs(cfg, Fe)
+                 + T * cfg.n_shared_experts * ffn_macs(cfg, Fe))
+        macs = cfg.n_layers * layer
+        if labels and cfg.mtp:
+            macs += dense + T * (2 * D * D + D * cfg.padded_vocab)
+    elif fam == "ssm":
+        N = cfg.rwkv_head_dim
+        macs = cfg.n_layers * T * (6 * D * D + 128 * D + 2 * D * cfg.d_ff
+                                   + 3 * D * N)
+    elif fam == "hybrid":
+        inner, P, N = cfg.ssm_expand * D, cfg.ssm_head_dim, cfg.ssm_state
+        H, L = inner // P, min(cfg.ssm_chunk, S)
+        mamba = T * (D * (2 * inner + 2 * N + H) + inner * D
+                     + L * N + L * H * P + 2 * N * H * P)
+        nsb = cfg.n_layers // cfg.attn_every
+        macs = nsb * ((cfg.attn_every - 1) * mamba + dense)
+    elif fam == "audio":
+        Se = cfg.enc_seq
+        eproj, eattn = attn_macs(cfg, Se)
+        enc = B * (Se * (eproj + ffn_macs(cfg, cfg.d_ff)) + eattn)
+        _, xattn = attn_macs(cfg, S, Se)
+        cross = B * (S * 2 * cfg.q_dim * D + Se * 2 * cfg.kv_dim * D + xattn)
+        macs = cfg.n_enc_layers * enc + cfg.n_layers * (dense + cross)
+    else:
+        raise ValueError(fam)
+    return 2.0 * macs
 
 
 def embed_trace(torch, rt, acts, fingerprint, rung, dev="cuda") -> dict:
@@ -3523,9 +3607,10 @@ def embed_trace(torch, rt, acts, fingerprint, rung, dev="cuda") -> dict:
 
 
 def embed_model(torch, rt, ref, ops, kern, build, cfg, shapes, label,
-                dev="cuda"):
+                dev="cuda", kind="prefill"):
     """Full-width ``cfg`` from ``init_params`` (f32, seed 0) on the card;
-    for each (B, S, rung) of ``shapes`` a ``make_batch`` batch, its forward
+    for each (B, S, rung) of ``shapes`` a ``make_batch`` batch of ``kind``
+    (``train`` adds labels, which run DeepSeek-V3's MTP block), its forward
     (CUDA events), ``fit_embeddings`` held bit for bit against the plain fit
     of the same activations with the walls of its embed front end and
     pre-pass, its kernels against their plain versions on its data, and
@@ -3542,8 +3627,7 @@ def embed_model(torch, rt, ref, ops, kern, build, cfg, shapes, label,
     fingerprint = model_fingerprint(cfg, params)
     total, first = {}, None
     for B, S, rung in shapes:
-        batch = make_batch(cfg, ShapeConfig("embed", S, B, "prefill"),
-                           device=dev)
+        batch = make_batch(cfg, ShapeConfig("embed", S, B, kind), device=dev)
         first = first or batch
         torch.cuda.reset_peak_memory_stats()
         acts = encode_batch(params, cfg, batch)     # and the warm-up
@@ -3564,11 +3648,12 @@ def embed_model(torch, rt, ref, ops, kern, build, cfg, shapes, label,
                                           tag)
         trace = embed_trace(torch, rt, acts, fingerprint, rung, dev)
         rep = fv.assess()
-        flops = forward_flops(cfg, B, S)
+        flops = forward_flops(cfg, B, S, labels="labels" in batch)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         log(label, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-            batch=B, seq=S, rows=meta.n, inner=rung, encoder=meta.encoder,
+            batch=B, seq=S, kind=kind, rows=meta.n, inner=rung,
+            encoder=meta.encoder,
             param_gb=params_gb(params), init_s=init_s,
             forward_ms=forward_ms, forward_tflop=flops / 1e12,
             forward_tflop_per_s=flops / forward_ms / 1e9,
@@ -3581,6 +3666,32 @@ def embed_model(torch, rt, ref, ops, kern, build, cfg, shapes, label,
             same_as_plain_fit=True, peak_gb=peak_gb(torch, base))
         del fv, acts
     return params, first, total
+
+
+def check_report(torch, core, ref, ops, kern, name, report, acts, dev):
+    """One tendency report (sample 128, a generator of seed 0) on the
+    card: scores in [0, 1], a (128, 128) rstar equal bit for bit to the
+    VAT image of ``core.maximin_sample``'s rows from a generator of the
+    same seed, and row 1 on those rows against its plain version."""
+    rep, wall = wall_s(torch, lambda: report(
+        acts, torch.Generator(device=dev).manual_seed(0), sample=128))
+    rows = acts.reshape(-1, acts.shape[-1]).float()
+    idx = core.maximin_sample(
+        rows, 128, torch.Generator(device=dev).manual_seed(0))
+    want = core.vat_from_dist(ops.pairwise_dist(rows[idx])).rstar
+    sample_err = pairwise_vs_plain(
+        torch, ref, kern["pairwise_dist"], rows[idx], None, "euclidean",
+        "gram", f"probe {name} sample")
+    h, score = float(rep.hopkins), float(rep.block_score)
+    require(0 <= h <= 1 and 0 <= score <= 1,
+            f"probe {name}: hopkins {h}, block score {score}")
+    require(tuple(rep.rstar.shape) == (128, 128)
+            and torch.equal(rep.rstar, want),
+            f"probe {name}: rstar {tuple(rep.rstar.shape)} is not the "
+            "VAT image of the maximin sample")
+    return {"rows": rows.shape[0], "d": rows.shape[1], "ms": wall * 1e3,
+            "hopkins": h, "block_score": score, "k_est": int(rep.k_est),
+            "pairwise_vs_plain": sample_err}
 
 
 def phase_embed_probes(torch, core, ref, ops, kern, cfg, params, batch,
@@ -3597,52 +3708,40 @@ def phase_embed_probes(torch, core, ref, ops, kern, cfg, params, batch,
         _, _, taps = M.forward(params, cfg, batch, return_hidden=True,
                                taps=True)
     final = taps["layer_out"][-1]
-    out = {}
-    for name, report, acts in (
-            ("acts_final", activation_report, final),
-            ("embed_table", embedding_tendency, params["embed"])):
-        rep, wall = wall_s(torch, lambda: report(
-            acts, torch.Generator(device=dev).manual_seed(0), sample=128))
-        rows = acts.reshape(-1, acts.shape[-1]).float()
-        idx = core.maximin_sample(
-            rows, 128, torch.Generator(device=dev).manual_seed(0))
-        want = core.vat_from_dist(ops.pairwise_dist(rows[idx])).rstar
-        sample_err = pairwise_vs_plain(
-            torch, ref, kern["pairwise_dist"], rows[idx], None, "euclidean",
-            "gram", f"probe {name} sample")
-        h, score = float(rep.hopkins), float(rep.block_score)
-        require(0 <= h <= 1 and 0 <= score <= 1,
-                f"probe {name}: hopkins {h}, block score {score}")
-        require(tuple(rep.rstar.shape) == (128, 128)
-                and torch.equal(rep.rstar, want),
-                f"probe {name}: rstar {tuple(rep.rstar.shape)} is not the "
-                "VAT image of the maximin sample")
-        out[name] = {"rows": rows.shape[0], "d": rows.shape[1],
-                     "ms": wall * 1e3, "hopkins": h, "block_score": score,
-                     "k_est": int(rep.k_est),
-                     "pairwise_vs_plain": sample_err}
+    out = {name: check_report(torch, core, ref, ops, kern, name, report,
+                              acts, dev)
+           for name, report, acts in (
+               ("acts_final", activation_report, final),
+               ("embed_table", embedding_tendency, params["embed"]))}
     log("probes", arch=cfg.name, taps_shape=list(taps["layer_out"].shape),
         reports=out, rstar_equals_maximin_vat=True, held_gb=base / 1e9,
         peak_gb=peak_gb(torch, base))
 
 
-def phase_model_parity(torch, cfg, dev="cuda"):
+def expert_ids(torch, cfg, router_logits):
+    """Each token's top-k experts, as ``moe_ffn`` routes them: (L, T, K)."""
+    from repro_torch.models.moe import _top_k
+    return _top_k(torch.softmax(router_logits, dim=-1), cfg.top_k)[1]
+
+
+def phase_model_parity(torch, cfg, dev="cuda", **cut):
     """The card's forward against the CPU's on the same weights (the
-    card's, copied): full width, 2 layers, B = 1, 128 text tokens (vlm:
-    after its patches).  Each of hidden states, logits and taps within
-    1e-4 of its scale."""
+    card's, copied): full width at the depth ``cut`` gives (2 layers by
+    default), B = 1, 128 text tokens (vlm: after its patches; audio: over
+    1,500 frames).  Each of hidden states, logits and taps within 1e-4 of
+    its scale; for moe the router logits too, after the expert ids, which
+    must be the same (a flip is reported as such)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.tokens import make_batch
     from repro_torch.models import model as M
-    cfg = cfg.replace(n_layers=2)
+    cfg = cfg.replace(**(cut or {"n_layers": 2}))
     base = peak_reset(torch)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                            device=dev)
     extra = cfg.n_patches if cfg.family == "vlm" else 0
     batch = make_batch(cfg, ShapeConfig("parity", 128 + extra, 1, "prefill"),
                        device=dev)
-    host = {k: v.cpu() for k, v in params.items() if k != "layers"}
-    host["layers"] = {k: v.cpu() for k, v in params["layers"].items()}
+    host = tree_to(params, "cpu")
     host_batch = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
                   for k, v in batch.items()}
     ratios = {}
@@ -3652,16 +3751,295 @@ def phase_model_parity(torch, cfg, dev="cuda"):
         want, cpu_s = wall_s(torch, lambda: M.forward(host, cfg, host_batch,
                                                       taps=True))
         want_h = M.forward(host, cfg, host_batch, return_hidden=True)[0]
-    for name, a, b in (("hidden", got_h, want_h), ("logits", got[0], want[0]),
-                       ("taps", got[2]["layer_out"], want[2]["layer_out"])):
+    pairs = [("hidden", got_h, want_h), ("logits", got[0], want[0]),
+             ("taps", got[2]["layer_out"], want[2]["layer_out"])]
+    routing = {}
+    if cfg.family == "moe":
+        ids = expert_ids(torch, cfg, got[2]["router_logits"]).cpu()
+        want_ids = expert_ids(torch, cfg, want[2]["router_logits"])
+        flips = int((ids != want_ids).sum())
+        require(flips == 0, f"{cfg.name}: expert flip: {flips} of "
+                f"{ids.numel()} (token, slot) routes differ between the "
+                "card's router logits and the CPU's")
+        routing = {"same_expert_ids": True, "routes": ids.numel()}
+        pairs.append(("router_logits", got[2]["router_logits"],
+                      want[2]["router_logits"]))
+    for name, a, b in pairs:
         ratios[name] = float((a.cpu() - b).abs().max()
                              / b.abs().max())
     require(all(r <= 1e-4 for r in ratios.values()),
             f"{cfg.name}: card against CPU max |diff| / max |cpu| {ratios}, "
             "want <= 1e-4")
-    log("model-parity", arch=cfg.name, layers=2, d_model=cfg.d_model,
-        tokens=128, patches=extra, ratio_max_abs_over_scale=ratios,
+    log("model-parity", arch=cfg.name, layers=cfg.n_layers,
+        enc_layers=cfg.n_enc_layers, d_model=cfg.d_model, tokens=128,
+        patches=extra, ratio_max_abs_over_scale=ratios, **routing,
         bound=1e-4, cpu_forward_s=cpu_s, peak_gb=peak_gb(torch, base))
+
+
+def phase_router_probe(torch, core, ref, ops, kern, cfg, params, batch,
+                       label, dev="cuda"):
+    """``router_tendency`` on the last layer's router logits of the embed
+    batch (T × n_experts), checked as ``check_report`` checks a probe."""
+    from repro_torch.models import model as M
+    from repro_torch.monitor import router_tendency
+    base = peak_reset(torch)
+    with torch.inference_mode():
+        _, _, taps = M.forward(params, cfg, batch, return_hidden=True,
+                               taps=True)
+    logits = taps["router_logits"]
+    require(tuple(logits.shape[::2]) == (cfg.n_layers, cfg.n_experts)
+            and logits.dtype == torch.float32,
+            f"{label}: router logits {tuple(logits.shape)} {logits.dtype}")
+    report = check_report(torch, core, ref, ops, kern, label,
+                          router_tendency, logits[-1], dev)
+    log("router-probe", arch=cfg.name, logits_shape=list(logits.shape),
+        layer=-1, report=report, rstar_equals_maximin_vat=True,
+        peak_gb=peak_gb(torch, base))
+
+
+def phase_decode(torch, cfg, params, label, dev="cuda"):
+    """``prefill`` of a 128-token prompt (B 1), 32 ``decode_step``s and a
+    ``forward`` of the same 160 tokens: under an f32 cache the prefill's
+    logits and each step's within 2e-3 of the forward's scale (5e-3 for
+    hybrid), the reference's tolerances.  moe runs at capacity_factor
+    max(16, n_experts / top_k): 16 (the reference's tests) holds
+    phi3.5-moe's prompt, but at deepseek-v3's full width one expert takes
+    most of the prompt's tokens (88 of 128 against a cap of 64), and at
+    n_experts / top_k the cap is the token count, so nothing can drop;
+    the prefill's largest load is printed and held under the cap, and
+    decode never drops (a step's K experts are distinct, and cap >= 1).
+    Then the prefill (CUDA events, one call) and a decode step (events
+    around the 32) under the default bfloat16 cache."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    P, STEPS = 128, 32
+    note = {}
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=max(16.0,
+                                              cfg.n_experts / cfg.top_k))
+    base = peak_reset(torch)
+    batch = make_batch(cfg, ShapeConfig("decode", P + STEPS, 1, "prefill"),
+                       device=dev)
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    prompt = {"tokens": toks[:, :P], **extra}
+
+    def run(cache_dtype):
+        logits, cache, pos = M.prefill(params, cfg, prompt, P + STEPS,
+                                       cache_dtype=cache_dtype)
+        steps = []
+        for i in range(STEPS):
+            lg, cache = M.decode_step(params, cfg, toks[:, P + i:P + i + 1],
+                                      cache, pos + i)
+            steps.append(lg)
+        return logits, torch.cat(steps, dim=1), pos
+
+    with torch.inference_mode():
+        full, _ = M.forward(params, cfg, {"tokens": toks, **extra})
+        if cfg.family == "moe":
+            _, _, taps = M.forward(params, cfg, prompt, return_hidden=True,
+                                   taps=True)
+            ids = expert_ids(torch, cfg, taps["router_logits"])
+            load = max(int(torch.bincount(ids[i].reshape(-1),
+                                          minlength=cfg.n_experts).max())
+                       for i in range(cfg.n_layers))
+            cap = max(int(cfg.top_k * P * cfg.capacity_factor
+                          / cfg.n_experts), 1)
+            require(load <= cap, f"{label}: the prefill drops: an expert "
+                    f"takes {load} entries of the prompt, cap {cap}")
+            note = {"capacity_factor": cfg.capacity_factor,
+                    "prefill_max_expert_load": load, "prefill_cap": cap,
+                    "prefill_drops": 0, "decode_drops": 0,
+                    "decode_cap": max(int(cfg.top_k * cfg.capacity_factor
+                                          / cfg.n_experts), 1)}
+        logits, steps, pos = run(torch.float32)
+        require(pos == P, f"{label}: prefill returned position {pos}")
+        scale = float(full.abs().max())
+        errs = {"prefill": float((logits - full[:, :P]).abs().max()) / scale,
+                "decode": float((steps - full[:, P:]).abs().max()) / scale}
+        tol = 5e-3 if cfg.family == "hybrid" else 2e-3
+        require(all(e <= tol for e in errs.values()),
+                f"{label}: prefill/decode against forward {errs}, tol {tol}")
+        # the default bfloat16 cache, timed
+        prefill_ms = event_ms(torch, lambda: M.prefill(
+            params, cfg, prompt, P + STEPS), reps=1, warmup=1)
+        _, cache, pos = M.prefill(params, cfg, prompt, P + STEPS)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(STEPS):
+            lg, cache = M.decode_step(params, cfg, toks[:, P + i:P + i + 1],
+                                      cache, pos + i)
+        end.record()
+        host_us = (time.perf_counter() - t0) / STEPS * 1e6
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / STEPS
+        require(bool(torch.isfinite(lg).all()),
+                f"{label}: non-finite logits under the bfloat16 cache")
+    log(label, arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+        d_model=cfg.d_model, batch=1, prompt=P, steps=STEPS,
+        err_over_scale_f32_cache=errs, tol=tol, **note,
+        prefill_ms_bf16_cache=prefill_ms,
+        prefill_tokens_per_s=P / prefill_ms * 1e3,
+        decode_step_ms_bf16_cache=step_ms, decode_host_us_a_step=host_us,
+        decode_tokens_per_s=1e3 / step_ms, peak_gb=peak_gb(torch, base))
+
+
+def block_gemm_flops(cfg, T: int) -> float:
+    """f32 operations of the products of one layer's block over T tokens
+    (``phase_layer_trace``'s blocks): RWKV-6's six D×D products, the decay
+    LoRA and the channel mix; Mamba2's in and out projections; the MoE
+    router, every (E, cap) expert slot and the shared experts."""
+    D = cfg.d_model
+    if cfg.family == "ssm":
+        return 2.0 * T * (6 * D * D + 128 * D + 2 * D * cfg.d_ff)
+    if cfg.family == "hybrid":
+        inner, N = cfg.ssm_expand * D, cfg.ssm_state
+        H = inner // cfg.ssm_head_dim
+        return 2.0 * T * (D * (2 * inner + 2 * N + H) + inner * D)
+    E, K, Fe = cfg.n_experts, cfg.top_k, cfg.d_ff_expert or cfg.d_ff
+    cap = max(int(K * T * cfg.capacity_factor / E), 1)
+    return 2.0 * (T * D * E + E * cap * ffn_macs(cfg, Fe)
+                  + T * cfg.n_shared_experts * ffn_macs(cfg, Fe))
+
+
+def phase_layer_trace(torch, cfg, params, dev="cuda"):
+    """One layer's sequence mixer or expert FFN at the embed batch's shape
+    (B 4, S 512, a seeded normal input), after a warm-up: its stream time
+    (CUDA events) beside its products' bound; then one call under
+    torch.profiler: launches, the card's time split into the GEMM kernels
+    and the rest, and the idle share of the stream time.  A trace whose
+    device time falls under the products' bound lost launches and reads
+    "not measured".  ssm: ``rwkv_block`` (the WKV loop of S steps);
+    hybrid: ``mamba_block`` (the SSD chunk loop); moe: ``moe_ffn``, and
+    its batched expert products alone on a buffer of the same (E, cap, D)
+    shape, so routing, dispatch and combine are the difference."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ref import full_f32
+    from repro_torch.models import model as M
+    from repro_torch.models.common import activation
+    from repro_torch.models.mamba2 import mamba_block
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.rwkv6 import rwkv_block
+    block, idx = {"ssm": (rwkv_block, (0,)), "hybrid": (mamba_block, (0, 0)),
+                  "moe": (moe_ffn, (0,))}[cfg.family]
+    lp = M._layer(params["layers"], *idx)
+    B, S = 4, 512
+    h = torch.randn(B, S, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    bound = block_gemm_flops(cfg, B * S) / PEAK_F32_OPS_PER_S * 1e3
+    out = {"products_bound_ms": bound}
+    with torch.inference_mode(), full_f32():
+        out["ms"] = event_ms(torch, lambda: block(lp, h, cfg), reps=3,
+                             warmup=1)
+        if cfg.family == "moe":
+            E, K = cfg.n_experts, cfg.top_k
+            cap = max(int(K * B * S * cfg.capacity_factor / E), 1)
+            buf = torch.zeros(E, cap, cfg.d_model, device=dev)
+            act = activation(cfg.act)
+
+            def experts():
+                up = torch.einsum("ecd,edf->ecf", buf, lp["e_up"])
+                gate = act(torch.einsum("ecd,edf->ecf", buf, lp["e_gate"]))
+                return torch.einsum("ecf,efd->ecd", gate * up, lp["e_down"])
+
+            out["expert_products_ms"] = event_ms(torch, experts, reps=3,
+                                                 warmup=1)
+            out["routing_dispatch_combine_shared_ms"] = (
+                out["ms"] - out["expert_products_ms"])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            block(lp, h, cfg)
+            torch.cuda.synchronize()
+    by_name = kernel_device_ms(prof)
+    device = sum(by_name.values())
+    if device >= bound:
+        gemm = sum(v for k, v in by_name.items()
+                   if "gemm" in k.lower() or "cutlass" in k.lower())
+        out.update(device_ms=device, gemm_ms=gemm, other_ms=device - gemm,
+                   launches=device_launches(prof),
+                   idle_share=max(0.0, 1 - device / out["ms"]))
+    else:
+        out.update(trace="not measured", traced_device_ms=device,
+                   traced_launches=device_launches(prof))
+    log("layer-trace", arch=cfg.name, block=block.__name__, batch=B, seq=S,
+        **out)
+
+
+#: The new families' cells: (config, depth cut where one card's 80 GB
+#: forces one, embed shapes (B, S, inner rung), batch kind, label).
+FAMILY_CELLS = (
+    ("rwkv6-3b", {}, ((4, 512, "vat"), (4, 1024, "flashvat")), "prefill",
+     "rwkv6"),
+    ("zamba2-2.7b", {}, ((4, 512, "vat"),), "prefill", "zamba2"),
+    ("whisper-large-v3", {}, ((4, 512, "vat"),), "prefill", "whisper"),
+    ("phi3.5-moe-42b-a6.6b", {"n_layers": 8}, ((4, 512, "vat"),), "prefill",
+     "moe-phi35"),
+    ("deepseek-v3-671b", {"n_layers": 1}, ((4, 512, "vat"),), "train",
+     "mla-dsv3"),
+)
+
+#: ``model-parity``'s depths for the new families (deepseek-v3 is held on
+#: the card by its ``decode`` phase, against the CPU by the tests).
+PARITY_CUTS = (("phi3.5-moe-42b-a6.6b", {"n_layers": 1}),
+               ("rwkv6-3b", {"n_layers": 2}),
+               ("zamba2-2.7b", {"n_layers": 6}),
+               ("whisper-large-v3", {"n_layers": 1, "n_enc_layers": 1}))
+
+
+def model_size(torch, name, cut, dev="cuda"):
+    """Prints the f32 weights of ``name`` at its published depth and at
+    the cut (from the specs, on the meta device: nothing is allocated)
+    beside the card's free memory; returns the cut config."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    full = configs.get_config(name)
+    cfg = full.replace(**cut)
+
+    def gb(c):
+        meta = M.init_params(c, torch.Generator(), device="meta")
+        return sum(t.numel() * 4 for t in tree_leaves(meta)) / 1e9
+
+    free, total = torch.cuda.mem_get_info()
+    log("model-size", arch=name, layers_published=full.n_layers,
+        layers_run=cfg.n_layers, f32_gb_published=gb(full),
+        f32_gb_run=gb(cfg), cut=cut or "none", card_free_gb=free / 1e9,
+        card_total_gb=total / 1e9)
+    return cfg
+
+
+def phase_families(torch, rt, core, ref, ops, kern, build, dev="cuda"):
+    """The fourteenth slice: each new family at its published widths
+    (``FAMILY_CELLS``) through the embed rung, the router probe (moe) and
+    a prefill → decode loop, one model at a time, deepseek-v3 last; then
+    the card-against-CPU forwards (``PARITY_CUTS``) before deepseek-v3.
+    Returns the launches of the embed fits by kernel."""
+    from repro_torch import configs
+    launches = {}
+    for name, cut, shapes, kind, tag in FAMILY_CELLS:
+        if name == "deepseek-v3-671b":
+            for pname, pcut in PARITY_CUTS:
+                phase_model_parity(torch, configs.get_config(pname), dev,
+                                   **pcut)
+                torch.cuda.empty_cache()
+        cfg = model_size(torch, name, cut, dev)
+        params, batch, counts = embed_model(
+            torch, rt, ref, ops, kern, build, cfg, shapes, f"embed-{tag}",
+            dev, kind=kind)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if cfg.family == "moe":
+            phase_router_probe(torch, core, ref, ops, kern, cfg, params,
+                               batch, f"router {tag}", dev)
+        phase_decode(torch, cfg, params, f"decode-{tag}", dev)
+        if cfg.family in ("ssm", "hybrid", "moe"):
+            phase_layer_trace(torch, cfg, params, dev)
+        del params, batch
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_embed(torch, rt, core, ref, ops, kern, build, dev="cuda"):
@@ -3845,10 +4223,18 @@ def main() -> int:
     serve_s = time.perf_counter() - t_serve
     # the thirteenth slice: the embed rung on the model zoo's forward
     t_embed = time.perf_counter()
-    embedded = phase_embed(torch, rt, core, ref, ops, {
-        "pairwise_dist": pairwise_dist_cuda, "prim_persist": prim_persist_cuda,
-        "seed_pivot": _streamed_seed_pivot}, build)
+    kern = {"pairwise_dist": pairwise_dist_cuda,
+            "prim_persist": prim_persist_cuda,
+            "seed_pivot": _streamed_seed_pivot}
+    embedded = phase_embed(torch, rt, core, ref, ops, kern, build)
     embed_s = time.perf_counter() - t_embed
+    # the fourteenth slice: the moe (MLA, MTP), ssm, hybrid and audio
+    # families, the router probe, prefill and decode
+    t_fam = time.perf_counter()
+    for k, v in phase_families(torch, rt, core, ref, ops, kern,
+                               build).items():
+        embedded[k] = embedded.get(k, 0) + v
+    family_s = time.perf_counter() - t_fam
     for row in rows:
         if row["name"] in served:
             row["served_launches"] = served[row["name"]]
@@ -3860,7 +4246,8 @@ def main() -> int:
     row1["bound_ms_by_shape"]["4096x256x8"] = assign_row["bound_ms"]
     phase_certify(torch)
     log("done", total_s=time.perf_counter() - t0, new_phases_s=new_s,
-        serve_phases_s=serve_s, embed_phases_s=embed_s)
+        serve_phases_s=serve_s, embed_phases_s=embed_s,
+        family_phases_s=family_s)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

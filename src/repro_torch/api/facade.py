@@ -318,7 +318,8 @@ class FastVAT:
             fit's device.
           cfg: the ``ModelConfig`` matching params.
           batch: input batch dict (``data.tokens.make_batch``) — tokens
-            plus any family extras (patches).
+            plus any family extras (patches, enc_frames; labels run
+            DeepSeek-V3's MTP block).
 
         Returns:
           self; ``self.result`` is a standard ``TendencyResult``.

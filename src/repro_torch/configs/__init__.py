@@ -1,7 +1,7 @@
 """Architecture registry: exact assigned configs + reduced smoke variants.
 
 The reference's ``repro/configs``, value for value (the port keeps its own
-copy).  ``models/model.py`` runs the ``dense`` and ``vlm`` families so far.
+copy).  ``models/model.py`` runs every family.
 """
 from __future__ import annotations
 

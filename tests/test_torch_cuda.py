@@ -1749,6 +1749,143 @@ def test_cuda_model_forward_matches_cpu(cuda, name):
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
 
 
+# ------------------------- the moe, ssm, hybrid and audio families ----
+
+#: Full widths at 1-2 layers (a super-block for hybrid; deepseek-v3's MLA,
+#: shared expert and MTP block at full width over 16 of its 256 experts,
+#: which keeps its CPU copy near 10 GB).
+FAMILY_CUTS = [("phi3.5-moe-42b-a6.6b", {"n_layers": 1}),
+               ("deepseek-v3-671b", {"n_layers": 1, "n_experts": 16}),
+               ("rwkv6-3b", {"n_layers": 2}),
+               ("zamba2-2.7b", {"n_layers": 6}),
+               ("whisper-large-v3", {"n_layers": 1, "n_enc_layers": 1})]
+FAMILY_IDS = ["phi35", "dsv3", "rwkv6", "zamba2", "whisper"]
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _expert_ids(cfg, logits):
+    from repro_torch.models.moe import _top_k
+    return _top_k(torch.softmax(logits, -1), cfg.top_k)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cut", FAMILY_CUTS, ids=FAMILY_IDS)
+def test_cuda_family_forward_matches_cpu(cuda, name, cut):
+    """A full-width forward on the card against the CPU's on the same
+    weights: logits, hidden states, taps (and router logits, after the
+    same expert ids) within 1e-4 of each tensor's scale; aux (MTP on
+    deepseek-v3, with labels) within 1e-4."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    cfg, params = _embed_model(name, cuda, **cut)
+    kind = "train" if cfg.mtp else "prefill"
+    batch = make_batch(cfg, ShapeConfig("p", 64, 1, kind))
+    host = _tree_to(params, "cpu")
+    cpu_batch = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                 for k, v in batch.items()}
+    with torch.inference_mode():
+        logits, aux, taps = M.forward(params, cfg, batch, taps=True)
+        hidden, _ = M.forward(params, cfg, batch, return_hidden=True)
+        want_l, want_a, want_t = M.forward(host, cfg, cpu_batch, taps=True)
+        want_h, _ = M.forward(host, cfg, cpu_batch, return_hidden=True)
+    pairs = [(logits, want_l), (hidden, want_h),
+             (taps["layer_out"], want_t["layer_out"])]
+    if cfg.family == "moe":
+        assert torch.equal(_expert_ids(cfg, taps["router_logits"]).cpu(),
+                           _expert_ids(cfg, want_t["router_logits"]))
+        pairs.append((taps["router_logits"], want_t["router_logits"]))
+        assert abs(float(aux) - float(want_a)) <= 1e-4 * abs(float(want_a))
+    for got, want in pairs:
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cut", FAMILY_CUTS + [
+    ("internvl2-1b", {"n_layers": 2})], ids=FAMILY_IDS + ["vlm"])
+def test_cuda_prefill_decode_matches_forward(cuda, name, cut):
+    """prefill of 32 tokens (f32 cache) then 8 decode_steps on the card
+    against the forward of the same 40: within 2e-3 of its scale (5e-3
+    for hybrid); moe at capacity max(16, E / K), so nothing drops."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    cfg, params = _embed_model(name, cuda, **cut)
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=max(16.0,
+                                              cfg.n_experts / cfg.top_k))
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
+    batch = make_batch(cfg, ShapeConfig("d", 40 + extra, 1, "prefill"))
+    toks = torch.as_tensor(batch["tokens"], device=cuda)
+    rest = {k: v for k, v in batch.items() if k != "tokens"}
+    with torch.inference_mode():
+        full, _ = M.forward(params, cfg, {"tokens": toks, **rest})
+        lp, cache, pos = M.prefill(params, cfg, {"tokens": toks[:, :32],
+                                                 **rest}, 48 + extra,
+                                   cache_dtype=torch.float32)
+        assert pos == 32 + extra
+        steps = []
+        for i in range(8):
+            lg, cache = M.decode_step(params, cfg, toks[:, 32 + i:33 + i],
+                                      cache, pos + i)
+            steps.append(lg)
+    tol = 5e-3 if cfg.family == "hybrid" else 2e-3
+    scale = float(full.abs().max())
+    assert float((lp - full[:, :32]).abs().max()) <= tol * scale
+    assert float((torch.cat(steps, 1) - full[:, 32:]).abs().max()) \
+        <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cut", [
+    ("phi3.5-moe-42b-a6.6b", {"n_layers": 2}),
+    ("deepseek-v3-671b", {"n_layers": 1, "n_experts": 32, "mtp": False})],
+    ids=["top2", "top8"])
+def test_cuda_moe_forward_repeats_bit_for_bit(cuda, name, cut):
+    """Two forwards of the same batch give the same bits: the dispatch
+    writes by index and the combine adds a token's K contributions in
+    slot order, so no atomic order reaches the result."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    cfg, params = _embed_model(name, cuda, **cut)
+    batch = make_batch(cfg, ShapeConfig("r", 256, 2, "prefill"))
+    with torch.inference_mode():
+        a, aux_a, ta = M.forward(params, cfg, batch, taps=True)
+        b, aux_b, tb = M.forward(params, cfg, batch, taps=True)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    assert torch.equal(ta["router_logits"], tb["router_logits"])
+
+
+@pytest.mark.cuda
+def test_cuda_family_embed_fit_equals_plain_fit(cuda):
+    """fit_embeddings of a 2-layer full-width rwkv6-3b (B = 4, S = 512:
+    2,048 rows of d 2,560) == FastVAT().fit of the same activations, bit
+    for bit, with the vat rung's kernels launched."""
+    from repro_torch import FastVAT
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.monitor import encode_batch
+    cfg, params = _embed_model("rwkv6-3b", cuda, n_layers=2)
+    batch = make_batch(cfg, ShapeConfig("e", 512, 4, "prefill"))
+    acts = encode_batch(params, cfg, batch)
+    _build.reset_launch_counts()
+    fv = FastVAT().fit_embeddings(params, cfg, batch)
+    fv.image(use_ivat=True)
+    counts = _build.launch_counts()
+    plain = FastVAT().fit(acts)
+    assert plain.method_resolved == "vat" and fv.result.meta.n == 2048
+    assert fv.result.meta.encoder.startswith("rwkv6-3b@")
+    _same_fit(fv, plain)
+    assert all(counts[k] > 0 for k in ("pairwise_dist", "vat_prim_order",
+                                       "ivat_from_vat")), counts
+
+
 @pytest.mark.cuda
 def test_cuda_fit_embeddings_refuses_cpu_params(cuda):
     from repro_torch import FastVAT, configs

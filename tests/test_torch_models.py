@@ -1,5 +1,6 @@
-"""The port's model zoo (``dense`` and ``vlm`` families) held on the CPU
-against the JAX package.
+"""The port's model zoo (``dense`` and ``vlm`` families; the others are
+in ``test_torch_families.py`` and ``test_torch_decode.py``) held on the
+CPU against the JAX package.
 
 * ``configs``: every ``ARCHS`` entry and every ``smoke_config`` field for
   field, with the derived sizes; the shapes, ``TrainConfig``, ``cells``.
@@ -17,7 +18,7 @@ against the JAX package.
 * The padding features (odd vocab, padded heads) as the reference's own
   tests state them, on the port.
 * ``init_params``: the reference's leaf names and shapes; truncated
-  draws; ``NotImplementedError`` for the families not ported yet.
+  draws.
 """
 import dataclasses
 
@@ -44,8 +45,6 @@ from repro_torch.models import model as M
 CPU = "cpu"
 PORTED = ("gemma-2b", "phi3-mini-3.8b", "nemotron-4-15b", "starcoder2-7b",
           "internvl2-1b")
-UNPORTED = ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "rwkv6-3b",
-            "zamba2-2.7b", "whisper-large-v3")
 DERIVED = ("padded_vocab", "eff_heads", "eff_kv_heads", "q_dim", "kv_dim",
            "gated")
 
@@ -228,7 +227,9 @@ def test_blocks_match_reference(name):
     tcos, tsin = common.rope_freqs(torch.arange(16), tcfg.head_dim,
                                    tcfg.rope_theta)
     want, _ = jattn.gqa_block(jlp, jnp.asarray(h), cfg, cos, sin)
-    _close(attention.gqa_block(lp, _t(h), tcfg, tcos, tsin), want, 2e-6)
+    got, cache = attention.gqa_block(lp, _t(h), tcfg, tcos, tsin)
+    assert cache is None
+    _close(got, want, 2e-6)
     _close(moe.dense_ffn(lp, _t(h), tcfg),
            jmoe.dense_ffn(jlp, jnp.asarray(h), cfg), 2e-6)
 
@@ -303,9 +304,8 @@ def test_vocab_padding_preserves_logits():
 
 def test_head_padding_exact_function():
     """The counterpart of tests/test_perf_features.py::
-    test_head_padding_exact_function, on an MHA dense arch (whisper's
-    family is not ported): the padded model with zero extra heads is the
-    same function, bit for bit."""
+    test_head_padding_exact_function, on an MHA dense arch: the padded
+    model with zero extra heads is the same function, bit for bit."""
     cfg0 = configs.smoke_config("phi3-mini-3.8b")
     cfgp = cfg0.replace(head_pad=8)
     assert cfgp.eff_heads == 8 and cfg0.eff_heads == 4
@@ -374,13 +374,3 @@ def test_dense_init_is_a_truncated_normal():
                           device=CPU)
     assert e.dtype == torch.bfloat16
     assert float(e.float().abs().max()) <= 0.04 * (1 + 2 ** -7)
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_family_raises(name):
-    cfg = configs.smoke_config(name)
-    with pytest.raises(NotImplementedError, match=cfg.family) as err:
-        M.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
-    assert "ROADMAP.md queue 1" in str(err.value)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        M.forward({}, cfg, {"tokens": np.zeros((1, 4), np.int32)})
