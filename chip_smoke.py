@@ -73,7 +73,18 @@ last router logits (``router-probe``), and ``prefill`` of 128 tokens then
 within 2e-3 of scale, 5e-3 hybrid, under an f32 cache; prefill and a
 step timed under the bfloat16 cache), with ``model-parity`` for four of
 them (phi3.5-moe at 1 layer with the same expert ids, rwkv6 at 2, zamba2
-at one super-block, whisper at 1 + 1); runs the certification sweep
+at one super-block, whisper at 1 + 1); trains gemma-2b at its published
+config (18 layers, ``remat="full"``, f32, AdamW through
+``build_train_step(donate=True)``, B 2, S 1,024) for 4 steps with
+``TendencyMonitor.observe`` after steps 2 and 4 (``train-gemma``: loss and
+gradient norm finite, params moved, probes in [0, 1], rows 1 and 3'
+launched by the diag steps and held against their plain versions on the
+probes' own draws; step, optimizer and diag-step times, TFLOP/s, peak),
+holds the card's gradients and optimizer updates against the CPU's on
+phi3-mini-3.8b at 1 layer (``train-parity``: 1e-4 and 1e-6 of scale) and
+``train()`` interrupted and resumed against an uninterrupted run
+(``train-resume``: params, optimizer state and tendency history bit for
+bit; each checkpoint's bytes and seconds); runs the certification sweep
 (``numerics/certify.py``, 180 fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
@@ -88,6 +99,7 @@ nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -296,12 +308,17 @@ def ivat_cost(n: int):
 
 # ------------------------------------------------------------ phases ----
 
-def phase_environment(torch, build):
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_environment(torch, build):
+    card = card_line()
     nvcc = build.find_nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
@@ -4073,6 +4090,436 @@ def phase_embed(torch, rt, core, ref, ops, kern, build, dev="cuda"):
     return launches
 
 
+# ------------------------------------------------------------- training ----
+
+#: ``train-gemma``'s cell: gemma-2b at its published config (18 layers,
+#: ``remat="full"``), f32 weights from ``init_params`` seed 0, AdamW, B 2,
+#: S 1,024; 4 steps, a diag step after steps 2 and 4.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_DIAG = 2, 1024, 4, (2, 4)
+
+#: The kernels a diag step launches, and how many times: each of the three
+#: default probes launches row 1 on its maximin sample's (s, s) matrix and
+#: twice in Hopkins, and row 3' once (``vat_from_dist``).
+TRAIN_KERNELS = {"pairwise_dist": 9, "vat_prim_order": 3}
+TRAIN_SYMBOLS = {"pairwise_dist": "pairwise_tile_kernel",
+                 "vat_prim_order": "vat_prim_order_kernel"}
+
+
+def card_state(torch, phase: str) -> None:
+    """The card's name and power limit (nvidia-smi) and its free memory,
+    before a phase."""
+    free, total = torch.cuda.mem_get_info()
+    log("card", before=phase, nvidia_smi=card_line(), free_gb=free / 1e9,
+        total_gb=total / 1e9)
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """f32 operations of one train step: the forward's products
+    (``forward_flops``) and the vocabulary product, three times (forward,
+    and the backward's two products per forward product), plus the layers'
+    forward once more under ``remat="full"`` (recomputed in the
+    backward)."""
+    layers = forward_flops(cfg, B, S)
+    head = 2.0 * B * S * cfg.d_model * cfg.padded_vocab
+    return 3 * (layers + head) + (layers if cfg.remat == "full" else 0)
+
+
+def adamw_bytes(params) -> int:
+    """Bytes AdamW must move for f32 params: p, m and v read and written,
+    the gradient read (28 bytes a parameter)."""
+    return 28 * sum(t.numel() for t in tree_leaves(params))
+
+
+def probe_kernels_vs_plain(torch, ref, ops, kern, rows, gen, label, s=128,
+                           timed=False):
+    """Rows 1 and 3' on a probe's own draws, against their plain versions:
+    the maximin sample's (s, s) matrix and Hopkins's two blocks from the
+    generator the probe program used (``gen``, fresh), then the Prim order
+    of the sample's matrix, bit for bit the loop of plain masked argmins;
+    ``timed`` adds ``probe_kernel_times``."""
+    from repro_torch.core.hopkins import hopkins_draws, probe_count
+    from repro_torch.core.svat import maximin_sample_from
+    from repro_torch.core.vat import vat_order
+    n = rows.shape[0]
+    s = min(s, n)
+    i0 = torch.randint(0, n, (), generator=gen, device=rows.device)
+    cap = 4 * s
+    hx = rows
+    if n > cap:
+        hx = rows.index_select(0, torch.randperm(
+            n, generator=gen, device=rows.device)[:cap])
+    sample = rows.index_select(0, maximin_sample_from(rows, s, i0))
+    U, idx = hopkins_draws(hx, gen, probe_count(hx.shape[0]))
+    out = {"sample": pairwise_vs_plain(
+        torch, ref, kern["pairwise_dist"], sample, None, "euclidean", "gram",
+        f"{label} sample")}
+    out["hopkins_uniform"] = pairwise_vs_plain(
+        torch, ref, kern["pairwise_dist"], U, hx, "euclidean", "gram",
+        f"{label} hopkins U")
+    out["hopkins_data"] = pairwise_vs_plain(
+        torch, ref, kern["pairwise_dist"], hx.index_select(0, idx), hx,
+        "euclidean", "gram", f"{label} hopkins data")
+    R = ops.pairwise_dist(sample)
+    got = vat_order(R)
+    require(torch.equal(got, vat_order(R, argmin=ref.masked_argmin_ref)),
+            f"{label}: vat_prim_order on the sample's matrix is not the "
+            "loop's order")
+    out["vat_prim_order"] = {"n": s, "bitwise_plain": True}
+    out["shapes"] = {"sample": [s, s, rows.shape[1]],
+                     "hopkins": [U.shape[0], hx.shape[0], rows.shape[1]]}
+    if timed:
+        out["timed"] = probe_kernel_times(torch, ref, kern, sample, U, hx, R)
+    return out
+
+
+def probe_kernel_times(torch, ref, kern, sample, U, hx, R) -> dict:
+    """Rows 1 and 3' at a probe's shapes by CUDA events (100 calls after
+    warm-up) beside their plain versions, ``torch.cdist`` and the bound:
+    the (s, s) sample matrix, Hopkins's uniform block (m × 4s) and the
+    Prim order of the sample's matrix."""
+    from repro_torch.core.vat import vat_order
+    out = {}
+    for name, A, B in (("sample", sample, None), ("hopkins", U, hx)):
+        m = None if B is None else B.shape[0]
+        row = {"shape": [A.shape[0], A.shape[0] if m is None else m,
+                         A.shape[1]],
+               "ms": event_ms(torch, lambda: kern["pairwise_dist"](
+                   A, B, metric="euclidean", form="gram"), reps=100),
+               "plain_ms": event_ms(torch, lambda: ref.pairwise_dissim_ref(
+                   A, B, metric="euclidean", form="gram"), reps=100),
+               "library_ms": event_ms(torch, lambda: torch.cdist(
+                   A, A if B is None else B), reps=100)}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            *pairwise_cost(A.shape[0], m, A.shape[1]))
+        out[f"pairwise_dist_{name}"] = row
+    n = R.shape[0]
+    row = {"n": n, "ms": event_ms(torch, lambda: vat_order(R), reps=100),
+           "plain_ms": event_ms(torch, lambda: vat_order(
+               R, argmin=ref.masked_argmin_ref), reps=3, warmup=1),
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound_ms(*prim_order_cost(n))
+    out["vat_prim_order"] = row
+    return out
+
+
+def diag_split(torch, ref, ops, kern, cfg, mon, params, batch, step):
+    """One diag step taken apart, by CUDA events: the tapped forward, the
+    grad probe and each probe's trace (``_trace_parts`` with the program's
+    generator), each trace equal bit for bit to the program's; then rows 1
+    and 3' on each probe's draws against their plain versions."""
+    from repro_torch.monitor import probes as P
+    taps, taps_ms = event_once_ms(torch, lambda: P.probe_taps(
+        cfg, params, batch))
+    grads, grad_ms = event_once_ms(torch, lambda: P.probe_grads(
+        cfg, params, batch, ("embed",)))
+    traces, checks = {}, {}
+    for i, spec in enumerate(mon.specs):
+        arr = P._select(spec, params, taps, grads).detach()
+
+        def gen():
+            return torch.Generator(device=arr.device).manual_seed(
+                P.probe_seed(mon.seed, step, i))
+        parts, ms = event_once_ms(torch, lambda: P._trace_parts(
+            arr, gen(), sample=spec.sample, thumbnail=spec.thumbnail))
+        traces[spec.name] = {"ms": ms, "hopkins": float(parts[0]),
+                             "block_score": float(parts[1]),
+                             "k_est": float(parts[2])}
+        checks[spec.name] = probe_kernels_vs_plain(
+            torch, ref, ops, kern, P._rows(arr), gen(),
+            f"train-gemma {spec.name}", s=spec.sample, timed=i == 0)
+    return {"taps_forward_ms": taps_ms, "grad_probe_ms": grad_ms,
+            "traces": traces}, checks
+
+
+def phase_train_gemma(torch, ref, ops, kern, build, dev="cuda"):
+    """The training slice at full width: gemma-2b (18 layers, d 2,048,
+    vocabulary 256,000, ``remat="full"``), f32 weights from ``init_params``
+    seed 0, AdamW (``warmup_steps=1``) through ``build_train_step(
+    donate=True)``, B 2, S 1,024 from ``make_batch``; 4 steps, with
+    ``TendencyMonitor.observe`` (``default_probes``) after steps 2 and 4.
+    Checks: loss and gradient norm finite, the params moved, each probe's
+    Hopkins and block score in [0, 1], rows 1 and 3' launched by the diag
+    steps (the wrapper counts; the step-4 diag step is traced and the
+    profiler's counts of the two kernels' symbols are printed beside
+    them: a trace can lose launches) and held against their plain
+    versions on the probes' own draws.  Returns the launches of the step-4 diag step
+    by kernel."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.tokens import SyntheticCorpus, make_batch
+    from repro_torch.monitor import TendencyMonitor
+    from repro_torch.optim import adamw as O
+    from repro_torch.train import steps as S
+    from torch.profiler import ProfilerActivity, profile
+    card_state(torch, "train-gemma")
+    cfg = configs.get_config("gemma-2b")
+    tc = TrainConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    base = peak_reset(torch)
+    state, init_s = wall_s(torch, lambda: S.init_state(
+        cfg, tc, torch.Generator(device=dev).manual_seed(0), device=dev))
+    held_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    step = S.build_train_step(cfg, tc, donate=True)
+    mon = TendencyMonitor(cfg, seed=0, device=dev)
+    corpus = SyntheticCorpus(cfg.vocab, seed=tc.seed)
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    before = {"embed": state.params["embed"][:8].clone(),
+              "w_up": state.params["layers"]["w_up"][-1, :8].clone()}
+    steps, diags, launches = [], {}, {}
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(
+            cfg, shape, step=i, corpus=corpus, device=dev).items()}
+        (state, metrics), ms = event_once_ms(torch,
+                                              lambda: step(state, batch))
+        row = {k: float(v) for k, v in metrics.items()}
+        require(all(np.isfinite(v) for v in row.values()),
+                f"train-gemma step {i + 1}: metrics {row}")
+        steps.append(dict(row, ms=ms))
+        if i + 1 in TRAIN_DIAG:
+            reset_counts(build)
+            traced = i + 1 == TRAIN_STEPS
+            tracer = (profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA])
+                      if traced else contextlib.nullcontext())
+            with tracer as prof:
+                summ, wall = wall_s(torch, lambda: mon.observe(
+                    i + 1, state.params, batch))
+            counts = build.launch_counts()
+            missing = {k: counts.get(k, 0) for k, v in TRAIN_KERNELS.items()
+                       if counts.get(k, 0) < v}
+            require(not missing, f"train-gemma diag step {i + 1}: rows "
+                    f"launched {missing}, want {TRAIN_KERNELS}")
+            for name, s in summ.items():
+                require(0 <= s["hopkins"] <= 1 and 0 <= s["block_score"] <= 1,
+                        f"train-gemma probe {name} at step {i + 1}: {s}")
+            diags[i + 1] = {"observe_ms": wall * 1e3, "probes": summ,
+                            "traced": traced}
+            launches = {k: v for k, v in counts.items() if v}
+    by_symbol = kernel_counts(prof)
+    profiled = {name: sum(n for k, n in by_symbol.items() if sym in k)
+                for name, sym in TRAIN_SYMBOLS.items()} \
+        if by_symbol else "not measured"
+    split, checks = diag_split(torch, ref, ops, kern, cfg, mon,
+                               state.params, batch, TRAIN_STEPS)
+    same = all(split["traces"][n][f] == diags[TRAIN_STEPS]["probes"][n][f]
+               for n in split["traces"]
+               for f in ("hopkins", "block_score", "k_est"))
+    moved = {k: float(torch.amax(torch.abs(v - (
+        state.params["embed"][:8] if k == "embed"
+        else state.params["layers"]["w_up"][-1, :8]))))
+        for k, v in before.items()}
+    require(all(v > 0 for v in moved.values()),
+            f"train-gemma: params did not move: {moved}")
+    # the optimizer alone, on one more step's gradients (a fifth update)
+    _, grads = S.value_and_grad(state.params, cfg, batch)
+    _, opt_ms = event_once_ms(torch, lambda: O.apply_opt(
+        tc, state.params, grads, state.opt, donate=True))
+    opt_bound = adamw_bytes(state.params) / PEAK_BYTES_PER_S * 1e3
+    del grads
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    warm = sorted(s["ms"] for s in steps[1:])
+    step_ms = warm[len(warm) // 2]
+    log("train-gemma", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.padded_vocab, remat=cfg.remat,
+        batch=TRAIN_B, seq=TRAIN_S, tokens=TRAIN_B * TRAIN_S,
+        params_gb=params_gb(state.params), state_gb=held_gb, init_s=init_s,
+        steps=steps, step_ms=step_ms, step_tflop=flops / 1e12,
+        tflop_per_s=flops / step_ms / 1e9,
+        step_bound_ms=flops / PEAK_F32_OPS_PER_S * 1e3,
+        optimizer_ms=opt_ms, optimizer_bound_ms=opt_bound,
+        optimizer_bound_by="bytes", diag=diags, diag_split=split,
+        split_equals_observe=same, train_launches=launches,
+        profiler_launches=profiled, profiler_shows_rows="not measured"
+        if profiled == "not measured" else all(profiled.values()),
+        kernels_vs_plain=checks, params_moved=moved,
+        peak_gb=peak_gb(torch, base))
+    require(same, "train-gemma: the diag step's split traces differ from "
+            "the program's")
+    del state, mon
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tree_ratio(torch, got, want) -> float:
+    """The largest max |got - want| / max |want| over the leaves."""
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        scale = float(torch.amax(torch.abs(b))) or 1.0
+        worst = max(worst, float(torch.amax(torch.abs(
+            a.float().cpu() - b.float()))) / scale)
+    return worst
+
+
+def phase_train_parity(torch, dev="cuda"):
+    """The card's train step against the CPU's: phi3-mini-3.8b at full
+    width and 1 layer, the same initial weights on both, B 1, S 128.  The
+    loss, the gradient norm and every gradient leaf within 1e-4 of scale;
+    then one AdamW update and one momentum-free Adafactor update with
+    ``compress_grads`` on the CPU's gradients on both devices, the updated
+    params within 1e-6 of scale."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw as O
+    from repro_torch.optim import compression as C
+    from repro_torch.train import steps as S
+    card_state(torch, "train-parity")
+    cfg = configs.get_config("phi3-mini-3.8b").replace(n_layers=1)
+    base = peak_reset(torch)
+    host = M.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    params = tree_to(host, dev)
+    batch = make_batch(cfg, ShapeConfig("parity", 128, 1, "train"),
+                       device="cpu")
+    (m_dev, g_dev), dev_s = wall_s(torch, lambda: S.value_and_grad(
+        params, cfg, batch))
+    (m_cpu, g_cpu), cpu_s = wall_s(torch, lambda: S.value_and_grad(
+        host, cfg, batch))
+    n_dev = float(O.clip_by_global_norm(g_dev, 1.0)[1])
+    n_cpu = float(O.clip_by_global_norm(g_cpu, 1.0)[1])
+    ratios = {"loss": abs(float(m_dev["loss"]) - float(m_cpu["loss"]))
+              / abs(float(m_cpu["loss"])),
+              "grad_norm": abs(n_dev - n_cpu) / n_cpu,
+              "grads": tree_ratio(torch, g_dev, g_cpu)}
+    require(all(r <= 1e-4 for r in ratios.values()),
+            f"train-parity: card against CPU {ratios}, want <= 1e-4")
+    del g_dev
+    updates = {}
+    for name, kw in (("adamw", {}),
+                     ("adafactor_b1_0_compressed",
+                      {"optimizer": "adafactor", "b1": 0.0,
+                       "compress_grads": True})):
+        tc = TrainConfig(warmup_steps=1, **kw)
+        out = []
+        for p, g in ((host, g_cpu), (params, tree_to(g_cpu, dev))):
+            with torch.no_grad():
+                if tc.compress_grads:
+                    g, _ = C.compress(g, C.ef_init(p), tc.topk_frac)
+                out.append(O.apply_opt(tc, p, g, O.init_opt(tc, p))[0])
+        updates[name] = tree_ratio(torch, out[1], out[0])
+    require(all(r <= 1e-6 for r in updates.values()),
+            f"train-parity: updates on the same gradients {updates}, want "
+            "<= 1e-6 of scale")
+    log("train-parity", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, batch=1, seq=128, ratio_over_scale=ratios,
+        bound=1e-4, update_ratio_over_scale=updates, update_bound=1e-6,
+        card_s=dev_s, cpu_s=cpu_s, peak_gb=peak_gb(torch, base))
+    del params, host
+    torch.cuda.empty_cache()
+
+
+class timed_saves:
+    """(step, bytes, s) of each ``ckpt.save`` while the block runs."""
+
+    def __init__(self, ckpt):
+        self.ckpt, self.saves = ckpt, []
+
+    def __enter__(self):
+        self.saved = self.ckpt.save
+
+        def save(ckpt_dir, step, tree, **kw):
+            t0 = time.perf_counter()
+            path = self.saved(ckpt_dir, step, tree, **kw)
+            s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+            self.saves.append({"step": step, "bytes": nbytes, "s": s,
+                               "gb_per_s": nbytes / s / 1e9})
+            return path
+        self.ckpt.save = save
+        return self.saves
+
+    def __exit__(self, *exc):
+        self.ckpt.save = self.saved
+
+
+def phase_train_resume(torch, dev="cuda"):
+    """The loop on the card: ``train()`` of phi3-mini-3.8b at full width and
+    1 layer, B 2, S 256, 6 steps, ``ckpt_every=3``, ``diag_every=3``,
+    uninterrupted and interrupted after step 4 then resumed from the
+    step-3 checkpoint: the same params and optimizer state bit for bit and
+    the same tendency history (digest).  Checkpoints go under ``build/``;
+    20 GB free there is required."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.monitor import AUX_NAME, TendencyHistory
+    from repro_torch.train.loop import train
+    card_state(torch, "train-resume")
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    disk = shutil.disk_usage(root)
+    log("train-resume-disk", path=root, total_gb=disk.total / 1e9,
+        free_gb=disk.free / 1e9, want_free_gb=20)
+    require(disk.free >= 20e9, f"train-resume: {disk.free / 1e9:.1f} GB "
+            f"free under {root}, want 20")
+    cfg = configs.get_config("phi3-mini-3.8b").replace(n_layers=1)
+    shape = ShapeConfig("train", 256, 2, "train")
+    base = peak_reset(torch)
+    runs, logs = {}, []
+    try:
+        with timed_saves(ckpt) as saves:
+            for name in ("full", "resumed"):
+                tc = TrainConfig(total_steps=6, ckpt_every=3, diag_every=3,
+                                 ckpt_dir=os.path.join(root, name))
+                t0 = time.perf_counter()
+                if name == "resumed":
+                    try:
+                        train(cfg, tc, shape, log=logs.append,
+                              interrupt_at=4, device=dev)
+                    except KeyboardInterrupt:
+                        pass
+                    else:
+                        require(False, "train-resume: no interrupt")
+                state, hist = train(cfg, tc, shape, log=logs.append,
+                                    device=dev)
+                torch.cuda.synchronize()
+                history = TendencyHistory.from_arrays(
+                    ckpt.load_aux(tc.ckpt_dir, AUX_NAME))
+                runs[name] = {"state": dict(ckpt._walk(state)),
+                              "history": history, "metrics": hist,
+                              "s": time.perf_counter() - t0}
+                del state
+        a, b = runs["full"], runs["resumed"]
+        require(list(a["state"]) == list(b["state"]),
+                "train-resume: the states' leaves differ")
+        differ = [k for k in a["state"]
+                  if not torch.equal(a["state"][k], b["state"][k])]
+        require(not differ, f"train-resume: resumed state differs from the "
+                f"uninterrupted run's in {differ[:5]}")
+        require(a["history"].steps == b["history"].steps == [3, 6]
+                and a["history"].digest() == b["history"].digest(),
+                f"train-resume: histories {a['history'].steps} "
+                f"{b['history'].steps} digests differ")
+        require(a["metrics"][3:] == b["metrics"],
+                "train-resume: the resumed steps' metrics differ")
+        require(any("[resume] restored step 3" in line for line in logs),
+                "train-resume: the second run did not resume from step 3")
+        log("train-resume", arch=cfg.name, layers=cfg.n_layers, batch=2,
+            seq=256, steps=6, ckpt_every=3, diag_every=3, interrupt_at=4,
+            leaves=len(a["state"]), same_state_bitwise=True,
+            history_steps=a["history"].steps,
+            history_digest=a["history"].digest(), same_history_digest=True,
+            saves=saves, run_s={k: v["s"] for k, v in runs.items()},
+            loss=[m["loss"] for m in a["metrics"]],
+            peak_gb=peak_gb(torch, base))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    runs.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, ref, ops, kern, build, dev="cuda"):
+    """The fifteenth slice: ``train-gemma``, ``train-parity`` and
+    ``train-resume``.  Returns the launches of one diag step of the
+    full-width phase by kernel."""
+    launches = phase_train_gemma(torch, ref, ops, kern, build, dev)
+    phase_train_parity(torch, dev)
+    phase_train_resume(torch, dev)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4235,11 +4682,16 @@ def main() -> int:
                                build).items():
         embedded[k] = embedded.get(k, 0) + v
     family_s = time.perf_counter() - t_fam
+    # the fifteenth slice: training at full width, parity, resume
+    t_train = time.perf_counter()
+    trained = phase_train(torch, ref, ops, kern, build)
+    train_s = time.perf_counter() - t_train
     for row in rows:
         if row["name"] in served:
             row["served_launches"] = served[row["name"]]
         if row["name"] in embedded:
             row["embed_launches"] = embedded[row["name"]]
+        row["train_launches"] = trained.get(row["name"], 0)
     row1 = next(r for r in rows if r["name"] == "pairwise_dist")
     row1["assignment_block"] = assign_row
     row1["ms_by_shape"]["4096x256x8"] = assign_row["ms"]
@@ -4247,7 +4699,7 @@ def main() -> int:
     phase_certify(torch)
     log("done", total_s=time.perf_counter() - t0, new_phases_s=new_s,
         serve_phases_s=serve_s, embed_phases_s=embed_s,
-        family_phases_s=family_s)
+        family_phases_s=family_s, train_phases_s=train_s)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,14 +4,16 @@ The same registry as ``repro/faults.py`` (numpy and the standard library
 only), with its own state: arming ``repro.faults`` does not arm the port,
 nor the other way round.  Every brittle seam carries a *named injection
 site*, a ``fault_point(site, ...)`` call at the host-level boundary where a
-real failure would surface.  Two sites are live in the port today:
-``kernels.dispatch`` at the top of every public wrapper of
-``kernels/ops.py`` (context ``{"op", "use_pallas", "device"}``;
-``use_pallas`` is True when the call goes to a CUDA kernel, so a ``match``
-predicate written for the reference works here) and
+real failure would surface.  Every site of the reference is live in the
+port, under the reference's name: ``kernels.dispatch`` at the top of every
+public wrapper of ``kernels/ops.py`` (context ``{"op", "use_pallas",
+"device"}``; ``use_pallas`` is True when the call goes to a CUDA kernel,
+so a ``match`` predicate written for the reference works here),
 ``kernels.numerics_trip`` at the bf16 certification of
-``numerics/condition.py::resolve``.  The serve, checkpoint and history
-sites keep the reference's names for the modules that will carry them.
+``numerics/condition.py::resolve``, ``serve.build`` and ``serve.execute``
+in ``serve/server.py``, ``history.deserialize`` in
+``monitor/history.py``, and ``ckpt.aux_write`` and ``ckpt.aux_read`` at
+the sidecars of ``checkpoint/ckpt.py``.
 Tests *arm* deterministic faults against those sites; production code never
 arms anything, and a disarmed site costs one module-dict truthiness check
 (the ``if not _ARMED: return`` fast path): no lock, no allocation.
@@ -59,9 +61,7 @@ from typing import Any, Callable
 import numpy as np
 
 #: The registered injection sites, the reference's names — ``arm`` rejects
-#: unknown names so a typo'd site can never silently arm nothing.  The
-#: serve, checkpoint and history sites belong to modules the port has not
-#: ported yet; arming them is legal and nothing hits them.
+#: unknown names so a typo'd site can never silently arm nothing.
 SITES = (
     "kernels.dispatch",     # kernels/ops.py public wrappers (every call)
     "serve.build",          # serve/server.py::_build_program

@@ -30,7 +30,15 @@ Decode positions are host integers.  The KV and latent caches are written
 in place (``decode_step`` and ``prefill`` return them); the recurrent
 states of ``ssm`` and ``hybrid`` are replaced by new tensors each step, in
 the dtype the step computes them in, as the reference's scan returns them.
-``cfg.remat`` has no meaning without autograd and is ignored.
+
+``cfg.remat`` rematerializes each layer body the reference scans (a layer;
+a hybrid super-block; each encoder and decoder layer) when autograd records
+the forward, as the reference's ``_maybe_remat``: ``"full"`` saves only
+the body's inputs (``torch.utils.checkpoint``, non-reentrant), ``"dots"``
+saves the outputs of its matrix products with no batch dimension and
+recomputes the rest (a selective checkpoint), ``"none"`` saves everything.
+The recomputation runs in the backward, so a caller that differentiates
+runs the backward under ``full_f32`` too (``train/steps.py`` does).
 """
 from __future__ import annotations
 
@@ -39,6 +47,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import full_f32
@@ -264,6 +275,33 @@ def params_from_numpy(tree, *, device="cuda", dtype=None):
 
 # ------------------------------------------------------------ forward ----
 
+#: The products ``"dots"`` saves: those with no batch dimension
+#: (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``).  A
+#: (B, S, D) @ (D, F) product runs as ``mm``; attention's ``einsum``s run
+#: as ``bmm`` and are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig):
+    """``run(body, *args)`` for one layer body under ``cfg.remat``; a plain
+    call when autograd is not recording."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return lambda body, *args: body(*args)
+    if cfg.remat == "full":
+        return lambda body, *args: checkpoint(body, *args,
+                                              use_reentrant=False)
+    return lambda body, *args: checkpoint(
+        body, *args, use_reentrant=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(
+            _dots_policy))
+
 
 def _layer(tree: dict, *idx) -> dict:
     """One layer's leaves (views) of a stacked subtree."""
@@ -310,7 +348,10 @@ def _tokens(params, batch_tokens) -> torch.Tensor:
 
 
 def _embed_tokens(params, cfg, tokens):
-    h = params["embed"][tokens]
+    # the lookup as F.embedding: its backward adds repeated tokens' rows in
+    # a fixed order on the CPU and the card (an indexing backward adds them
+    # by atomics on the CPU's threads)
+    h = F.embedding(tokens, params["embed"])
     if cfg.tie_embeddings:  # gemma-style input scaling
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
                              device=h.device)
@@ -373,25 +414,37 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         outs, router = [], []
         layers, fam = params["layers"], cfg.family
+        run = _remat(cfg)
+
+        def dense(lp, h):
+            return _dense_block(lp, h, cfg, cos, sin)[0]
+
+        def moe_layer(lp, h):
+            h, a, _, logits = _moe_block(lp, h, cfg, cos, sin, taps=taps)
+            return h, a, logits
+
+        def ssm(lp, h):
+            return rwkv_block(lp, h, cfg)[0]
+
+        def super_block(i, h):
+            for j in range(cfg.attn_every - 1):
+                h, _ = _mamba_residual(_layer(layers, i, j), h, cfg)
+            return _dense_block(params["shared_attn"], h, cfg, cos, sin)[0]
+
         if fam in ("dense", "vlm", "ssm", "moe"):
             for i in range(cfg.n_layers):
                 lp = _layer(layers, i)
                 if fam == "moe":
-                    h, a, _, logits = _moe_block(lp, h, cfg, cos, sin,
-                                                 taps=taps)
+                    h, a, logits = run(moe_layer, lp, h)
                     aux = aux + a
                     router.append(logits)
-                elif fam == "ssm":
-                    h, _ = rwkv_block(lp, h, cfg)
                 else:
-                    h, _ = _dense_block(lp, h, cfg, cos, sin)
+                    h = run(ssm if fam == "ssm" else dense, lp, h)
                 if taps:
                     outs.append(h)
         elif fam == "hybrid":
             for i in range(cfg.n_layers // cfg.attn_every):
-                for j in range(cfg.attn_every - 1):
-                    h, _ = _mamba_residual(_layer(layers, i, j), h, cfg)
-                h, _ = _dense_block(params["shared_attn"], h, cfg, cos, sin)
+                h = run(super_block, i, h)
                 if taps:
                     outs.append(h)
         else:
@@ -432,9 +485,13 @@ def _encode(params, cfg, frames):
     """Whisper's encoder over precomputed frame embeddings."""
     h = frames.to(device=params["embed"].device, dtype=params["embed"].dtype)
     cos, sin = _rope_tables(cfg, _positions(h, 0, h.shape[1]))
-    enc = params["enc_layers"]
+    enc, run = params["enc_layers"], _remat(cfg)
+
+    def body(lp, h):
+        return _dense_block(lp, h, cfg, cos, sin, causal=False)[0]
+
     for i in range(cfg.n_enc_layers):
-        h, _ = _dense_block(_layer(enc, i), h, cfg, cos, sin, causal=False)
+        h = run(body, _layer(enc, i), h)
     return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -451,10 +508,14 @@ def _forward_encdec(params, cfg, batch, *, return_hidden=False, taps=False):
     enc_out = _encode(params, cfg, batch["enc_frames"])
     h = _embed_tokens(params, cfg, _tokens(params, batch["tokens"]))
     cos, sin = _rope_tables(cfg, _positions(h, 0, h.shape[1]))
-    outs = []
+    outs, run = [], _remat(cfg)
+
+    def body(lp, h):
+        return _dec_block(lp, h, cfg, cos, sin,
+                          _cross_kv(lp, enc_out, cfg))[0]
+
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h, _ = _dec_block(lp, h, cfg, cos, sin, _cross_kv(lp, enc_out, cfg))
+        h = run(body, _layer(params["layers"], i), h)
         if taps:
             outs.append(h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -607,8 +668,8 @@ def ce_sums(logits, labels):
 
 def ce_from_hidden(params, cfg: ModelConfig, h, labels, *, chunk: int = 0):
     """CE sums from final hidden states; chunk>0 walks sequence chunks so
-    the (B, S, V) f32 logits never materialize at once.  No gradient: the
-    training slice adds ``loss_fn`` around it."""
+    the (B, S, V) f32 logits never materialize at once (``train/steps.py::
+    loss_fn`` differentiates through it)."""
     B, S, D = h.shape
     if chunk <= 0 or S <= chunk or S % chunk != 0:
         return ce_sums(_lm_head(params, cfg, h), labels)

@@ -81,16 +81,17 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
 
     # slot-major flattening: (K*T,) with slot 0 entries first
     ids_f = ids.T.reshape(-1)                             # (KT,)
-    tok_f = torch.arange(T, device=h.device).repeat(K)
     oh = F.one_hot(ids_f, E)                              # (KT, E)
     pos_in_e = (oh.cumsum(0) * oh).sum(1) - 1
     keep = pos_in_e < cap
 
     # dispatch: each kept entry into its own (expert, slot) of the
-    # (E, cap, D) buffer; dropped entries into the spare row E*cap
+    # (E, cap, D) buffer; dropped entries into the spare row E*cap.  Entry
+    # i is token i mod T: the tokens repeated K times, whose backward sums
+    # the K copies in a fixed order (a gather's backward adds by atomics)
     slot = torch.where(keep, ids_f * cap + pos_in_e, E * cap)
     flat = h.new_zeros((E * cap + 1, D))
-    flat[slot] = x.index_select(0, tok_f)
+    flat[slot] = x.repeat(K, 1)
     buf = flat[:E * cap].view(E, cap, D)
 
     # expert compute (batched over the expert dim)

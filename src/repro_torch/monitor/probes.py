@@ -1,29 +1,38 @@
-"""Declarative tendency probes, and the DeepVAT front end.
+"""Declarative tendency probes over a training step, and the DeepVAT
+front end.
 
-As ``repro/monitor/probes.py``, the parts that need no gradient.  A
-`ProbeSpec` names one tensor stream inside the model — the embedding
-table, a layer's activations (the ``taps=True`` hook of
-``models/model.py``'s forward), MoE router logits, or a gradient leaf —
-and how to summarize it (maximin sample size, optional rstar thumbnail).
-`_trace_parts` is the shared tendency math: VAT of a maximin sample of s
-points (``kernels.ops.pairwise_dist``, the CUDA kernel on the card) and
-Hopkins on a bounded uniform subsample, so a report costs O(s²)
-whatever the height of the activation matrix.
+As ``repro/monitor/probes.py``.  A `ProbeSpec` names one tensor stream
+inside the model — the embedding table, a layer's activations (the
+``taps=True`` hook of ``models/model.py``'s forward), MoE router logits,
+or a gradient leaf — and how to summarize it (maximin sample size,
+optional rstar thumbnail).  `_trace_parts` is the shared tendency math:
+VAT of a maximin sample of s points (``kernels.ops.pairwise_dist`` and the
+Prim kernel ``vat_prim_order`` on the card) and Hopkins on a bounded
+uniform subsample, so a report costs O(s²) whatever the height of the
+activation matrix.
+
+`run_probes` runs the whole probe tree as one program (`_probe_program`,
+built once per (cfg, specs)): the tapped forward with no gradient iff a
+layer or router probe is present, the gradient of the training loss iff a
+grad probe is present — for the probed leaves only (``torch.autograd.grad``
+on them), the reference's ``jax.grad`` values for less work — then
+`_trace_parts` for each probe.  The census (`probe_dispatch_stats`) moves
+when a program is built, never on a warm call.
+
+The random draws come from ``torch.Generator``s: probe i of a diag step
+draws from a generator seeded by (seed, step, i), in place of the
+reference's ``fold_in(key, i)``.  JAX's split keys cannot be reproduced in
+torch, so ``_trace_parts_from`` takes the draws themselves, and two
+packages can be fed the same sample.
 
 ``encode_batch``, ``model_fingerprint`` and ``callable_fingerprint`` are
 the ``embed`` rung's front end (``FastVAT.fit_embeddings``,
 ``FastVAT.fit(X, encoder=…)``).
-
-The reference's one-program probe tree (``run_probes``), which runs the
-tapped forward and a backward pass, comes with the training stack
-(``ROADMAP.md`` queue 1).  The random draws come from a
-``torch.Generator``; JAX's split keys cannot be reproduced in torch, so
-``_trace_parts_from`` takes the draws themselves, and two packages can be
-fed the same sample.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from typing import NamedTuple
 
@@ -34,6 +43,21 @@ from repro_torch.core.hopkins import hopkins
 from repro_torch.core.svat import maximin_sample_from
 from repro_torch.core.vat import block_structure_score, vat_from_dist
 from repro_torch.kernels import ops as kops
+
+# ------------------------------------------------------------ census ----
+
+# Build-time census (house pattern, cf. serve/server.py's): the counters
+# move only when a probe program is built — a warm diag step moves
+# neither.  "programs" counts built probe programs, "traces" the builds of
+# their bodies (one each: the port runs eagerly); the monitor test pins
+# one diag step == exactly one program.
+_DIAG_CENSUS = {"programs": 0, "traces": 0}
+
+
+def probe_dispatch_stats() -> dict:
+    """Snapshot of the probe-program census: {"programs", "traces"}."""
+    return dict(_DIAG_CENSUS)
+
 
 # ------------------------------------------------------------- specs ----
 
@@ -196,6 +220,94 @@ def router_tendency(router_logits: torch.Tensor,
     k_est ~ 1 => router collapse; k_est >~ top_k => healthy specialization.
     """
     return activation_report(router_logits, generator, sample=sample)
+
+
+# ----------------------------------------------------- probe program ----
+
+
+def _leaf(tree, path: str):
+    node = tree
+    for part in path.split("/"):
+        node = node[part]
+    return node
+
+
+def _select(spec: ProbeSpec, params, taps, grads):
+    if spec.kind == "embedding":
+        return params["embed"]
+    if spec.kind == "layer":
+        return taps["layer_out"][spec.layer]
+    if spec.kind == "router":
+        if "router_logits" not in taps:
+            raise ValueError(f"probe {spec.name!r}: router probes need a "
+                             "moe-family config")
+        return taps["router_logits"][spec.layer]
+    if spec.kind == "grad":
+        return _leaf(grads, spec.target)
+    raise ValueError(spec.kind)
+
+
+def probe_seed(seed: int, step: int, index: int) -> int:
+    """The seed of probe ``index``'s generator at a diag ``step``: a
+    SeedSequence of (seed, step, index), so every probe of every step
+    draws its own stream."""
+    state = np.random.SeedSequence([int(seed), int(step), int(index)])
+    return int(state.generate_state(1, np.uint64)[0])
+
+
+def probe_taps(cfg, params, batch) -> dict:
+    """The tapped forward's taps, with no gradient."""
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        return M.forward(params, cfg, batch, taps=True)[2]
+
+
+def probe_grads(cfg, params, batch, targets) -> dict:
+    """The training loss's gradient for the "/"-joined leaf paths in
+    ``targets`` only: a tree of those leaves."""
+    from repro_torch.train import steps as S
+    if "labels" not in batch:
+        raise ValueError("grad probes need a batch with 'labels'")
+    return S.value_and_grad(params, cfg, batch, targets=targets)[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _probe_program(cfg, specs: tuple[ProbeSpec, ...]):
+    """Build the probe tree's program: ``diag(params, batch, seed, step)
+    -> {name: TendencyTrace}``.
+
+    lru-cached on (cfg, specs) so repeated monitors (across train calls,
+    tests, benches) reuse the program; the census distinguishes cache hits
+    (no movement) from builds.
+    """
+    need_taps = any(s.kind in ("layer", "router") for s in specs)
+    targets = tuple(sorted({s.target for s in specs if s.kind == "grad"}))
+
+    def diag(params, batch, seed: int, step: int):
+        taps = probe_taps(cfg, params, batch) if need_taps else {}
+        grads = probe_grads(cfg, params, batch, targets) if targets else None
+        out = {}
+        for i, spec in enumerate(specs):
+            arr = _select(spec, params, taps, grads).detach()
+            gen = torch.Generator(device=arr.device).manual_seed(
+                probe_seed(seed, step, i))
+            h, score, k_est, _, thumb = _trace_parts(
+                arr, gen, sample=spec.sample, thumbnail=spec.thumbnail)
+            out[spec.name] = TendencyTrace(hopkins=h, block_score=score,
+                                           k_est=k_est, thumbnail=thumb,
+                                           spec=spec)
+        return out
+
+    _DIAG_CENSUS["programs"] += 1
+    _DIAG_CENSUS["traces"] += 1
+    return diag
+
+
+def run_probes(cfg, specs, params, batch, *, seed: int = 0,
+               step: int = 0):
+    """Run the probe tree as one program -> {name: TendencyTrace}, its
+    tensors on the params' device; deterministic in (seed, step)."""
+    return _probe_program(cfg, tuple(specs))(params, batch, seed, step)
 
 
 # ------------------------------------------- embeddings front-end ----

@@ -1900,6 +1900,199 @@ def test_cuda_fit_embeddings_refuses_cpu_params(cuda):
         FastVAT().fit_embeddings(params, cfg, batch)
 
 
+# ------------------------------------------------------------ training ----
+
+#: A mid-width dense model (products past TF32's reach: d 512) and the
+#: smoke moe (its dispatch and combine in the backward).
+TRAIN_CUTS = [("gemma-2b", {"n_layers": 2, "d_model": 512, "n_heads": 4,
+                            "head_dim": 128, "d_ff": 1024, "vocab": 4096}),
+              ("phi3.5-moe-42b-a6.6b", {"n_layers": 2, "d_model": 256,
+                                        "n_heads": 4, "n_kv_heads": 4,
+                                        "head_dim": 64, "d_ff": 512,
+                                        "d_ff_expert": 256,
+                                        "n_experts": 8, "top_k": 2,
+                                        "vocab": 2048})]
+TRAIN_IDS = ["gemma", "moe"]
+
+
+def _train_model(name, cut, device, seq=128, B=2, **replace):
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import model as M
+    cfg = configs.get_config(name).replace(**cut, **replace)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    batch = make_batch(cfg, ShapeConfig("t", seq, B, "train"), device=device)
+    return cfg, params, batch
+
+
+def _leaves(tree):
+    from repro_torch.optim.adamw import tree_leaves
+    return tree_leaves(tree)
+
+
+def _clone(tree):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(torch.clone, tree)
+
+
+def _ratio(got, want) -> float:
+    worst = 0.0
+    for a, b in zip(_leaves(got), _leaves(want)):
+        b = b.float().cpu()
+        scale = float(b.abs().max()) or 1.0
+        worst = max(worst, float((a.float().cpu() - b).abs().max()) / scale)
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cut", TRAIN_CUTS, ids=TRAIN_IDS)
+def test_cuda_train_step_matches_cpu(cuda, name, cut):
+    """The card's loss and gradient against the CPU's on the same weights,
+    each leaf within 1e-4 of its scale; a train step's loss and gradient
+    norm too, and its in-place route equal bit for bit to the copying
+    one."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import adamw as O
+    from repro_torch.train import steps as S
+    cfg, params, batch = _train_model(name, cut, cuda)
+    host = _tree_to(params, "cpu")
+    host_batch = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                  for k, v in batch.items()}
+    m, g = S.value_and_grad(params, cfg, batch)
+    mh, gh = S.value_and_grad(host, cfg, host_batch)
+    assert abs(float(m["loss"]) - float(mh["loss"])) \
+        <= 1e-4 * abs(float(mh["loss"]))
+    assert _ratio(g, gh) <= 1e-4
+    tc = TrainConfig(warmup_steps=1)
+    state = S.TrainState(params, O.init_opt(tc, params), None)
+    new, metrics = S.build_train_step(cfg, tc)(state, batch)
+    _, hm = S.build_train_step(cfg, tc)(
+        S.TrainState(host, O.init_opt(tc, host), None), host_batch)
+    assert abs(float(metrics["grad_norm"]) - float(hm["grad_norm"])) \
+        <= 1e-4 * float(hm["grad_norm"])
+    donated = S.TrainState(_clone(params), O.init_opt(tc, params), None)
+    again, m2 = S.build_train_step(cfg, tc, donate=True)(donated, batch)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(new.params),
+                                                 _leaves(again.params)))
+    assert float(m2["loss"]) == float(metrics["loss"])
+
+
+@pytest.mark.cuda
+def test_cuda_gradient_is_full_f32_under_process_tf32(cuda):
+    """With TF32 switched on for the whole process, the gradient (forward,
+    backward and the rematerialized forward) is still the full-f32 one,
+    bit for bit; the same products outside the step do use TF32 there."""
+    from repro_torch.train import steps as S
+    name, cut = TRAIN_CUTS[0]
+    cfg, params, batch = _train_model(name, cut, cuda)
+    m = torch.backends.cuda.matmul
+    attr, on, off = (("fp32_precision", "tf32", "ieee")
+                     if hasattr(m, "fp32_precision")
+                     else ("allow_tf32", True, False))
+    saved = getattr(m, attr)
+    try:
+        setattr(m, attr, off)
+        _, want = S.value_and_grad(params, cfg, batch)
+        x = params["layers"]["w_up"][0]
+        exact = x.T @ x
+        setattr(m, attr, on)
+        assert not torch.equal(x.T @ x, exact)     # TF32 is really on
+        _, got = S.value_and_grad(params, cfg, batch)
+    finally:
+        setattr(m, attr, saved)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(got),
+                                                 _leaves(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cut", TRAIN_CUTS, ids=TRAIN_IDS)
+def test_cuda_repeated_steps_bit_for_bit(cuda, name, cut):
+    """The deterministic route: the embedding's backward (``F.embedding``)
+    and the moe dispatch's (a repeat, summed in order) add in a fixed
+    order, so two runs of the same steps give the same bits."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import adamw as O
+    from repro_torch.train import steps as S
+    cfg, params, batch = _train_model(name, cut, cuda)
+    tc = TrainConfig(warmup_steps=1)
+    runs = []
+    for _ in range(2):
+        p = _clone(params)
+        state = S.TrainState(p, O.init_opt(tc, p), None)
+        step = S.build_train_step(cfg, tc, donate=True)
+        losses = []
+        for _ in range(3):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        runs.append((losses, state))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(runs[0][1].params),
+                                                 _leaves(runs[1][1].params)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "dots"])
+@pytest.mark.parametrize("name,cut", TRAIN_CUTS, ids=TRAIN_IDS)
+def test_cuda_remat_modes_give_equal_gradients(cuda, name, cut, mode):
+    """``remat`` "full" and "dots" recompute the forward in the backward:
+    the gradient equals "none"'s within f32 tolerance (1e-5 of scale)."""
+    from repro_torch.train import steps as S
+    cfg, params, batch = _train_model(name, cut, cuda, remat="none")
+    _, want = S.value_and_grad(params, cfg, batch)
+    _, got = S.value_and_grad(params, cfg.replace(remat=mode), batch)
+    assert _ratio(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_observe_launches_rows_1_and_3prime(cuda):
+    """A diag step on the card: each default probe launches row 1 three
+    times (its sample, Hopkins's two blocks) and row 3' once; the
+    summaries lie in [0, 1] and repeat bit for bit in (seed, step)."""
+    from repro_torch.kernels import _build
+    from repro_torch.monitor import TendencyMonitor
+    name, cut = TRAIN_CUTS[0]
+    cfg, params, batch = _train_model(name, cut, cuda)
+    mon = TendencyMonitor(cfg, seed=5, device=cuda)
+    _build.reset_launch_counts()
+    summ = mon.observe(2, params, batch)
+    counts = _build.launch_counts()
+    assert counts["pairwise_dist"] == 3 * len(mon.specs)
+    assert counts["vat_prim_order"] == len(mon.specs)
+    for s in summ.values():
+        assert 0 <= s["hopkins"] <= 1 and 0 <= s["block_score"] <= 1
+    again = TendencyMonitor(cfg, seed=5, device=cuda).observe(2, params,
+                                                              batch)
+    assert again == summ
+
+
+@pytest.mark.cuda
+def test_cuda_train_loop_resumes_bit_for_bit(cuda, tmp_path):
+    """``train()`` on the card, interrupted after step 3 and resumed from
+    the step-2 checkpoint, ends with the uninterrupted run's params and
+    history."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.monitor import AUX_NAME
+    from repro_torch.train.loop import train
+    cfg = configs.smoke_config("phi3.5-moe-42b-a6.6b")
+    shape = ShapeConfig("t", 128, 4, "train")
+    states, hists = [], []
+    for run in ("a", "b"):
+        tc = TrainConfig(total_steps=5, ckpt_every=2, diag_every=2,
+                         ckpt_dir=str(tmp_path / run))
+        if run == "b":
+            with pytest.raises(KeyboardInterrupt):
+                train(cfg, tc, shape, log=lambda s: None, interrupt_at=3)
+        state, _ = train(cfg, tc, shape, log=lambda s: None)
+        states.append(dict(ckpt._walk(state)))
+        hists.append(ckpt.load_aux(tc.ckpt_dir, AUX_NAME))
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+    assert all(np.array_equal(hists[0][k], hists[1][k]) for k in hists[0])
+
+
 if __name__ == "__main__":
     import torch.multiprocessing as mp
     _world = int(sys.argv[1])

@@ -15,6 +15,13 @@ against the JAX package.
   each package's generator).
 * ``model_fingerprint`` and ``callable_fingerprint``: the reference's
   strings for the same weights and the same function.
+* The training side: ``run_probes``'s selected arrays (taps, router
+  logits, the embedding table, gradient leaves) against the reference's
+  within 2e-5 of scale, its traces ``_trace_parts`` of them with the
+  generator of (seed, step, probe index); the reference's monitor cases
+  on the port's loop (``train(device="cpu")``): the history bit for bit
+  after an interrupt and resume, per-probe metrics surfaced, one diag
+  step one program, ``observe`` deterministic in (seed, step).
 """
 import numpy as np
 import pytest
@@ -25,17 +32,27 @@ import jax.numpy as jnp
 
 from repro import configs as jconfigs
 from repro import faults as jfaults
+from repro.configs import base as jbase
+from repro.data import tokens as jtokens
+from repro.train import steps as JS
 from repro.core.svat import maximin_sample as jmaximin
 from repro.models import model as JM
 from repro.monitor import history as jhistory
 from repro.monitor import probes as jprobes
 from repro_torch import configs, core, faults
 from repro_torch.models import model as M
-from repro_torch.monitor import (FIELDS, HISTORY_SCHEMA, ProbeSpec,
-                                 TendencyHistory, TendencyTrace,
-                                 activation_report, callable_fingerprint,
-                                 default_probes, model_fingerprint)
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs.base import ShapeConfig, TrainConfig
+from repro_torch.data.tokens import make_batch
+from repro_torch.monitor import (AUX_NAME, FIELDS, HISTORY_SCHEMA, ProbeSpec,
+                                 TendencyHistory, TendencyMonitor,
+                                 TendencyTrace, activation_report,
+                                 callable_fingerprint, default_probes,
+                                 model_fingerprint, probe_dispatch_stats,
+                                 run_probes)
+from repro_torch.monitor import probes as tprobes
 from repro_torch.monitor.probes import _trace_parts, _trace_parts_from
+from repro_torch.train.loop import train
 
 CPU = "cpu"
 F32_ULP = 2.0 ** -23
@@ -272,3 +289,155 @@ def test_callable_fingerprint_is_the_references():
     assert "encoder@" in callable_fingerprint(encoder)
     layer = torch.nn.Identity()                    # no __code__
     assert callable_fingerprint(layer) == jprobes.callable_fingerprint(layer)
+
+
+# ------------------------------------------------- the training side ----
+
+SHAPE = ShapeConfig("tiny", 32, 4, "train")
+
+
+def _tc(tmpdir, **kw):
+    kw.setdefault("lr", 1e-2)
+    kw.setdefault("total_steps", 8)
+    kw.setdefault("ckpt_every", 4)
+    kw.setdefault("diag_every", 2)
+    return TrainConfig(ckpt_dir=str(tmpdir), **kw)
+
+
+def _saved_history(ckpt_dir):
+    arrays = ckpt.load_aux(str(ckpt_dir), AUX_NAME)
+    assert arrays is not None, "checkpoint should carry a tendency sidecar"
+    return TendencyHistory.from_arrays(arrays)
+
+
+def test_history_bitwise_identical_after_interrupt_resume(tmp_path):
+    """The counterpart of tests/test_monitor.py's acceptance pin: a killed
+    and resumed run serializes the same history (digest over schema,
+    probes, steps and field bytes) as an uninterrupted run."""
+    cfg = configs.smoke_config("gemma-2b")
+    a, b = tmp_path / "a", tmp_path / "b"
+    train(cfg, _tc(a), SHAPE, log=lambda s: None, device=CPU)
+    with pytest.raises(KeyboardInterrupt):
+        train(cfg, _tc(b), SHAPE, log=lambda s: None, interrupt_at=5,
+              device=CPU)
+    train(cfg, _tc(b), SHAPE, log=lambda s: None, device=CPU)
+    ha, hb = _saved_history(a), _saved_history(b)
+    assert ha.steps == [2, 4, 6, 8]
+    assert ha.steps == hb.steps
+    assert ha.probes == hb.probes
+    assert ha.digest() == hb.digest()
+
+
+def test_train_loop_surfaces_per_probe_metrics(tmp_path):
+    cfg = configs.smoke_config("gemma-2b")
+    logs = []
+    _, hist = train(cfg, _tc(tmp_path), SHAPE, log=logs.append, device=CPU)
+    diag = [h for h in hist if "vat_block_score" in h]
+    assert len(diag) == 4                      # steps 2, 4, 6, 8
+    row = diag[-1]
+    for name in ("embed_table", "acts_final", "grad_embed"):
+        for field in ("block_score", "k_est", "hopkins", "state"):
+            assert f"tendency/{name}/{field}" in row
+    # legacy keys are fed from the embedding probe
+    assert row["vat_block_score"] == row["tendency/embed_table/block_score"]
+    assert any("[tendency]" in line for line in logs)
+
+
+def _model(name="gemma-2b", seed=0):
+    cfg = configs.smoke_config(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device=CPU)
+    return cfg, params, make_batch(cfg, SHAPE, device=CPU)
+
+
+def test_one_diag_step_is_one_program():
+    """A diag step builds exactly one probe program; observing again with
+    the same (cfg, specs) runs warm — no new program, no new trace."""
+    cfg, params, batch = _model()
+    # unique sample size => fresh lru_cache entry even across test runs
+    specs = default_probes(cfg, sample=37)
+    mon = TendencyMonitor(cfg, specs=specs, seed=3, device=CPU)
+    before = probe_dispatch_stats()
+    mon.observe(1, params, batch)
+    after_first = probe_dispatch_stats()
+    assert after_first["programs"] - before["programs"] == 1
+    assert after_first["traces"] - before["traces"] == 1
+    mon.observe(2, params, batch)
+    assert probe_dispatch_stats() == after_first   # warm: nothing moved
+    assert len(mon.history) == 2
+
+
+def test_observe_is_deterministic_in_seed_and_step():
+    cfg, params, batch = _model()
+    a = TendencyMonitor(cfg, seed=7, device=CPU).observe(5, params, batch)
+    b = TendencyMonitor(cfg, seed=7, device=CPU).observe(5, params, batch)
+    assert a == b
+    c = TendencyMonitor(cfg, seed=8, device=CPU).observe(5, params, batch)
+    assert a != c
+    d = TendencyMonitor(cfg, seed=7, device=CPU).observe(6, params, batch)
+    assert a != d
+
+
+def test_probe_seed_separates_seed_step_and_index():
+    seeds = {tprobes.probe_seed(s, t, i)
+             for s in range(3) for t in range(3) for i in range(3)}
+    assert len(seeds) == 27
+    assert tprobes.probe_seed(1, 2, 3) == tprobes.probe_seed(1, 2, 3)
+
+
+@pytest.mark.parametrize("name", ["gemma-2b", "phi3.5-moe-42b-a6.6b"])
+def test_run_probes_selects_the_references_arrays(name):
+    """The arrays the program summarizes — the embedding table, the final
+    layer's taps, the router logits, the embedding's gradient and a
+    deeper gradient leaf — are the reference program's within 2e-5 of
+    scale, and each trace is ``_trace_parts`` of its array with the
+    generator of (seed, step, probe index)."""
+    cfg = jconfigs.smoke_config(name)
+    jp = JM.init_params(cfg, jax.random.PRNGKey(0))
+    tcfg = configs.smoke_config(name)
+    tp = M.params_from_numpy(jax.device_get(jp), device=CPU)
+    want_b = jtokens.make_batch(cfg, jbase.ShapeConfig("t", 16, 2, "train"))
+    got_b = {k: np.asarray(v) for k, v in want_b.items()}
+    specs = default_probes(tcfg, sample=24) + (
+        ProbeSpec("grad_wo", "grad", target="layers/wo", sample=24),)
+    jspecs = jprobes.default_probes(cfg, sample=24) + (
+        jprobes.ProbeSpec("grad_wo", "grad", target="layers/wo",
+                          sample=24),)
+    _, _, jtaps = JM.forward(jp, cfg, {k: jnp.asarray(v)
+                                       for k, v in want_b.items()},
+                             taps=True)
+    jgrads = jax.grad(lambda p: JS.loss_fn(p, cfg, want_b)[0])(jp)
+    taps = tprobes.probe_taps(tcfg, tp, got_b)
+    grads = tprobes.probe_grads(tcfg, tp, got_b, ("embed", "layers/wo"))
+    assert sorted(grads) == ["embed", "layers"]
+    assert list(grads["layers"]) == ["wo"]
+    traces = run_probes(tcfg, specs, tp, got_b, seed=3, step=4)
+    assert list(traces) == [s.name for s in specs]
+    for i, (spec, jspec) in enumerate(zip(specs, jspecs)):
+        got = tprobes._select(spec, tp, taps, grads)
+        want = np.asarray(jprobes._select(jspec, jp, jtaps, jgrads))
+        assert tuple(got.shape) == want.shape, spec.name
+        scale = float(np.max(np.abs(want))) or 1.0
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=2e-5 * scale, err_msg=spec.name)
+        gen = torch.Generator().manual_seed(tprobes.probe_seed(3, 4, i))
+        h, score, k_est, _, _ = _trace_parts(got, gen, sample=24,
+                                             thumbnail=0)
+        tr = traces[spec.name]
+        assert tr.spec == spec and tr.thumbnail is None
+        assert torch.equal(tr.hopkins, h) and torch.equal(tr.k_est, k_est)
+        assert torch.equal(tr.block_score, score)
+        assert 0 <= float(h) <= 1 and 0 <= float(score) <= 1
+    for p in M.params_from_numpy(jax.device_get(jp), device=CPU).values():
+        if isinstance(p, torch.Tensor):
+            assert not p.requires_grad
+
+
+def test_run_probes_refuses_grad_probes_without_labels():
+    cfg, params, batch = _model()
+    batch.pop("labels")
+    with pytest.raises(ValueError, match="labels"):
+        run_probes(cfg, default_probes(cfg, sample=16), params, batch)
+    with pytest.raises(ValueError, match="moe-family"):
+        run_probes(cfg, (ProbeSpec("r", "router", sample=16),), params,
+                   batch)
