@@ -84,8 +84,20 @@ holds the card's gradients and optimizer updates against the CPU's on
 phi3-mini-3.8b at 1 layer (``train-parity``: 1e-4 and 1e-6 of scale) and
 ``train()`` interrupted and resumed against an uninterrupted run
 (``train-resume``: params, optimizer state and tendency history bit for
-bit; each checkpoint's bytes and seconds); runs the certification sweep
-(``numerics/certify.py``, 180 fits);
+bit; each checkpoint's bytes and seconds); runs the training CLI on the
+card (``launch-train``: ``python -m repro_torch.launch.train --arch
+gemma-2b --smoke --steps 4``, then ``--steps 6`` on the same checkpoint
+directory: one device, a finite loss, resumed from step 4, run on cuda);
+reads the dry run (``dryrun``: ``python -m repro_torch.launch.dryrun
+--arch gemma-2b --shape train_4k`` at gemma-2b's published config,
+bfloat16, ``remat="full"``, ``seq_shard``, on the 16 x 16 mesh of a fake
+world of 512 ranks, and ``launch.perf --exp B2_ctx_vpad``; both started
+as host subprocesses that see no card when the script starts, so they
+trace beside the card phases: ok, FLOPs a rank, all-gathers, a peak a
+rank under 80 GB, the roofline table at the H100's constants, and
+``analytic_flops`` against ``train_flops`` for gemma-2b at B 2, S
+1,024); runs the certification sweep (``numerics/certify.py``, 180
+fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
 
@@ -4520,6 +4532,157 @@ def phase_train(torch, ref, ops, kern, build, dev="cuda"):
     return launches
 
 
+#: The dry run's cell (gemma-2b ``train_4k`` at its published config on
+#: the 16 x 16 mesh of a fake world) and the perf experiment beside it.
+DRYRUN_OUT = os.path.join("build", "chip_smoke_dryrun.json")
+PERF_OUT = os.path.join("build", "chip_smoke_perf.json")
+HOST_RUNS: dict = {}
+
+
+def start_host_runs() -> None:
+    """Start the dry run and the perf experiment (``launch.perf --exp
+    B2_ctx_vpad``: whisper decode on the fake world) as subprocesses that
+    see no card (``CUDA_VISIBLE_DEVICES=""``): they trace on the host
+    while the card phases run, and ``phase_dryrun`` reads them."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for name, args, out in (
+            ("dryrun", ["repro_torch.launch.dryrun", "--arch", "gemma-2b",
+                        "--shape", "train_4k"], DRYRUN_OUT),
+            ("perf", ["repro_torch.launch.perf", "--exp", "B2_ctx_vpad"],
+             PERF_OUT)):
+        path = os.path.join(ROOT, out)
+        if os.path.exists(path):
+            os.remove(path)
+        logf = open(path + ".log", "w")
+        HOST_RUNS[name] = {
+            "proc": subprocess.Popen(
+                [sys.executable, "-m", *args, "--out", path], cwd=ROOT,
+                env=env, stdout=logf, stderr=subprocess.STDOUT,
+                start_new_session=True),
+            "log": logf, "out": path, "t0": time.perf_counter()}
+
+
+def stop_host_runs() -> None:
+    """Kill what is left of the host runs (a failed smoke run)."""
+    for run in HOST_RUNS.values():
+        if run["proc"].poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(run["proc"].pid, 9)
+            run["proc"].wait()
+        run["log"].close()
+
+
+def wait_host_run(name: str, deadline: float) -> dict:
+    """The host run's records once it exits (before ``deadline`` on the
+    perf clock), with its wall seconds."""
+    run = HOST_RUNS[name]
+    try:
+        rc = run["proc"].wait(timeout=max(deadline - time.perf_counter(), 1))
+    except subprocess.TimeoutExpired:
+        stop_host_runs()
+        raise SmokeFailure(f"{name}: the host run outlived its deadline")
+    wall = time.perf_counter() - run["t0"]
+    run["log"].close()
+    with open(run["out"] + ".log") as f:
+        tail = f.read()[-1500:]
+    require(rc == 0 and os.path.exists(run["out"]),
+            f"{name}: exit {rc}: {tail}")
+    with open(run["out"]) as f:
+        return {"records": json.load(f), "wall_s": wall}
+
+
+def phase_launch_train(torch):
+    """``python -m repro_torch.launch.train`` on the card: gemma-2b's
+    smoke config for 4 steps, then resumed to 6 from its checkpoint
+    (``diag_every`` 25: no diag step, so no kernel launch)."""
+    import shutil
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               NCCL_SOCKET_IFNAME="lo")
+    runs = []
+    try:
+        for steps in (4, 6):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 "gemma-2b", "--smoke", "--steps", str(steps), "--batch",
+                 "2", "--seq", "128", "--ckpt-dir", ckpt], cwd=ROOT,
+                env=env, capture_output=True, text=True, timeout=300)
+            require(r.returncode == 0,
+                    f"launch-train: exit {r.returncode}: {r.stderr[-1500:]}")
+            lines = r.stdout.strip().splitlines()
+            m = re.fullmatch(r"final loss (\S+) over (\d+) steps on 1 "
+                             r"device\(s\)", lines[-1])
+            require(m is not None and np.isfinite(float(m.group(1))),
+                    f"launch-train: last line {lines[-1]!r}")
+            require(any(ln.startswith("[device] cuda: ") for ln in lines),
+                    "launch-train: the CLI did not run on cuda")
+            runs.append({"steps": steps, "loss": float(m.group(1)),
+                         "steps_run": int(m.group(2)),
+                         "s": time.perf_counter() - t0, "lines": lines})
+        require(any(ln.startswith("[resume] restored step 4")
+                    for ln in runs[1]["lines"]),
+                "launch-train: the second run did not resume from step 4")
+        require([r["steps_run"] for r in runs] == [4, 2],
+                f"launch-train: steps run {[r['steps_run'] for r in runs]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log("launch-train", arch="gemma-2b (smoke)", batch=2, seq=128,
+        steps=[4, 6], resumed_from=4, device=next(
+            ln for ln in runs[0]["lines"] if ln.startswith("[device]")),
+        loss=[r["loss"] for r in runs], run_s=[r["s"] for r in runs])
+
+
+def phase_dryrun(torch, deadline: float):
+    """The dry run's record (gemma-2b ``train_4k``, 16 x 16 of a fake
+    world of 512 ranks, bfloat16, ``remat="full"``, ``seq_shard``): ok,
+    FLOPs a rank > 0, all-gathers (FSDP over ``data``), a peak a rank
+    under 80 GB; the roofline table at the card's constants;
+    ``analytic_flops`` against ``train_flops`` for gemma-2b at B 2, S
+    1,024; and the perf experiment's record.  The counts are a fake
+    world's, not times."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    dry = wait_host_run("dryrun", deadline)
+    rec = dry["records"][0]
+    require(rec.get("ok"), f"dryrun: {rec.get('error')}")
+    colls = rec["collectives"]
+    require(rec["flops_per_device"] > 0, "dryrun: no FLOPs counted")
+    require(colls.get("all-gather", {}).get("count", 0) >= 1,
+            f"dryrun: no all-gather in {colls}")
+    require(rec["peak_bytes"] < 80e9,
+            f"dryrun: peak {rec['peak_bytes'] / 1e9:.2f} GB a rank")
+    cell = roofline.analyze(rec)
+    gemma = get_config("gemma-2b")
+    analytic = roofline.analytic_flops(gemma, ShapeConfig("t", 1024, 2,
+                                                          "train"))
+    log("dryrun", cell="gemma-2b train_4k 16x16", wall_s=dry["wall_s"],
+        **{k: rec[k] for k in (
+            "n_devices", "param_dtype", "lower_s", "flops_per_device",
+            "bytes_accessed_per_device", "argument_bytes", "output_bytes",
+            "temp_bytes", "peak_bytes", "collectives", "replicated_ops")},
+        peak_gb=rec["peak_bytes"] / 1e9, roofline={
+            "compute_s": cell.compute_s, "memory_s": cell.memory_s,
+            "collective_s": cell.collective_s,
+            "bottleneck": cell.bottleneck, "useful": cell.useful_ratio},
+        gemma_b2_s1024_tflop={"analytic_flops": analytic["total"] / 1e12,
+                              "train_flops": train_flops(gemma, 2, 1024)
+                              / 1e12})
+    print(roofline.markdown_table([rec]), flush=True)
+    perf = wait_host_run("perf", deadline)
+    prec = perf["records"][0]
+    require(prec.get("ok"), f"dryrun-perf: {prec.get('error')}")
+    log("dryrun-perf", exp=prec["exp"], wall_s=perf["wall_s"],
+        **{k: prec[k] for k in ("arch", "shape", "mesh", "overrides",
+                                "flops_per_device", "peak_bytes",
+                                "collectives", "replicated_ops")})
+    print(roofline.markdown_table([prec]), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4551,6 +4714,7 @@ def main() -> int:
     require(not bad, f"the port imported {bad}")
 
     t0 = time.perf_counter()
+    start_host_runs()
     card = phase_environment(torch, build)
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"pairwise_dist": check_pairwise(torch, ref, ops,
@@ -4686,6 +4850,11 @@ def main() -> int:
     t_train = time.perf_counter()
     trained = phase_train(torch, ref, ops, kern, build)
     train_s = time.perf_counter() - t_train
+    # the sixteenth slice: the launchers
+    t_launch = time.perf_counter()
+    phase_launch_train(torch)
+    phase_dryrun(torch, deadline=t0 + 1_120)
+    launch_s = time.perf_counter() - t_launch
     for row in rows:
         if row["name"] in served:
             row["served_launches"] = served[row["name"]]
@@ -4699,7 +4868,8 @@ def main() -> int:
     phase_certify(torch)
     log("done", total_s=time.perf_counter() - t0, new_phases_s=new_s,
         serve_phases_s=serve_s, embed_phases_s=embed_s,
-        family_phases_s=family_s, train_phases_s=train_s)
+        family_phases_s=family_s, train_phases_s=train_s,
+        launch_phases_s=launch_s)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -4714,3 +4884,5 @@ if __name__ == "__main__":
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_host_runs()

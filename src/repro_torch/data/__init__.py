@@ -2,7 +2,7 @@
 (``synth.py``) and the synthetic token corpus the model zoo reads
 (``tokens.py``)."""
 from repro_torch.data.synth import DATASETS, make_big_blobs, make_dataset
-from repro_torch.data.tokens import SyntheticCorpus, make_batch
+from repro_torch.data.tokens import SyntheticCorpus, input_specs, make_batch
 
 __all__ = ["DATASETS", "make_dataset", "make_big_blobs", "SyntheticCorpus",
-           "make_batch"]
+           "input_specs", "make_batch"]

@@ -1,12 +1,15 @@
-"""Token batches: the synthetic corpus and the batches the model zoo reads.
+"""Token batches: the synthetic corpus, the batches the model zoo reads,
+and their shape stand-ins.
 
 As ``repro/data/tokens.py``: a deterministic Zipf-ish token stream with
 local structure (bigram templates mixed with noise), host-side numpy, so
 ``tokens`` and ``labels`` are the reference's bit for bit.  The extras of
 a family (``patches`` for vlm, ``enc_frames`` for audio) are drawn the
 reference's way on the host and become tensors of ``dtype`` on ``device``.
-The reference's ``input_specs`` (shape stand-ins for its dry run) comes
-with the port's ``launch/dryrun.py``.
+``input_specs(cfg, shape)`` is what a (train|prefill|decode) step
+consumes, as ``device="meta"`` tensors: the dry run
+(``launch/dryrun.py``) traces against these, and ``make_batch`` produces
+concrete matches.
 """
 from __future__ import annotations
 
@@ -21,6 +24,29 @@ def _text_len(cfg: ModelConfig, seq_len: int) -> int:
     if cfg.family == "vlm":
         return seq_len - cfg.n_patches
     return seq_len
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Shape stand-ins ("meta" tensors) for every model input of this
+    cell: ``tokens`` (and ``labels`` for train) int32, ``patches`` (vlm)
+    and ``enc_frames`` (audio) in ``dtype``."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dt=torch.int32):
+        return torch.empty(dims, dtype=dt, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": meta(B, 1)}
+    T = _text_len(cfg, S)
+    specs = {"tokens": meta(B, T)}
+    if shape.kind == "train":
+        specs["labels"] = meta(B, T)
+    if cfg.family == "vlm":
+        specs["patches"] = meta(B, cfg.n_patches, cfg.d_model, dt=dtype)
+    if cfg.family == "audio":
+        specs["enc_frames"] = meta(B, cfg.enc_seq, cfg.d_model, dt=dtype)
+    return specs
 
 
 class SyntheticCorpus:

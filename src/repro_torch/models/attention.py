@@ -18,8 +18,9 @@ writes the step's keys and values into it at ``pos`` **in place** (the
 reference's ``dynamic_update_slice``) and returns it.  Where the
 reference's dtype promotion meets a product of mixed dtypes (an f32 query
 against a bfloat16 cache), the port casts to the promoted dtype first,
-since torch's products do not promote.  The reference's sharding hints
-are the identity without a mesh, so the port has none.
+since torch's products do not promote.  The q, k and v projections carry
+the reference's sharding hints (``models/sharding.py::hint``: heads over
+``model``, batch over the DP axes), the identity without a mesh.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.models.common import apply_rope, rms_norm
 
 _NEG = -1e30
@@ -99,6 +101,9 @@ def gqa_block(p, h, cfg, cos, sin, *, causal=True,
     q = (h @ p["wq"]).reshape(B, S, H, hd)
     k = (h @ p["wk"]).reshape(B, S, Hkv, hd)
     v = (h @ p["wv"]).reshape(B, S, Hkv, hd)
+    q = sharding.hint(q, "dp", None, "model", None)
+    k = sharding.hint(k, "dp", None, "model", None)
+    v = sharding.hint(v, "dp", None, "model", None)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -168,6 +173,8 @@ def mla_block(p, h, cfg, cos, sin, *, cache: MLACache | None = None,
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     if cache is None:
         q, k, v, _, _ = _mla_qkv(p, h, cfg, cos, sin)
+        q = sharding.hint(q, "dp", None, "model", None)
+        k = sharding.hint(k, "dp", None, "model", None)
         out = attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
         return out.reshape(B, S, H * dv) @ p["wo"], None
 

@@ -102,7 +102,10 @@ def dense_init(generator: torch.Generator, shape: tuple[int, ...],
     """Truncated-normal fan-in init (0.02-style for embeds, 1/sqrt(fan_in)
     else): a standard normal truncated at ±2, drawn in f32 by the inverse
     error function (the reference's method; the draws differ), times
-    ``scale``, cast to ``dtype``.  ``generator`` lives on ``device``."""
+    ``scale``, cast to ``dtype``.  ``generator`` lives on ``device``; on
+    "meta" nothing is drawn (a shape stand-in)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if scale is None:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = fan_in ** -0.5

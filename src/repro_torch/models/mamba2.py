@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.common import rms_norm
 
 _CONV_W = 4  # short conv window
@@ -65,7 +66,8 @@ def mamba_block(p, u, cfg, *, state: MambaState | None = None,
     """
     B, S, D = u.shape
     inner, H, P, N = _dims(cfg)
-    z, xBC, dt = _split_proj(u @ p["in_proj"], cfg)
+    zxbcdt = sharding.hint(u @ p["in_proj"], "dp", None, "model")
+    z, xBC, dt = _split_proj(zxbcdt, cfg)
     A = -torch.exp(p["a_log"].float())                        # (H,)
     dt = F.softplus(dt.float() + p["dt_bias"].float())        # (B,S,H)
 

@@ -55,6 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import full_f32
 from repro_torch.models.attention import (KVCache, MLACache, cross_block,
                                           gqa_block, mla_block)
+from repro_torch.models import sharding
 from repro_torch.models.common import dense_init, rms_norm, rope_freqs
 from repro_torch.models.mamba2 import (MambaState, _dims, init_mamba_state,
                                        mamba_block)
@@ -75,6 +76,8 @@ def _init_tree(generator: torch.Generator, spec: dict, dtype,
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
         elif scale == "ones":
             out[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif torch.device(device).type == "meta":   # shapes only, no draws
+            out[name] = torch.empty(shape, dtype=dtype, device=device)
         elif callable(scale):
             out[name] = scale(generator, shape, device).to(dtype)
         else:
@@ -208,8 +211,9 @@ def _block_spec(cfg: ModelConfig, L: tuple[int, ...],
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 dtype=torch.float32, device="cuda") -> dict:
     """Random weights for ``cfg`` on ``device`` (``generator`` lives
-    there): ``embed`` (padded_vocab, d_model) at scale 0.02,
-    ``final_norm``, ``lm_head`` unless tied, ``layers`` with stacked
+    there; on "meta" nothing is drawn and the tree is shapes and dtypes
+    only, the dry run's stand-in): ``embed`` (padded_vocab, d_model) at
+    scale 0.02, ``final_norm``, ``lm_head`` unless tied, ``layers`` with stacked
     leaves, and the family's extras (``mtp_block``; ``shared_attn``;
     ``enc_layers`` and ``enc_final_norm``)."""
     D, V = cfg.d_model, cfg.padded_vocab
@@ -304,8 +308,10 @@ def _remat(cfg: ModelConfig):
 
 
 def _layer(tree: dict, *idx) -> dict:
-    """One layer's leaves (views) of a stacked subtree."""
-    return {k: v[idx] for k, v in tree.items()}
+    """One layer's leaves (views) of a stacked subtree (the subtree's own
+    leaves with no ``idx``), each FSDP shard gathered under a mesh."""
+    return {k: sharding.gather_fsdp(v[idx] if idx else v)
+            for k, v in tree.items()}
 
 
 def _attn(p, h, cfg, cos, sin, cache=None, pos=0, causal=True):
@@ -350,8 +356,10 @@ def _tokens(params, batch_tokens) -> torch.Tensor:
 def _embed_tokens(params, cfg, tokens):
     # the lookup as F.embedding: its backward adds repeated tokens' rows in
     # a fixed order on the CPU and the card (an indexing backward adds them
-    # by atomics on the CPU's threads)
-    h = F.embedding(tokens, params["embed"])
+    # by atomics on the CPU's threads).  On a vocab-sharded table the rows
+    # are summed over the vocab shards at once (``settle``)
+    h = sharding.settle(F.embedding(tokens,
+                                    sharding.gather_fsdp(params["embed"])))
     if cfg.tie_embeddings:  # gemma-style input scaling
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
                              device=h.device)
@@ -361,9 +369,9 @@ def _embed_tokens(params, cfg, tokens):
 def _lm_head(params, cfg, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = (h @ params["embed"].T).float()
+        logits = (h @ sharding.gather_fsdp(params["embed"]).T).float()
     else:
-        logits = (h @ params["lm_head"]).float()
+        logits = (h @ sharding.gather_fsdp(params["lm_head"])).float()
     if cfg.padded_vocab != cfg.vocab:   # mask padding rows out of softmax
         pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
@@ -410,6 +418,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             return _forward_encdec(params, cfg, batch,
                                    return_hidden=return_hidden, taps=taps)
         h = _prompt(params, cfg, batch)
+        h = sharding.hint(h, "dp", "model" if cfg.seq_shard else None, None)
         cos, sin = _rope_tables(cfg, _positions(h, 0, h.shape[1]))
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         outs, router = [], []
@@ -429,7 +438,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         def super_block(i, h):
             for j in range(cfg.attn_every - 1):
                 h, _ = _mamba_residual(_layer(layers, i, j), h, cfg)
-            return _dense_block(params["shared_attn"], h, cfg, cos, sin)[0]
+            return _dense_block(_layer(params["shared_attn"]), h, cfg, cos,
+                                sin)[0]
 
         if fam in ("dense", "vlm", "ssm", "moe"):
             for i in range(cfg.n_layers):
@@ -466,7 +476,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
 
 def _mtp_loss(params, cfg, h, batch, cos, sin):
     """DeepSeek-V3 multi-token prediction: one extra block predicts t+2."""
-    p = params["mtp_block"]
+    p = _layer(params["mtp_block"])
     tokens = _tokens(params, batch["tokens"])
     e = _embed_tokens(params, cfg, torch.roll(tokens, -1, dims=1))
     hin = torch.cat([rms_norm(h, p["mtp_norm"], cfg.norm_eps), e],
@@ -553,7 +563,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     values), ``{"mla": MLACache}`` (MLA moe), ``{"rwkv": RWKVState}``
     (ssm), or ``{"mamba": MambaState, "kv": KVCache}`` (hybrid), each
     leaf stacked over the layers.  Recurrent states are f32, the rest
-    ``dtype``."""
+    ``dtype``; ``device="meta"`` gives the shapes only."""
     fam, L = cfg.family, cfg.n_layers
     if fam in ("dense", "vlm", "audio") or (fam == "moe" and not cfg.use_mla):
         cache = {"kv": _kv_cache((L,), batch, max_len, cfg, dtype, device)}
@@ -626,8 +636,9 @@ def _stack_step(params, cfg, h, cos, sin, cache, pos, *, prefill):
                                         state=st, return_state=prefill)
                 inner.append(ns)
             states.append(inner)
-            h, _ = _dense_block(params["shared_attn"], h, cfg, cos, sin,
-                                cache=_layer_cache(cache["kv"], i), pos=pos)
+            h, _ = _dense_block(_layer(params["shared_attn"]), h, cfg, cos,
+                                sin, cache=_layer_cache(cache["kv"], i),
+                                pos=pos)
         new = _stacked(states, MambaState)
         return h, {"mamba": _cast_like(new, cache["mamba"]) if prefill
                    else new, "kv": cache["kv"]}
@@ -657,11 +668,40 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: dict,
 # ------------------------------------------------------- chunked loss ----
 
 
-def ce_sums(logits, labels):
-    """(sum CE, sum lse^2, token count) with labels<0 masked out."""
+def _sharded_lse(logits):
+    """logsumexp of vocab-sharded logits from ops that ``DTensor`` shards
+    on every version (``torch.logsumexp`` gathers the whole vocabulary on
+    some): a settled max, then a settled sum of exps."""
+    m = sharding.settle(logits.amax(-1, keepdim=True)).detach()
+    s = sharding.settle(torch.exp(logits - m).sum(-1, keepdim=True))
+    return (m + torch.log(s))[..., 0]
+
+
+def _label_logits(params, cfg, h, labels):
+    """The labels' logits from final hidden states: the normed state
+    against the label's row of the output table, a vocab-parallel lookup
+    (under a mesh, in place of a gather from the vocab-sharded logits,
+    whose backward scatters into a whole vocabulary on some versions).
+    The same products, summed in f32 in another order."""
+    table = (params["embed"] if cfg.tie_embeddings
+             else params["lm_head"].T)
+    rows = sharding.settle(F.embedding(labels.clamp_min(0).long(),
+                                       sharding.gather_fsdp(table)))
+    hn = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return (hn.float() * rows.float()).sum(-1)
+
+
+def ce_sums(logits, labels, ll=None):
+    """(sum CE, sum lse^2, token count) with labels<0 masked out; ``ll``
+    the labels' logits when the caller has them (else gathered)."""
     mask = (labels >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp_min(0)[..., None].long())[..., 0]
+    if sharding.dp_axes() is None:
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        lse = _sharded_lse(logits)
+    if ll is None:
+        ll = torch.gather(logits, -1,
+                          labels.clamp_min(0)[..., None].long())[..., 0]
     return (torch.sum((lse - ll) * mask), torch.sum(torch.square(lse) * mask),
             torch.sum(mask))
 
@@ -669,14 +709,19 @@ def ce_sums(logits, labels):
 def ce_from_hidden(params, cfg: ModelConfig, h, labels, *, chunk: int = 0):
     """CE sums from final hidden states; chunk>0 walks sequence chunks so
     the (B, S, V) f32 logits never materialize at once (``train/steps.py::
-    loss_fn`` differentiates through it)."""
+    loss_fn`` differentiates through it).  Under a mesh the labels'
+    logits come from ``_label_logits``."""
+    def sums(hc, lc):
+        ll = (None if sharding.dp_axes() is None
+              else _label_logits(params, cfg, hc, lc))
+        return ce_sums(_lm_head(params, cfg, hc), lc, ll)
+
     B, S, D = h.shape
     if chunk <= 0 or S <= chunk or S % chunk != 0:
-        return ce_sums(_lm_head(params, cfg, h), labels)
+        return sums(h, labels)
     ce = z = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S, chunk):
-        c, zz, n = ce_sums(_lm_head(params, cfg, h[:, c0:c0 + chunk]),
-                           labels[:, c0:c0 + chunk])
+        c, zz, n = sums(h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
         ce, z, cnt = ce + c, z + zz, cnt + n
     return ce, z, cnt
 

@@ -19,23 +19,28 @@ where the reference's scatter-adds would become atomics:
 
 The expert products are batched over the expert dim (``torch.einsum``,
 plain torch, as the reference computes them outside any Pallas kernel).
-The reference's sharding hints are the identity without a mesh, so the
-port has none.
+The reference's five sharding hints stand at its points
+(``models/sharding.py::hint``: the FFN's wide dim over ``model``, the
+tokens over the DP axes, the expert buffers over ``model``, or over
+``model`` x ``data`` under ``set_ep2d``), the identity without a mesh.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.common import activation
 
 
 def dense_ffn(p, h, cfg, prefix: str = "w"):
     """Gated (or plain) FFN: h (B,S,D) -> (B,S,D)."""
     act = activation(cfg.act)
-    up = h @ p[f"{prefix}_up"]
+    up = sharding.hint(h @ p[f"{prefix}_up"], "dp", None, "model")
     if cfg.gated:
-        inner = act(h @ p[f"{prefix}_gate"]) * up
+        gate = sharding.hint(act(h @ p[f"{prefix}_gate"]), "dp", None,
+                             "model")
+        inner = gate * up
     else:
         inner = act(up)
     return inner @ p[f"{prefix}_down"]
@@ -60,7 +65,7 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
     B, S, D = h.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    x = h.reshape(T, D)
+    x = sharding.hint(h.reshape(T, D), "dp", None)
 
     logits = (x @ p["router"]).float()                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -93,6 +98,9 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
     flat = h.new_zeros((E * cap + 1, D))
     flat[slot] = x.repeat(K, 1)
     buf = flat[:E * cap].view(E, cap, D)
+    e_axes = ("model", "data") if sharding.ep2d() else "model"
+    b_axis = None if sharding.ep2d() else "dp"
+    buf = sharding.hint(buf, e_axes, b_axis, None)
 
     # expert compute (batched over the expert dim)
     act = activation(cfg.act)
@@ -101,7 +109,8 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
         inner = act(torch.einsum("ecd,edf->ecf", buf, p["e_gate"])) * up
     else:
         inner = act(up)
-    out_buf = torch.einsum("ecf,efd->ecd", inner, p["e_down"])
+    out_buf = sharding.hint(torch.einsum("ecf,efd->ecd", inner, p["e_down"]),
+                            e_axes, b_axis, None)
 
     # combine: gather each entry's expert output, weight, add to its token
     # in slot order

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.common import rms_norm
 
 
@@ -91,7 +92,9 @@ def rwkv_block(p, hin, cfg, *, state: RWKVState | None = None,
     x2prev = _shift(x2) if state is None else state.cm_last[:, None, :]
     hk = _mix(x2, x2prev, p["cm_mu_k"])
     hr = _mix(x2, x2prev, p["cm_mu_r"])
-    vcm = torch.square(F.relu(hk @ p["w_up"])) @ p["w_down"]
+    kcm = sharding.hint(torch.square(F.relu(hk @ p["w_up"])), "dp", None,
+                        "model")
+    vcm = kcm @ p["w_down"]
     rcm = torch.sigmoid(hr @ p["w_recv_cm"])
     h = h + rcm * vcm
 

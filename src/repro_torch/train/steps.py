@@ -19,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.kernels.ref import full_f32
 from repro_torch.models import model as M
+from repro_torch.models import sharding
 from repro_torch.optim import adamw as O
 from repro_torch.optim import compression as C
 
@@ -36,8 +37,9 @@ def loss_fn(params, cfg: ModelConfig, batch):
     device; labels < 0 are masked out."""
     with full_f32():
         labels = M._tokens(params, batch["labels"])
-        if cfg.ce_chunk > 0:
-            # chunked CE: the (B, S, V) f32 logits never materialize
+        if cfg.ce_chunk > 0 or sharding.dp_axes() is not None:
+            # chunked CE: the (B, S, V) f32 logits never materialize;
+            # under a mesh the labels' logits come from the hidden states
             h, aux = M.forward(params, cfg, batch, return_hidden=True)
             ce_sum, z_sum, cnt = M.ce_from_hidden(params, cfg, h, labels,
                                                   chunk=cfg.ce_chunk)
