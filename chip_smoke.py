@@ -91,12 +91,14 @@ directory: one device, a finite loss, resumed from step 4, run on cuda);
 reads the dry run (``dryrun``: ``python -m repro_torch.launch.dryrun
 --arch gemma-2b --shape train_4k`` at gemma-2b's published config,
 bfloat16, ``remat="full"``, ``seq_shard``, on the 16 x 16 mesh of a fake
-world of 512 ranks, and ``launch.perf --exp B2_ctx_vpad``; both started
-as host subprocesses that see no card when the script starts, so they
-trace beside the card phases: ok, FLOPs a rank, all-gathers, a peak a
-rank under 80 GB, the roofline table at the H100's constants, and
-``analytic_flops`` against ``train_flops`` for gemma-2b at B 2, S
-1,024); runs the certification sweep (``numerics/certify.py``, 180
+world of 512 ranks, ``launch.perf --exp B2_ctx_vpad`` and
+``tools/dryrun_sweep.py``; all three started as host subprocesses that
+see no card when the script starts, so they trace beside the card
+phases: ok, FLOPs a rank, all-gathers, a peak a rank under 80 GB, the
+roofline table at the H100's constants, ``analytic_flops`` against
+``train_flops`` for gemma-2b at B 2, S 1,024, and one ``dryrun-sweep``
+line for each of the 30 smoke cells, every one ok and none unsharding an
+op beyond ``SWEEP_REPLICATED_OK``); runs the certification sweep (``numerics/certify.py``, 180
 fits);
 times each kernel beside its plain version, one PyTorch library call
 where there is one and the card's bound, and prints:
@@ -4533,32 +4535,42 @@ def phase_train(torch, ref, ops, kern, build, dev="cuda"):
 
 
 #: The dry run's cell (gemma-2b ``train_4k`` at its published config on
-#: the 16 x 16 mesh of a fake world) and the perf experiment beside it.
+#: the 16 x 16 mesh of a fake world), the perf experiment beside it, and
+#: the sweep of the ten smoke configs' train, prefill and decode steps on
+#: the (4, 2) mesh of a fake world of 8 (``tools/dryrun_sweep.py``).
 DRYRUN_OUT = os.path.join("build", "chip_smoke_dryrun.json")
 PERF_OUT = os.path.join("build", "chip_smoke_perf.json")
+SWEEP_OUT = os.path.join("build", "chip_smoke_sweep.json")
 HOST_RUNS: dict = {}
+
+#: Ops the sweep may still unshard (``replicated_ops``), by (arch, kind):
+#: {op: reason}.  Every other cell must unshard none.
+SWEEP_REPLICATED_OK: dict = {}
 
 
 def start_host_runs() -> None:
-    """Start the dry run and the perf experiment (``launch.perf --exp
-    B2_ctx_vpad``: whisper decode on the fake world) as subprocesses that
-    see no card (``CUDA_VISIBLE_DEVICES=""``): they trace on the host
-    while the card phases run, and ``phase_dryrun`` reads them."""
+    """Start the dry run, the perf experiment (``launch.perf --exp
+    B2_ctx_vpad``: whisper decode on the fake world) and the smoke sweep
+    as subprocesses that see no card (``CUDA_VISIBLE_DEVICES=""``): they
+    trace on the host while the card phases run, and ``phase_dryrun``
+    reads them."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     for name, args, out in (
-            ("dryrun", ["repro_torch.launch.dryrun", "--arch", "gemma-2b",
-                        "--shape", "train_4k"], DRYRUN_OUT),
-            ("perf", ["repro_torch.launch.perf", "--exp", "B2_ctx_vpad"],
-             PERF_OUT)):
+            ("dryrun", ["-m", "repro_torch.launch.dryrun", "--arch",
+                        "gemma-2b", "--shape", "train_4k"], DRYRUN_OUT),
+            ("perf", ["-m", "repro_torch.launch.perf", "--exp",
+                      "B2_ctx_vpad"], PERF_OUT),
+            ("sweep", [os.path.join(ROOT, "tools", "dryrun_sweep.py")],
+             SWEEP_OUT)):
         path = os.path.join(ROOT, out)
         if os.path.exists(path):
             os.remove(path)
         logf = open(path + ".log", "w")
         HOST_RUNS[name] = {
             "proc": subprocess.Popen(
-                [sys.executable, "-m", *args, "--out", path], cwd=ROOT,
+                [sys.executable, *args, "--out", path], cwd=ROOT,
                 env=env, stdout=logf, stderr=subprocess.STDOUT,
                 start_new_session=True),
             "log": logf, "out": path, "t0": time.perf_counter()}
@@ -4642,8 +4654,9 @@ def phase_dryrun(torch, deadline: float):
     FLOPs a rank > 0, all-gathers (FSDP over ``data``), a peak a rank
     under 80 GB; the roofline table at the card's constants;
     ``analytic_flops`` against ``train_flops`` for gemma-2b at B 2, S
-    1,024; and the perf experiment's record.  The counts are a fake
-    world's, not times."""
+    1,024; the perf experiment's record; and the smoke sweep: one line a
+    cell, every cell ok, no op unsharded beyond ``SWEEP_REPLICATED_OK``.
+    The counts are a fake world's, not times."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import roofline
@@ -4681,6 +4694,34 @@ def phase_dryrun(torch, deadline: float):
                                 "flops_per_device", "peak_bytes",
                                 "collectives", "replicated_ops")})
     print(roofline.markdown_table([prec]), flush=True)
+    check_sweep(wait_host_run("sweep", deadline))
+
+
+def check_sweep(sweep: dict) -> None:
+    """The smoke sweep's lines (``tools/dryrun_sweep.py --out``): one log
+    line a cell; all 30 ok; no op unsharded beyond
+    ``SWEEP_REPLICATED_OK``."""
+    cells = sweep["records"]
+    require(len(cells) == 30, f"dryrun-sweep: {len(cells)} cells, not 30")
+    for c in cells:
+        log("dryrun-sweep", arch=c["arch"], kind=c["kind"], ok=c["ok"],
+            s=c["s"], **({k: c[k] for k in ("collectives", "replicated_ops",
+                                           "flops_per_device", "peak_bytes")}
+                         if c["ok"] else {"error": c["error"],
+                                          "at": c["at"]}))
+    bad = [(c["arch"], c["kind"], c.get("error")) for c in cells
+           if not c["ok"]]
+    require(not bad, f"dryrun-sweep: cells failed: {bad}")
+    extra = {(c["arch"], c["kind"]): {
+        op: n for op, n in c["replicated_ops"].items()
+        if op not in SWEEP_REPLICATED_OK.get((c["arch"], c["kind"]), {})}
+        for c in cells}
+    extra = {k: v for k, v in extra.items() if v}
+    require(not extra, f"dryrun-sweep: ops unsharded beyond "
+            f"SWEEP_REPLICATED_OK: {extra}")
+    log("dryrun-sweep-total", cells=len(cells), wall_s=sweep["wall_s"],
+        unsharded={f"{c['arch']} {c['kind']}": c["replicated_ops"]
+                   for c in cells if c["replicated_ops"]})
 
 
 def main() -> int:

@@ -49,6 +49,14 @@ carries on.
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out results.json]
+  python -m repro_torch.launch.dryrun --all --both-meshes --jobs 7 \
+      --cell-timeout 2700 --out build/dryrun_all.json
+
+``--out`` keeps every record, and a run with the same ``--out`` skips the
+cells already ok, so a sweep resumes across runs.  ``--jobs`` traces each
+cell in a process of its own (a record then also has the cell's
+``wall_s`` and the process's ``host_peak_rss_gb``), and ``--cell-timeout``
+records a cell that outlives it as not traced, with that cause.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 import time
 import traceback
 import weakref
@@ -66,7 +75,7 @@ from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map_only,
                                  tree_unflatten)
 from torch.utils.weak import WeakIdKeyDictionary
 
-from repro_torch.configs import ARCHS, SHAPES, cells, get_config
+from repro_torch.configs import ARCHS, SHAPES, SUBQUADRATIC, cells, get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.data.tokens import input_specs
 from repro_torch.launch.mesh import make_production_mesh
@@ -455,8 +464,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         # tensor cannot be a ``DTensor``'s local tensor
         with torch.no_grad():
             logits, cache = M.decode_step(params, cfg, tokens, cache, pos)
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return nxt[:, None], cache
+            nxt = S.greedy_next(logits)
+        return nxt, cache
     return serve_step, (params, cache, batch["tokens"], 0)
 
 
@@ -530,8 +539,104 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         sharding.set_ep2d(False)
     return {"arch": arch, "shape": shape_name,
             "overrides": dict(overrides or {}),
-            "mesh": "2x16x16" if multi_pod else "16x16",
+            "mesh": _mesh_name(multi_pod),
             **census, "ok": True}
+
+
+def _mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def _child_command(arch: str, shape: str, multi_pod: bool,
+                   optimized: bool, out: str) -> list[str]:
+    """The command that traces one cell into ``out``."""
+    return ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out]
+            + (["--multi-pod"] if multi_pod else [])
+            + (["--optimized"] if optimized else []))
+
+
+def _run_in_children(pending, args, record) -> None:
+    """Each pending cell in a process of its own (this module run on that
+    one cell), ``args.jobs`` at a time, the recurrent families' cells first
+    (their Python loops over tokens or chunks trace longest); a cell past
+    ``args.cell_timeout`` seconds is killed.  A child's record is passed to
+    ``record`` with its wall time and the child's peak resident memory on
+    the host (at least this process's own when it started the child); a
+    child that dies or is killed gets a failed record with the cause.  A
+    SIGTERM ends the run, its running cells killed."""
+    import signal
+    import subprocess
+    out_dir = os.path.dirname(os.path.abspath(args.out)) if args.out else "."
+    queue = sorted(pending, key=lambda c: c[0] not in SUBQUADRATIC)
+    running = {}
+    on_term = signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        _drain(queue, running, args, record, out_dir)
+    finally:
+        signal.signal(signal.SIGTERM, on_term)
+        for proc, log, *_ in running.values():
+            os.killpg(proc.pid, signal.SIGKILL)
+            os.waitpid(proc.pid, 0)
+            log.close()
+
+
+def _drain(queue, running, args, record, out_dir) -> None:
+    """``_run_in_children``'s loop: start cells while slots are free, reap
+    (or kill past the timeout) the ones that ended."""
+    import signal
+    import subprocess
+    while queue or running:
+        while queue and len(running) < args.jobs:
+            arch, shape, mp = queue.pop(0)
+            part = os.path.join(out_dir, f".dryrun-{arch}-{shape}-"
+                                f"{_mesh_name(mp)}.json")
+            if os.path.exists(part):
+                os.remove(part)
+            log = open(part + ".log", "w")
+            proc = subprocess.Popen(
+                _child_command(arch, shape, mp, args.optimized, part),
+                stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+            print(f"[dryrun] {arch} {shape} {_mesh_name(mp)} ... (pid "
+                  f"{proc.pid})", flush=True)
+            running[proc.pid] = (proc, log, part, (arch, shape, mp),
+                                 time.perf_counter())
+        time.sleep(0.5)
+        for pid, (proc, log, part, cell, t0) in list(running.items()):
+            wall = time.perf_counter() - t0
+            done, status, usage = os.wait4(pid, os.WNOHANG)
+            timed_out = (not done and args.cell_timeout
+                         and wall > args.cell_timeout)
+            if timed_out:
+                os.killpg(pid, signal.SIGKILL)
+                done, status, usage = os.wait4(pid, 0)
+            if not done:
+                continue
+            proc.returncode = os.waitstatus_to_exitcode(status)
+            del running[pid]
+            log.close()
+            arch, shape, mp = cell
+            host = {"wall_s": round(wall, 1),
+                    "host_peak_rss_gb": round(usage.ru_maxrss / 2**20, 2)}
+            recs = []
+            if os.path.exists(part):
+                with open(part) as f:
+                    recs = json.load(f)
+                os.remove(part)
+            if recs:
+                rec = {**recs[-1], **host}
+            else:
+                with open(part + ".log") as f:
+                    tail = f.read()[-1500:]
+                cause = (f"not traced within {args.cell_timeout} s"
+                         if timed_out else
+                         f"the cell's process ended with {proc.returncode}")
+                rec = {"arch": arch, "shape": shape, "mesh": _mesh_name(mp),
+                       "ok": False, "error": f"TimeoutError: {cause}"
+                       if timed_out else f"ChildProcessError: {cause}",
+                       "traceback": tail, **host}
+            os.remove(part + ".log")
+            record(rec)
 
 
 def main(argv=None) -> None:
@@ -545,6 +650,12 @@ def main(argv=None) -> None:
     ap.add_argument("--optimized", action="store_true",
                     help="apply best-known per-arch flags (§Perf)")
     ap.add_argument("--out", default="")
+    ap.add_argument("--jobs", type=int, default=0,
+                    help="trace each cell in a process of its own, this "
+                         "many at a time (0: all in this process)")
+    ap.add_argument("--cell-timeout", type=float, default=0,
+                    help="with --jobs: seconds before a cell is killed "
+                         "and recorded as not traced (0: no limit)")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -561,34 +672,49 @@ def main(argv=None) -> None:
             results = json.load(f)
     done = {(r["arch"], r["shape"], r["mesh"]) for r in results if r.get("ok")}
 
+    pending = []
     for arch, shape in todo:
         for mp in meshes:
-            meshname = "2x16x16" if mp else "16x16"
-            if (arch, shape, meshname) in done:
-                print(f"[skip] {arch} {shape} {meshname} (cached)")
-                continue
-            # drop stale failed records for this cell before re-running
-            results = [r for r in results
-                       if (r["arch"], r["shape"], r["mesh"])
-                       != (arch, shape, meshname)]
-            print(f"[dryrun] {arch} {shape} {meshname} ...", flush=True)
+            if (arch, shape, _mesh_name(mp)) in done:
+                print(f"[skip] {arch} {shape} {_mesh_name(mp)} (cached)")
+            else:
+                pending.append((arch, shape, mp))
+
+    def record(rec) -> None:
+        nonlocal results
+        # drop a stale failed record of this cell
+        results = [r for r in results
+                   if (r["arch"], r["shape"], r["mesh"])
+                   != (rec["arch"], rec["shape"], rec["mesh"])]
+        if rec.get("ok"):
+            print(f"  ok: {rec['arch']} {rec['shape']} {rec['mesh']} "
+                  f"flops/dev={rec['flops_per_device']:.3e} "
+                  f"peak={rec['peak_bytes']/2**30:.2f}GiB "
+                  f"lower={rec['lower_s']}s compile={rec['compile_s']}s",
+                  flush=True)
+        else:
+            print(f"  FAIL: {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                  f"{rec['error']}", flush=True)
+        results.append(rec)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+
+    if args.jobs > 0:
+        _run_in_children(pending, args, record)
+    else:
+        for arch, shape, mp in pending:
+            print(f"[dryrun] {arch} {shape} {_mesh_name(mp)} ...",
+                  flush=True)
             over = (optimized_overrides(arch, SHAPES[shape].kind)
                     if args.optimized else None)
             try:
                 rec = run_cell(arch, shape, multi_pod=mp, overrides=over)
-                print(f"  ok: flops/dev={rec['flops_per_device']:.3e} "
-                      f"peak={rec['peak_bytes']/2**30:.2f}GiB "
-                      f"lower={rec['lower_s']}s compile={rec['compile_s']}s",
-                      flush=True)
             except Exception as e:  # noqa: BLE001 — record and continue
-                rec = {"arch": arch, "shape": shape, "mesh": meshname,
+                rec = {"arch": arch, "shape": shape, "mesh": _mesh_name(mp),
                        "ok": False, "error": f"{type(e).__name__}: {e}",
                        "traceback": traceback.format_exc()[-2000:]}
-                print(f"  FAIL: {rec['error']}", flush=True)
-            results.append(rec)
-            if args.out:
-                with open(args.out, "w") as f:
-                    json.dump(results, f, indent=1)
+            record(rec)
     n_ok = sum(r.get("ok", False) for r in results)
     print(f"done: {n_ok}/{len(results)} cells ok")
 

@@ -20,7 +20,8 @@ reference's dtype promotion meets a product of mixed dtypes (an f32 query
 against a bfloat16 cache), the port casts to the promoted dtype first,
 since torch's products do not promote.  The q, k and v projections carry
 the reference's sharding hints (``models/sharding.py::hint``: heads over
-``model``, batch over the DP axes), the identity without a mesh.
+``model``, batch over the DP axes), the identity without a mesh; placed
+alike, attention runs on each rank's shards (``sharding.on_shards``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import sharding
-from repro_torch.models.common import apply_rope, rms_norm
+from repro_torch.models.common import (apply_rope, rms_norm, seq_whole,
+                                       seq_whole_grad)
 
 _NEG = -1e30
 
@@ -47,6 +49,14 @@ def _block_attn(qg, k, v, qpos, kv_idx, causal):
         mask = kv_idx[None, :] <= qpos[:, None]          # (L, K)
         s = s.masked_fill(~mask, _NEG)
     p = torch.softmax(s, dim=-1).to(v.dtype)
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        # p's (r, l) rows, permuted after: split query heads (r) cannot be
+        # flattened into "blgrh"'s (l, r) rows under every torch version.
+        # v's gradient sums in another order, so plain tensors (each
+        # rank's shards too) keep the reference's form
+        return torch.einsum("bgrlk,bkgh->bgrlh", p, v).permute(0, 3, 1, 2,
+                                                                4)
     return torch.einsum("bgrlk,bkgh->blgrh", p, v)
 
 
@@ -56,6 +66,21 @@ def attention(q, k, v, *, causal: bool = True, chunk: int = 0,
 
     Query i sits at absolute position ``q_offset + i`` (a decode step's
     or a prefill's place in the cache)."""
+    S = q.shape[1]
+    if not (chunk and S > chunk and S % chunk == 0):
+        chunk = 0
+
+    def run(q, k, v):
+        return (_attention(q, k, v, causal, chunk, q_offset),)
+    # under a mesh, attention runs on each rank's batch rows and heads when
+    # q, k and v split them alike (so GQA's groups stay whole on a rank):
+    # no q-chunk reshards, and no product flattens a split dim
+    if sharding.placed_alike((q, k, v), dims=(0, 2)):
+        return sharding.on_shards(run, (q, k, v), like=(q,))[0]
+    return run(q, k, v)[0]
+
+
+def _attention(q, k, v, causal, chunk, q_offset):
     B, S, H, hd = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     vd = v.shape[-1]  # may differ from hd (MLA: qk dim != v dim)
@@ -64,7 +89,7 @@ def attention(q, k, v, *, causal: bool = True, chunk: int = 0,
     kv_idx = torch.arange(K, device=q.device)
     qpos_all = q_offset + torch.arange(S, device=q.device)
 
-    if chunk and S > chunk and S % chunk == 0:
+    if chunk:
         outs = [_block_attn(qg[:, i:i + chunk], k, v, qpos_all[i:i + chunk],
                             kv_idx, causal)
                 for i in range(0, S, chunk)]
@@ -98,6 +123,7 @@ def gqa_block(p, h, cfg, cos, sin, *, causal=True,
     None)."""
     B, S, D = h.shape
     H, Hkv, hd = cfg.eff_heads, cfg.eff_kv_heads, cfg.head_dim
+    h = seq_whole(h)
     q = (h @ p["wq"]).reshape(B, S, H, hd)
     k = (h @ p["wk"]).reshape(B, S, Hkv, hd)
     v = (h @ p["wv"]).reshape(B, S, Hkv, hd)
@@ -114,7 +140,7 @@ def gqa_block(p, h, cfg, cos, sin, *, causal=True,
         cache.v[:, pos:pos + S] = v.to(cache.v.dtype)
         out = attention(q, cache.k, cache.v, causal=True, q_offset=pos)
     out = _mask_padded_heads(out, cfg).reshape(B, S, H * hd)
-    return _promoted(out, p["wo"]) @ p["wo"], cache
+    return seq_whole_grad(_promoted(out, p["wo"]) @ p["wo"]), cache
 
 
 def cross_block(p, h, enc_kv, cfg):
@@ -122,8 +148,11 @@ def cross_block(p, h, enc_kv, cfg):
     (B, enc_seq, Hkv, hd), any float dtype."""
     B, S, D = h.shape
     H, hd = cfg.eff_heads, cfg.head_dim
-    q = (h @ p["wq"]).reshape(B, S, H, hd)
-    k, v = enc_kv
+    q = (seq_whole(h) @ p["wq"]).reshape(B, S, H, hd)
+    # the self-attention's placements (heads over "model"), so the three
+    # are placed alike and attention runs on each rank's shards
+    q, k, v = (sharding.hint(t, "dp", None, "model", None)
+               for t in (q, *enc_kv))
     out = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
     out = _mask_padded_heads(out, cfg).reshape(B, S, H * hd)
     return _promoted(out, p["wo"]) @ p["wo"]
@@ -171,12 +200,13 @@ def mla_block(p, h, cfg, cos, sin, *, cache: MLACache | None = None,
     B, S, D = h.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    h = seq_whole(h)
     if cache is None:
         q, k, v, _, _ = _mla_qkv(p, h, cfg, cos, sin)
         q = sharding.hint(q, "dp", None, "model", None)
         k = sharding.hint(k, "dp", None, "model", None)
         out = attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-        return out.reshape(B, S, H * dv) @ p["wo"], None
+        return seq_whole_grad(out.reshape(B, S, H * dv) @ p["wo"]), None
 
     # ---- absorbed decode path ----
     cq = rms_norm(h @ p["wq_a"], p["q_norm"], cfg.norm_eps)

@@ -12,6 +12,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
@@ -20,6 +22,32 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (B,S,...) with ``n`` zero rows before its first, the values of
+    ``F.pad(x, (0, 0, n, 0))``, by a ``cat``, which ``DTensor`` shards as
+    ``x`` lies under every torch version (a pad it may not)."""
+    zeros = torch.zeros_like(x[:, :1]).expand(x.shape[0], n, *x.shape[2:])
+    return torch.cat([zeros, x], dim=1)
+
+
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """A sublayer's (B,S,D) input with its sequence whole on each rank
+    (batch over the DP axes): under ``seq_shard`` the residual stream's
+    sequence is split over "model", and a product's (B*S, D) view, a shift
+    or a pad cannot carry that split, so the sublayer gathers it once
+    here.  ``x`` itself without a mesh."""
+    return sharding.hint(x, "dp", None, None)
+
+
+def seq_whole_grad(x: torch.Tensor) -> torch.Tensor:
+    """A sublayer's (B,S,D) output, whose gradient comes back with its
+    sequence whole on each rank: under ``seq_shard`` the residual stream
+    it joins splits the sequence over "model", and the product behind it
+    cannot take that split in its backward.  The forward is ``x`` as it
+    is; ``x`` itself without a mesh."""
+    return sharding.grad_hint(x, "dp", None, None)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

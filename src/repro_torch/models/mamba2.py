@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import sharding
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import (pad_front, rms_norm, seq_whole,
+                                       seq_whole_grad)
 
 _CONV_W = 4  # short conv window
 
@@ -48,7 +49,7 @@ def _split_proj(zxbcdt, cfg):
 
 def _causal_conv(xBC, conv_k):
     """Depthwise causal conv, window 4: xBC (B,S,C), conv_k (W,C)."""
-    pad = F.pad(xBC, (0, 0, _CONV_W - 1, 0))
+    pad = pad_front(xBC, _CONV_W - 1)
     S = xBC.shape[1]
     out = 0
     for i in range(_CONV_W):       # the reference's sum(), from int 0
@@ -66,6 +67,7 @@ def mamba_block(p, u, cfg, *, state: MambaState | None = None,
     """
     B, S, D = u.shape
     inner, H, P, N = _dims(cfg)
+    u = seq_whole(u)
     zxbcdt = sharding.hint(u @ p["in_proj"], "dp", None, "model")
     z, xBC, dt = _split_proj(zxbcdt, cfg)
     A = -torch.exp(p["a_log"].float())                        # (H,)
@@ -83,7 +85,7 @@ def mamba_block(p, u, cfg, *, state: MambaState | None = None,
         y = y.reshape(B, S, inner).to(u.dtype)
         if return_state:
             # conv state = last (window-1) *pre-conv* inputs
-            pad = F.pad(xBC_raw, (0, 0, _CONV_W - 1, 0))
+            pad = pad_front(xBC_raw, _CONV_W - 1)
             new_state = MambaState(ssm=final_ssm,
                                    conv=pad[:, S:S + _CONV_W - 1, :])
     else:
@@ -106,7 +108,7 @@ def mamba_block(p, u, cfg, *, state: MambaState | None = None,
         new_state = MambaState(ssm=ssm, conv=new_conv)
 
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], new_state
+    return seq_whole_grad(y @ p["out_proj"]), new_state
 
 
 def _ssd_chunked(x, Bm, Cm, dt, A, cfg):
@@ -114,20 +116,34 @@ def _ssd_chunked(x, Bm, Cm, dt, A, cfg):
 
     x (B,S,H,P); Bm/Cm (B,S,N); dt (B,S,H); A (H,) -> y (B,S,H,P) f32 and
     the final state (B,H,N,P).  S must be a multiple of
-    ``min(cfg.ssm_chunk, S)``, as the reference asserts.
+    ``min(cfg.ssm_chunk, S)``, as the reference asserts.  Under a mesh the
+    loop runs on each rank's heads (batch over the DP axes, heads over
+    "model" where they divide it; Bm and Cm, shared by the heads, whole),
+    so no chunk reshards.
     """
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     L = min(cfg.ssm_chunk, S)
     if S % L:
         raise ValueError(f"seq {S} not divisible by ssm chunk {L}")
+    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    x = sharding.hint(x, "dp", None, "model", None)
+    Bm, Cm = (sharding.hint(t, "dp", None, None) for t in (Bm, Cm))
+    dt = sharding.hint(dt, "dp", None, "model")
+    A = sharding.hint(A, "model")
+    state = sharding.hint(state, "dp", "model", None, None)
+    return sharding.on_shards(lambda *a: _ssd_scan(*a, L),
+                              (x, Bm, Cm, dt, A, state), like=(x, state))
 
+
+def _ssd_scan(x, Bm, Cm, dt, A, state, L):
+    """``_ssd_chunked``'s loop over chunks of ``L`` from ``state``."""
+    S = x.shape[1]
     xf = x.float() * dt[..., None]                              # xbar
     dA = dt * A[None, None, :]                                  # (B,S,H) <=0
     Bf, Cf = Bm.float(), Cm.float()
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
 
-    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
     ys = []
     for c0 in range(0, S, L):
         xc, bc, cc = xf[:, c0:c0 + L], Bf[:, c0:c0 + L], Cf[:, c0:c0 + L]

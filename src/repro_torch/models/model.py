@@ -56,7 +56,8 @@ from repro_torch.kernels.ref import full_f32
 from repro_torch.models.attention import (KVCache, MLACache, cross_block,
                                           gqa_block, mla_block)
 from repro_torch.models import sharding
-from repro_torch.models.common import dense_init, rms_norm, rope_freqs
+from repro_torch.models.common import (dense_init, rms_norm, rope_freqs,
+                                       seq_whole)
 from repro_torch.models.mamba2 import (MambaState, _dims, init_mamba_state,
                                        mamba_block)
 from repro_torch.models.moe import dense_ffn, moe_ffn
@@ -367,7 +368,7 @@ def _embed_tokens(params, cfg, tokens):
 
 
 def _lm_head(params, cfg, h):
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = seq_whole(rms_norm(h, params["final_norm"], cfg.norm_eps))
     if cfg.tie_embeddings:
         logits = (h @ sharding.gather_fsdp(params["embed"]).T).float()
     else:
@@ -474,16 +475,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     return primary, aux
 
 
+def _next(t):
+    """``torch.roll(t, -1, dims=1)`` as a ``cat`` of two slices, which
+    ``DTensor`` shards under every torch version (a roll it may not)."""
+    return torch.cat([t[:, 1:], t[:, :1]], dim=1)
+
+
 def _mtp_loss(params, cfg, h, batch, cos, sin):
     """DeepSeek-V3 multi-token prediction: one extra block predicts t+2."""
     p = _layer(params["mtp_block"])
     tokens = _tokens(params, batch["tokens"])
-    e = _embed_tokens(params, cfg, torch.roll(tokens, -1, dims=1))
-    hin = torch.cat([rms_norm(h, p["mtp_norm"], cfg.norm_eps), e],
-                    dim=-1) @ p["mtp_proj"]
+    e = _embed_tokens(params, cfg, _next(tokens))
+    hin = seq_whole(torch.cat([rms_norm(h, p["mtp_norm"], cfg.norm_eps), e],
+                              dim=-1)) @ p["mtp_proj"]
     hout, _ = _dense_block(p, hin, cfg, cos, sin)
     S = hout.shape[1]
-    labels2 = torch.roll(_tokens(params, batch["labels"]), -1, dims=1)
+    labels2 = _next(_tokens(params, batch["labels"]))
     tail = torch.arange(S, device=h.device)[None, :] >= S - 2
     labels2 = labels2.masked_fill(tail, -1)
     ce, _, cnt = ce_from_hidden(params, cfg, hout, labels2,

@@ -30,12 +30,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import sharding
-from repro_torch.models.common import activation
+from repro_torch.models.common import activation, seq_whole, seq_whole_grad
 
 
 def dense_ffn(p, h, cfg, prefix: str = "w"):
     """Gated (or plain) FFN: h (B,S,D) -> (B,S,D)."""
     act = activation(cfg.act)
+    h = seq_whole(h)
     up = sharding.hint(h @ p[f"{prefix}_up"], "dp", None, "model")
     if cfg.gated:
         gate = sharding.hint(act(h @ p[f"{prefix}_gate"]), "dp", None,
@@ -43,7 +44,7 @@ def dense_ffn(p, h, cfg, prefix: str = "w"):
         inner = gate * up
     else:
         inner = act(up)
-    return inner @ p[f"{prefix}_down"]
+    return seq_whole_grad(inner @ p[f"{prefix}_down"])
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -65,7 +66,7 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
     B, S, D = h.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    x = sharding.hint(h.reshape(T, D), "dp", None)
+    x = sharding.hint(seq_whole(h).reshape(T, D), "dp", None)
 
     logits = (x @ p["router"]).float()                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -81,6 +82,9 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
         probs = torch.where(gmask.repeat_interleave(gsz, dim=1), probs, 0.0)
     w, ids = _top_k(probs, K)                             # (T, K)
     w = (w / (w.sum(-1, keepdim=True) + 1e-9)).to(h.dtype)
+    # the dispatch numbers every token's entries in one order, so the
+    # routing decisions are whole on every rank (the batch axis gathered)
+    ids, w = sharding.hint(ids, None, None), sharding.hint(w, None, None)
 
     cap = max(int(K * T * cfg.capacity_factor / E), 1)
 
@@ -96,7 +100,7 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
     # the K copies in a fixed order (a gather's backward adds by atomics)
     slot = torch.where(keep, ids_f * cap + pos_in_e, E * cap)
     flat = h.new_zeros((E * cap + 1, D))
-    flat[slot] = x.repeat(K, 1)
+    flat = torch.index_put(flat, (slot,), x.repeat(K, 1))
     buf = flat[:E * cap].view(E, cap, D)
     e_axes = ("model", "data") if sharding.ep2d() else "model"
     b_axis = None if sharding.ep2d() else "dp"
@@ -115,10 +119,12 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
     # combine: gather each entry's expert output, weight, add to its token
     # in slot order
     pos_c = pos_in_e.clamp(0, cap - 1)
-    gathered = out_buf[ids_f, pos_c]                      # (KT, D)
+    # any entry may read any (expert, slot): the buffer whole on each rank
+    gathered = sharding.hint(out_buf, None, None, None)[ids_f, pos_c]
     gathered = torch.where(keep[:, None], gathered, 0.0) \
         * w.T.reshape(-1)[:, None]
-    gathered = gathered.view(K, T, D)
+    # (its gradient whole too: (K, T) cannot flatten a split T back)
+    gathered = sharding.grad_hint(gathered.view(K, T, D), None, None, None)
     y = torch.zeros((T, D), dtype=h.dtype, device=h.device)
     for k in range(K):
         y = y + gathered[k]
@@ -130,6 +136,7 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
 
     if cfg.n_shared_experts > 0:
         y = y + dense_ffn(p, h, cfg, prefix="s").reshape(T, D)
+    y = seq_whole_grad(y.reshape(B, S, D))
     if return_logits:
-        return y.reshape(B, S, D), aux, logits
-    return y.reshape(B, S, D), aux
+        return y, aux, logits
+    return y, aux

@@ -4,7 +4,8 @@ As ``repro/models/rwkv6.py``.  Time-mix keeps a per-head (N x N) matrix
 state updated once per token, so decode is O(1) in sequence length.  The
 full sequence materializes r/k/v/w with products, then runs the
 recurrence as a Python loop over the S positions where the reference
-scans: plain torch, as the reference keeps it outside any Pallas kernel.
+scans: plain torch, as the reference keeps it outside any Pallas kernel
+(under a mesh, on each rank's shards: ``sharding.on_shards``).
 
 The decay is the Finch LoRA form: w = exp(-exp(w0 + tanh(x W1) W2)),
 data-dependent per channel per token.
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import sharding
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import (pad_front, rms_norm, seq_whole,
+                                       seq_whole_grad)
 
 
 class RWKVState(NamedTuple):
@@ -36,12 +38,23 @@ def _mix(x, xprev, mu):
 
 def _shift(x):
     """x (B,S,D) moved one position later, zeros first."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return pad_front(x, 1)[:, :-1]
 
 
 def _decay(xw, p):
     lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
     return torch.exp(-torch.exp(p["w0"].float() + lora.float()))
+
+
+def _wkv_scan(r, k, v, w, u, wkv):
+    """The WKV recurrence over sequence-first r/k/v/w (S,B,H,N) from state
+    ``wkv`` (B,H,N,N): the outputs (S,B,H,N) and the last state."""
+    ys = []
+    for t in range(r.shape[0]):
+        kv = k[t, :, :, :, None] * v[t, :, :, None, :]  # (B,H,N,N)
+        ys.append(torch.einsum("bhn,bhnm->bhm", r[t], wkv + u * kv))
+        wkv = w[t, :, :, :, None] * wkv + kv
+    return torch.stack(ys), wkv
 
 
 def rwkv_block(p, hin, cfg, *, state: RWKVState | None = None,
@@ -56,7 +69,7 @@ def rwkv_block(p, hin, cfg, *, state: RWKVState | None = None,
     H = D // N
 
     # ---- time mix ----
-    x = rms_norm(hin, p["ln1"], cfg.norm_eps)
+    x = seq_whole(rms_norm(hin, p["ln1"], cfg.norm_eps))
     if state is None:
         xprev = _shift(x)
         wkv = torch.zeros((B, H, N, N), dtype=torch.float32,
@@ -76,19 +89,23 @@ def rwkv_block(p, hin, cfg, *, state: RWKVState | None = None,
     w = _heads(_decay(xw, p), H, N)                     # (B,S,H,N) in (0,1)
     u = p["u"].float()[None, :, :, None]                # (1,H,N,1)
 
-    # sequence-first and contiguous, as the reference's scan reads them
-    r, k, v, w = (a.transpose(0, 1).contiguous() for a in (r, k, v, w))
-    ys = []
-    for t in range(S):
-        kv = k[t, :, :, :, None] * v[t, :, :, None, :]  # (B,H,N,N)
-        ys.append(torch.einsum("bhn,bhnm->bhm", r[t], wkv + u * kv))
-        wkv = w[t, :, :, :, None] * wkv + kv
-    y = torch.stack(ys, dim=1).reshape(B, S, D).to(x.dtype)
+    # sequence-first and contiguous, as the reference's scan reads them;
+    # under a mesh the loop runs on each rank's heads (batch over the DP
+    # axes, heads over "model" where they divide it), so no step reshards
+    r, k, v, w = (sharding.hint(a.transpose(0, 1).contiguous(), None,
+                                "dp", "model", None) for a in (r, k, v, w))
+    u = sharding.hint(u, None, "model", None, None)
+    wkv = sharding.hint(wkv, "dp", "model", None, None)
+    ys, wkv = sharding.on_shards(_wkv_scan, (r, k, v, w, u, wkv),
+                                 like=(r, wkv))
+    # batch-first and contiguous: on the card the output product picks its
+    # kernel by its operand's layout, and this layout keeps the bits
+    y = ys.transpose(0, 1).contiguous().reshape(B, S, D).to(x.dtype)
     y = rms_norm(y, p["ln_x"], cfg.norm_eps) * g
-    h = hin + y @ p["w_out"]
+    h = hin + seq_whole_grad(y @ p["w_out"])
 
     # ---- channel mix ----
-    x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
+    x2 = seq_whole(rms_norm(h, p["ln2"], cfg.norm_eps))
     x2prev = _shift(x2) if state is None else state.cm_last[:, None, :]
     hk = _mix(x2, x2prev, p["cm_mu_k"])
     hr = _mix(x2, x2prev, p["cm_mu_r"])
@@ -96,7 +113,7 @@ def rwkv_block(p, hin, cfg, *, state: RWKVState | None = None,
                         "model")
     vcm = kcm @ p["w_down"]
     rcm = torch.sigmoid(hr @ p["w_recv_cm"])
-    h = h + rcm * vcm
+    h = h + seq_whole_grad(rcm * vcm)
 
     new_state = None
     if state is not None or return_state:

@@ -28,6 +28,10 @@ The mesh is anything with axis names (``axis_names`` or a
 ``DeviceMesh``'s ``mesh_dim_names``) and sizes (``devices.shape`` or
 ``shape``).  ``hint`` places activations; it returns its argument itself
 when no mesh is set, so single-card and CPU runs never see sharding.
+``grad_hint`` places a gradient the same way, and ``on_shards`` runs a
+region whose ops are all local (a loop that carries a state) on each
+rank's shards, so no step of it reshards; without a mesh both are the
+identity and a plain call.
 """
 from __future__ import annotations
 
@@ -149,6 +153,73 @@ def hint(x: torch.Tensor, *entries) -> torch.Tensor:
     if tuple(x.placements) == pl:
         return x
     return x.redistribute(mesh, pl)
+
+
+class _GradHint(torch.autograd.Function):
+    """The identity, whose backward ``hint``s the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, entries):
+        ctx.entries = entries
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return hint(g, *ctx.entries), None
+
+
+def grad_hint(x: torch.Tensor, *entries) -> torch.Tensor:
+    """``x`` as it is, its gradient placed by ``hint(g, *entries)``: for a
+    product whose output is summed into a stream laid out otherwise (the
+    forward keeps the pending sum, reduced as the stream lies; the
+    backward hands the product a gradient laid out as it needs).  ``x``
+    itself without a mesh, or off autograd."""
+    if (_ACTIVE["mesh"] is None or not torch.is_grad_enabled()
+            or not x.requires_grad):
+        return x
+    return _GradHint.apply(x, entries)
+
+
+def placed_alike(ts, dims: tuple[int, ...]) -> bool:
+    """Whether the ``DTensor``s ``ts`` have one set of placements, each
+    shard on one of ``dims``: what ``on_shards`` needs of a region that
+    pairs their elements index by index.  False without a mesh."""
+    if _ACTIVE["mesh"] is None:
+        return False
+    from torch.distributed.tensor import DTensor, Shard
+    if not all(isinstance(t, DTensor) for t in ts):
+        return False
+    pl = tuple(ts[0].placements)
+    return (all(tuple(t.placements) == pl for t in ts)
+            and all(p.is_replicate() or isinstance(p, Shard) and p.dim in dims
+                    for p in pl))
+
+
+def on_shards(fn, args: tuple, like: tuple) -> tuple:
+    """``fn(*args)`` run on each rank's local shards, for a region whose
+    every op is local as ``args`` lie (a recurrence over heads placed by
+    ``hint``, the reference's scan carry); result ``i`` comes back as a
+    ``DTensor`` placed as ``like[i]``, which must be how ``fn`` leaves it.
+    Under ``DTensor`` each op of a loop would be propagated one at a time
+    and could reshard a step; on the shards a loop costs one dispatch a
+    tensor.  An arg's local gradient is placed as the arg, except on a
+    mesh dim where the arg is whole and another arg is split: there each
+    rank's gradient is the part its own shards give, ``Partial`` (rwkv6's
+    ``u`` beside a split batch, mamba2's ``Bm`` beside split heads).
+    Without a mesh, ``fn(*args)`` itself."""
+    if _ACTIVE["mesh"] is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial
+    dts = [a for a in args if isinstance(a, DTensor)]
+    split = [any(a.placements[i].is_shard() for a in dts)
+             for i in range(dts[0].device_mesh.ndim)] if dts else []
+    outs = fn(*(a.to_local(grad_placements=[
+        Partial() if p.is_replicate() and s else p
+        for p, s in zip(a.placements, split)])
+        if isinstance(a, DTensor) else a for a in args))
+    return tuple(DTensor.from_local(o, l.device_mesh, l.placements,
+                                    run_check=False)
+                 for o, l in zip(outs, like, strict=True))
 
 
 def gather_fsdp(w: torch.Tensor) -> torch.Tensor:

@@ -137,6 +137,15 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, *,
     return train_step
 
 
+def greedy_next(logits):
+    """The greedy pick of a decode step: (B, S, V) logits -> (B, 1) int32,
+    the argmax of the last position.  Under a mesh the vocabulary is
+    gathered first (batch over the DP axes): ``DTensor``'s argmax over a
+    split vocabulary fails at B 1 (long_500k)."""
+    last = sharding.hint(logits[:, -1, :], "dp", None)
+    return torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+
+
 def build_serve_step(cfg: ModelConfig, *, greedy: bool = True):
     """Returns ``serve_step(params, cache, tokens, pos) -> (next_tokens,
     cache)``: one new token per request stream against the decode cache
@@ -146,7 +155,7 @@ def build_serve_step(cfg: ModelConfig, *, greedy: bool = True):
     def serve_step(params, cache, tokens, pos):
         with torch.inference_mode():
             logits, cache = M.decode_step(params, cfg, tokens, cache, pos)
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return nxt[:, None], cache
+            nxt = greedy_next(logits)
+        return nxt, cache
 
     return serve_step

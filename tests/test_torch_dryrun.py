@@ -14,15 +14,26 @@ ROADMAP.md, queue 3), so it is no oracle here.
   with a ``data`` axis; peak >= arguments.
 * ``hint`` on a fake world redistributes a tensor to its resolved spec;
   ``ReplicateFallback`` runs an op with no sharding rule on whole copies.
+* Loop-carried state keeps one placement: the smoke rwkv6 and zamba2
+  train steps (``seq_shard``, ``remat="full"``) make as many all-gathers
+  at S 16 as at S 32 (the WKV loop and the SSD chunk loop run on each
+  rank's heads, ``sharding.on_shards``), and unshard no op.
+* The cells whose ops some torch versions route to ``Replicate`` (a
+  product's merge of a split sequence, pads, rolls, the moe dispatch,
+  attention's value product with split query heads) trace with
+  ``replicated_ops == {}``.
 * ``dryrun.OPTIMIZED`` and ``perf.EXPERIMENTS`` equal the reference's
   (read from its source, since importing the reference's launchers sets
   ``XLA_FLAGS`` for the process); ``lower_cell`` builds the production
   cell's config and meshes on a 512-rank fake world; ``main`` records a
-  failed cell and carries on, and skips cells already ok.
+  failed cell and carries on, and skips cells already ok; with ``--jobs``
+  it runs each cell in a process of its own and records one that dies or
+  outlives ``--cell-timeout`` with the cause.
 """
 import ast
 import json
 import os
+import sys
 
 import pytest
 import torch
@@ -116,6 +127,33 @@ def test_hint_redistributes_and_fallback_replicates(world):
     assert fb.ops == {"renorm": 1} and y.shape == (8, 4, 6)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_loop_carried_state_keeps_one_placement(world, arch):
+    cfg = D._pick_cfg(smoke_config(arch), "train", {})
+    recs = [D.trace_step(cfg, ShapeConfig("t", S, 8, "train"), _mesh((4, 2)),
+                         tc=TrainConfig()) for S in (16, 32)]
+    gathers = [r["collectives"]["all-gather"]["count"] for r in recs]
+    assert gathers[0] == gathers[1] > 0, gathers
+    assert [r["replicated_ops"] for r in recs] == [{}, {}]
+
+
+@pytest.mark.parametrize("arch,kind,batch", [
+    ("gemma-2b", "train", 8), ("deepseek-v3-671b", "train", 8),
+    ("phi3.5-moe-42b-a6.6b", "train", 8),
+    ("phi3.5-moe-42b-a6.6b", "prefill", 8),
+    ("whisper-large-v3", "train", 8), ("whisper-large-v3", "decode", 8),
+    ("rwkv6-3b", "decode", 1), ("zamba2-2.7b", "decode", 1)])
+def test_cells_trace_with_no_op_unsharded(world, arch, kind, batch):
+    """B 1 is long_500k's decode: one stream, its vocabulary gathered for
+    the argmax."""
+    cfg = D._pick_cfg(smoke_config(arch), kind, {})
+    rec = D.trace_step(cfg, ShapeConfig("t", 64, batch, kind),
+                       _mesh((4, 2)),
+                       tc=TrainConfig() if kind == "train" else None)
+    assert rec["replicated_ops"] == {}
+    assert rec["flops_per_device"] > 0
+
+
 def _ref_literal(module: str, name: str):
     src = open(os.path.join(ROOT, "src", "repro", "launch",
                             f"{module}.py")).read()
@@ -181,3 +219,166 @@ def test_main_records_failures_and_skips_done_cells(tmp_path, monkeypatch,
     precs = json.load(open(pout))
     assert [(r["exp"], r["ok"]) for r in precs] == [("A1_ep2d", False),
                                                     ("B1_ctx_shard", True)]
+
+
+def test_main_runs_cells_in_children(tmp_path, monkeypatch, capsys):
+    """``--jobs``: each cell's command in a process of its own; a record
+    it writes is kept with the wall time and the host's peak memory, a
+    process that fails or outlives ``--cell-timeout`` is recorded with the
+    cause, and a second run retries only the cells not yet ok."""
+    def command(arch, shape, multi_pod, optimized, out):
+        rec = {"arch": arch, "shape": shape, "mesh": D._mesh_name(multi_pod),
+               "ok": True, "flops_per_device": 1.0, "peak_bytes": 0,
+               "lower_s": 0.1, "compile_s": 0.0}
+        body = {"decode_32k": f"import json; json.dump([{rec!r}], "
+                              f"open({out!r}, 'w'))",
+                "prefill_32k": "import time; time.sleep(60)",
+                "train_4k": "raise SystemExit(3)"}[shape]
+        return [sys.executable, "-c", body]
+
+    monkeypatch.setattr(D, "_child_command", command)
+    out = str(tmp_path / "r.json")
+    for shape in ("decode_32k", "prefill_32k", "train_4k"):
+        D.main(["--arch", "gemma-2b", "--shape", shape, "--both-meshes",
+                "--jobs", "2", "--cell-timeout", "1.5", "--out", out])
+    recs = {(r["shape"], r["mesh"]): r for r in json.load(open(out))}
+    assert len(recs) == 6
+    for mesh in ("16x16", "2x16x16"):
+        assert recs["decode_32k", mesh]["ok"]
+        assert recs["decode_32k", mesh]["host_peak_rss_gb"] > 0
+        assert recs["prefill_32k", mesh]["error"] == \
+            "TimeoutError: not traced within 1.5 s"
+        assert recs["train_4k", mesh]["error"] == \
+            "ChildProcessError: the cell's process ended with 3"
+    assert not [f for f in os.listdir(tmp_path) if f.startswith(".dryrun")]
+    capsys.readouterr()
+    D.main(["--arch", "gemma-2b", "--shape", "decode_32k", "--both-meshes",
+            "--jobs", "2", "--out", out])
+    assert capsys.readouterr().out.count("[skip]") == 2
+
+
+# ------------------------------------------------- tools/dryrun_sweep.py ----
+
+def _sweep_tool(monkeypatch):
+    """``tools/dryrun_sweep.py`` as a module; the classes its options put
+    into ``launch/dryrun.py`` are put back after the test."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "dryrun_sweep", os.path.join(ROOT, "tools", "dryrun_sweep.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(D, "ReplicateFallback", D.ReplicateFallback)
+    monkeypatch.setattr(D, "Census", D.Census)
+    return tool
+
+
+def _renorm_first(monkeypatch):
+    """``models/model.py``'s norms after a ``renorm`` that changes no
+    value and that ``DTensor`` has no rule for, so each unshards."""
+    from repro_torch.models import model as MM
+    real = MM.rms_norm
+    monkeypatch.setattr(MM, "rms_norm", lambda x, w, eps: real(
+        torch.renorm(x, 2, 0, 1e30), w, eps))
+
+
+_SWEEP_WHERE = """
+import importlib.util
+import torch
+spec = importlib.util.spec_from_file_location("dryrun_sweep", {tool!r})
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+from repro_torch.models import model as MM
+real = MM.rms_norm
+MM.rms_norm = lambda x, w, eps: real(torch.renorm(x, 2, 0, 1e30), w, eps)
+tool.ARCHS = ["gemma-2b"]
+tool.main(["--where", "--out", {out!r}])
+"""
+
+
+def test_sweep_where_names_each_fallback_site(tmp_path):
+    """The sweep with ``--where --out`` (in a process of its own: the sweep
+    makes its own fake world), gemma-2b alone, its norms after a
+    ``renorm`` (``_renorm_first``): each unsharded op is named with its
+    call site in ``repro_torch/models`` and its inputs' placements, and
+    the counts add up to ``replicated_ops``."""
+    import subprocess
+    out = str(tmp_path / "sweep.json")
+    code = _SWEEP_WHERE.format(
+        tool=os.path.join(ROOT, "tools", "dryrun_sweep.py"), out=out)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=os.path.join(
+                              ROOT, "src")),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = json.load(open(out))
+    assert [(ln["arch"], ln["kind"], ln["ok"]) for ln in lines] == [
+        ("gemma-2b", k, True) for k in ("train", "prefill", "decode")], lines
+    for ln in lines:
+        assert ln["replicated_ops"].get("renorm", 0) > 0, ln
+        assert sum(ln["where"].values()) == sum(
+            ln["replicated_ops"].values())
+        assert all(" @ models/model.py:" in k or " @ bwd models/" in k
+                   for k in ln["where"]), ln["where"]
+
+
+def test_sweep_cell_where_on_the_multi_pod_mesh(world, monkeypatch,
+                                                tmp_path, capsys):
+    """``--cell ARCH SHAPE --where --multi-pod --out``: the cell's record
+    on the 2 x 16 x 16 mesh with each fallback's count and bytes, and the
+    ``--largest`` buffers live at the peak.  The production cell is
+    stood in for by the smoke config's decode on (2, 2, 2) or (4, 2)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    tool = _sweep_tool(monkeypatch)
+    _renorm_first(monkeypatch)
+
+    def small_cell(arch, shape, multi_pod=False):
+        mesh = (DeviceMesh("cpu", torch.arange(8).view(2, 2, 2),
+                           mesh_dim_names=("pod", "data", "model"))
+                if multi_pod else _mesh((4, 2)))
+        cfg = D._pick_cfg(smoke_config(arch), "decode", {})
+        rec = D.trace_step(cfg, ShapeConfig("t", 16, 8, "decode"), mesh)
+        return {**rec, "arch": arch, "shape": shape,
+                "mesh": D._mesh_name(multi_pod)}
+
+    monkeypatch.setattr(D, "run_cell", small_cell)
+    out = str(tmp_path / "cell.json")
+    tool.main(["--cell", "gemma-2b", "decode_32k", "--where", "--multi-pod",
+               "--largest", "3", "--out", out])
+    [rec] = json.load(open(out))
+    assert rec["mesh"] == "2x16x16" and rec["n_devices"] == 8
+    assert rec["where"] and all(
+        k.startswith("renorm @ models/model.py:") and v["count"] > 0
+        and v["bytes"] > 0 for k, v in rec["where"].items()), rec["where"]
+    assert sum(v["count"] for v in rec["where"].values()) == \
+        rec["replicated_ops"]["renorm"]
+    printed = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert printed[-4]["live_at_peak_bytes"] > 0
+    assert all(p["bytes"] > 0 and p["op"] for p in printed[-3:])
+
+
+def test_sweep_table_prints_a_row_a_cell(monkeypatch, tmp_path, capsys):
+    """``--table``: a ``launch.dryrun --out`` file as PERF.md's markdown
+    table, one row a production cell, a column a mesh: the counts of an ok
+    record, the cause (with wall and host memory) of a failed one, "not
+    run" for a cell with no record."""
+    from repro_torch.configs import ARCHS, cells
+    tool = _sweep_tool(monkeypatch)
+    recs = [{"arch": "gemma-2b", "shape": "train_4k", "mesh": "16x16",
+             "ok": True, "flops_per_device": 2.498e14, "peak_bytes": 32.27e9,
+             "collectives": {"all-gather": {"count": 366, "bytes": 1},
+                             "reduce-scatter": {"count": 220, "bytes": 1},
+                             "all-reduce": {"count": 45, "bytes": 1}},
+             "replicated_ops": {"view": 54}, "lower_s": 9.3},
+            {"arch": "gemma-2b", "shape": "train_4k", "mesh": "2x16x16",
+             "ok": False, "error": "TimeoutError: not traced within 9 s",
+             "wall_s": 9.1, "host_peak_rss_gb": 1.5}]
+    path = tmp_path / "all.json"
+    path.write_text(json.dumps(recs))
+    tool.main(["--table", str(path)])
+    rows = capsys.readouterr().out.splitlines()
+    assert rows[0] == "| arch | shape | 16x16 | 2x16x16 |"
+    assert len(rows) == 2 + sum(len(cells(a)) for a in ARCHS)
+    assert ("| gemma-2b | train_4k | 2.498e+14; 32.27; 366/220/45; "
+            "{view 54}; 9.3 | **no**: TimeoutError: not traced within 9 s "
+            "(9.1 s, 1.5 GB host) |") in rows
+    assert "| gemma-2b | prefill_32k | not run | not run |" in rows

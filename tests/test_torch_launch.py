@@ -29,7 +29,8 @@
 * ``launch/train.py``: ``main([... "--device", "cpu"])`` for 3 steps, then
   resumed to 5 from its checkpoint.
 * The elastic re-mesh: a checkpoint written by one rank restored into the
-  shardspecs' placements by a spawned gloo world of four, stepped there.
+  shardspecs' placements by a spawned gloo world of four, stepped there
+  (phi3-mini, and rwkv6 under ``seq_shard`` with its loop on the shards).
 """
 import functools
 import os
@@ -426,20 +427,21 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
 
 # --------------------------------------------------------- elastic re-mesh ----
 
-def test_elastic_remesh_one_rank_to_four(tmp_path):
-    """The counterpart of ``tests/test_elastic.py``: a gloo world of one
-    rank steps the phi3-mini smoke config once and saves; a spawned world
-    of four (mesh (2, 2)) restores that checkpoint into the shardspecs'
-    placements and steps again (``tests/_torch_elastic.py``): the loss is
-    finite, equal on every rank, and within ``LOSS_RTOL`` of the one-rank
-    step from the same restored state."""
+def _elastic_remesh(tmp_path, arch: str) -> None:
+    """A gloo world of one rank steps ``arch``'s config of
+    ``tests/_torch_elastic.py`` once and saves; a spawned world of four
+    (mesh (2, 2)) restores that checkpoint into the shardspecs' placements
+    and steps again: the loss is finite, equal on every rank, and within
+    ``LOSS_RTOL`` of the one-rank step from the same restored state, as is
+    the gradient norm; the updated parameters are within ``PARAM_ATOL``."""
     import _torch_elastic as E
     from repro_torch.checkpoint import ckpt
+    cfg = E.CFGS[arch]
     make_host_mesh(device_type="cpu")
     try:
-        state = S.init_state(E.CFG, E.TC, torch.Generator().manual_seed(0),
+        state = S.init_state(cfg, E.TC, torch.Generator().manual_seed(0),
                              device="cpu")
-        state, metrics = S.build_train_step(E.CFG, E.TC)(state, E.batch())
+        state, metrics = S.build_train_step(cfg, E.TC)(state, E.batch(cfg))
         assert np.isfinite(float(metrics["loss"]))
         ckpt.save(str(tmp_path / "ck"), 1, state)
     finally:
@@ -447,7 +449,7 @@ def test_elastic_remesh_one_rank_to_four(tmp_path):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.Popen(
         [sys.executable, E.__file__, "4", str(tmp_path / "ck"),
-         str(tmp_path / "store")], cwd=ROOT, env=env,
+         str(tmp_path / "store"), arch], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
     try:
@@ -458,6 +460,30 @@ def test_elastic_remesh_one_rank_to_four(tmp_path):
         pytest.fail(f"the world of four outlived 240 s: {err[-2000:]}")
     line = [ln for ln in out.splitlines() if ln.startswith("ELASTIC_OK")]
     assert line, err[-3000:]
-    _, loss, one, colls = line[0].split()
+    _, loss, one, colls, _, _ = line[0].split()
     assert abs(float(loss) - float(one)) <= E.LOSS_RTOL * abs(float(one))
     assert int(colls) > 0
+
+
+def test_elastic_remesh_one_rank_to_four(tmp_path):
+    """The counterpart of ``tests/test_elastic.py`` on the phi3-mini smoke
+    config (``_elastic_remesh``)."""
+    _elastic_remesh(tmp_path, "phi3-mini-3.8b")
+
+
+def test_elastic_remesh_rwkv6_sharded_loop(tmp_path):
+    """rwkv6 with ``seq_shard`` and ``remat="full"`` on the world of four:
+    its WKV loop runs on each rank's heads (``sharding.on_shards``) and its
+    sublayers gather the sequence, on real values, and the loss, the
+    gradient norm and the updated parameters still equal the one-rank
+    step's (``u`` is whole beside a split batch: its gradient is summed
+    over the ranks)."""
+    _elastic_remesh(tmp_path, "rwkv6-3b")
+
+
+def test_elastic_remesh_zamba2_sharded_loop(tmp_path):
+    """zamba2 under ``seq_shard`` and ``remat="full"`` on the world of four:
+    its SSD chunk loop runs on each rank's heads, with ``A`` whole beside a
+    split batch and ``Bm``/``Cm`` whole beside split heads, and the step
+    equals the one-rank step as ``_elastic_remesh`` checks."""
+    _elastic_remesh(tmp_path, "zamba2-2.7b")
