@@ -484,22 +484,36 @@ def check_argmin(torch, ref, masked_argmin_cuda, gen):
 def check_vat_prim(torch, ref, ops, vat_prim_order_cuda, vat_order, gen):
     """The one-launch Prim kernel against the loop it replaces,
     ``vat_order(R, argmin=ref.masked_argmin_ref)`` on the same card
-    matrix, bit for bit: float matrices, tie-heavy integer ones (squared
-    distances of integer points, duplicates among them), the same with the
-    zeros of every other row made -0.0, n from 1 to 16,384 with the
-    frontier in shared memory and in global scratch, n = 40,961 (past
-    what shared memory holds, so global scratch by default), and 8 lanes
-    in one launch against their solo launches."""
-    from repro_torch.kernels import _build
+    matrix, bit for bit, at every cluster size the kernel takes (1, 2, 4,
+    8, 16 CTAs a matrix), each with the pivot rows read by every thread's
+    loads and, where n % 4 == 0, by one bulk copy, and at the host's
+    choice: float matrices,
+    tie-heavy integer ones (squared distances of integer points, duplicates
+    among them), the same with the zeros of every other row made -0.0, n
+    from 1 to 16,384 (2,047 and 16,383: n no C > 1 divides; 1 to 3: C > n,
+    CTAs with no lane), n = 40,961 (past one CTA's shared memory: one CTA
+    refused, every larger C), and 8 lanes of clusters in one launch
+    against their solo launches.  The loop runs once a matrix."""
     from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.kernels.prim_update import (CLUSTER_SIZES, SLICE_MAX,
+                                                 prim_bulk, prim_plan)
 
     def int_matrix(n):
         P = torch.randint(-3, 4, (n, 3), device="cuda", generator=gen)
         R = pairwise_dist_cuda(P.float(), metric="sqeuclidean")
         return R.fill_diagonal_(0.0)
 
-    cases = []
-    for n in (1, 2, 3, 129, 2048, 16_384):
+    def every_cluster(R, i0, want, label, sizes=CLUSTER_SIZES):
+        n = R.shape[-1]
+        for c in (*sizes, None):
+            for bulk in ((False, True) if c and prim_bulk(n, c) else
+                         (False,) if c else (None,)):
+                got = vat_prim_order_cuda(R, i0, cluster=c, bulk=bulk)
+                require(torch.equal(got, want), f"vat_prim_order {label} "
+                        f"cluster={c} bulk={bulk}: not the loop's order")
+
+    cases, chosen = [], {}
+    for n in (1, 2, 3, 129, 2047, 2048, 16_383, 16_384):
         Ri = int_matrix(n)
         Rz = Ri.clone()
         Rz[(Rz == 0) & (torch.arange(n, device="cuda") % 2 == 0)[:, None]] \
@@ -510,33 +524,44 @@ def check_vat_prim(torch, ref, ops, vat_prim_order_cuda, vat_order, gen):
         for name, R in mats.items():
             i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
             want = vat_order(R, argmin=ref.masked_argmin_ref)
-            for frontier in ("shared", "global"):
-                got = vat_prim_order_cuda(R, i0, frontier=frontier)
-                require(torch.equal(got, want), f"vat_prim_order {name} "
-                        f"n={n} frontier={frontier}: not the loop's order")
+            every_cluster(R, i0, want, f"{name} n={n}")
             cases.append(f"{name}/{n}")
+        chosen[n] = prim_plan(n)
         del mats, Ri, Rz
-    n = _build.VAT_PRIM_SHARED_MAX_N + 1
+    n = SLICE_MAX + 1
     R = int_matrix(n)
     i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
+    try:
+        vat_prim_order_cuda(R, i0, cluster=1)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, f"vat_prim_order n={n} cluster=1: one CTA cannot hold "
+            f"the frontier, and the call was not refused")
     want = vat_order(R, argmin=ref.masked_argmin_ref)
-    require(torch.equal(vat_prim_order_cuda(R, i0), want),
-            f"vat_prim_order n={n} (global frontier): not the loop's order")
-    cases.append(f"int/{n}/global")
+    every_cluster(R, i0, want, f"int n={n}", sizes=CLUSTER_SIZES[1:])
+    cases.append(f"int/{n}")
+    chosen[n] = prim_plan(n)
     del R, want
     stack = torch.stack([int_matrix(2048) if z % 2 else ops.pairwise_dist(
         torch.randn(2048, 16, device="cuda", generator=gen))
         for z in range(8)])
     i0 = torch.argmax(torch.amax(stack, dim=2), dim=1)
-    lanes = vat_prim_order_cuda(stack, i0)
-    for z in range(8):
-        require(torch.equal(lanes[z], vat_prim_order_cuda(
-            stack[z].contiguous(), i0[z:z + 1])),
-            f"vat_prim_order lane {z} of 8 != its solo launch")
-    require(torch.equal(lanes, ref.vat_prim_order_ref(stack, i0)),
-            "vat_prim_order lanes != the batched loop")
+    want = ref.vat_prim_order_ref(stack, i0)
+    for c in (2, 8, 16, None):
+        lanes = vat_prim_order_cuda(stack, i0, cluster=c)
+        for z in range(8):
+            require(torch.equal(lanes[z], vat_prim_order_cuda(
+                stack[z].contiguous(), i0[z:z + 1], cluster=c)),
+                f"vat_prim_order lane {z} of 8 (cluster={c}) != its solo "
+                f"launch")
+        require(torch.equal(lanes, want),
+                f"vat_prim_order lanes (cluster={c}) != the batched loop")
     log("vat-prim-kernel", kernel="vat_prim_order", bitwise=cases,
-        lanes_equal_solo=8, shared_max_n=_build.VAT_PRIM_SHARED_MAX_N)
+        clusters=list(CLUSTER_SIZES), bulk_copy_where_allowed=True,
+        lanes_equal_solo=8, slice_max=SLICE_MAX,
+        chosen={str(k): {"cluster": c, "threads": t, "bulk": u}
+                for k, (c, t, u) in chosen.items()})
     return 0.0
 
 
@@ -779,7 +804,11 @@ def check_orders(torch, ref, ops, vat_order, Xt, order_fit, label):
 
 
 def phase_main_path(torch, rt, ref, ops, build, vat_order):
-    """Drive the port's main path and its ivat rung through FastVAT."""
+    """Drive the port's main path and its ivat rung through FastVAT.
+
+    Returns the vat fit's launch counts, its walls, the fits' R* and the
+    launch counts of the ivat fit at n = 16,384 (the Prim kernel's second
+    row in the ``kernels`` line)."""
     n, d = 2048, 64
     X = blobs(n, d, k=8, seed=0)
     reset_counts(build)
@@ -851,6 +880,7 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
         **orders)
 
     rstars = [fv.result.rstar]
+    big_launches = None
     for n2, d2 in ((2048, 64), (16384, 32)):
         X2 = X if n2 == n else blobs(n2, d2, k=8, seed=1)
         reset_counts(build)
@@ -873,7 +903,8 @@ def phase_main_path(torch, rt, ref, ops, build, vat_order):
             **orders)
         if n2 != n:
             rstars.append(fiv.result.rstar)
-    return launches, walls, rstars
+            big_launches = counts
+    return launches, walls, rstars, big_launches
 
 
 def phase_profile(torch, rt, X, label="vat n=2048", many=False):
@@ -2027,9 +2058,11 @@ def phase_certify(torch):
                       for m in certify.DEFAULT_METHODS})
 
 
-def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
+def phase_times(torch, ref, kernels, rstars, gen, errs, launches,
+                big_launches):
     """Kernel, plain version, library call and bound at both sizes (the
-    iVAT op has its own, ``phase_ivat_times``).
+    iVAT op has its own, ``phase_ivat_times``).  ``launches`` are the vat
+    fit's counts at n = 2,048, ``big_launches`` the ivat fit's at 16,384.
 
     ``ms`` / ``plain_ms`` / ``library_ms`` are device times per call
     (``device_ms``); ``event_ms`` beside them is the stream time per call
@@ -2038,6 +2071,8 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
     launch of milliseconds, so launch gaps are nothing, and torch.profiler
     has read such launches well below that stream time, which a single
     launch cannot be."""
+    from prim_order_phases import step_floor_us
+    from repro_torch.kernels.prim_update import prim_plan
     rows = []
     for n, d in ((2048, 64), (16384, 32)):
         X = torch.randn(n, d, device="cuda", generator=gen)
@@ -2076,6 +2111,11 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
             row["bound_ms"], row["bound_by"] = bound_ms(*cost)
             if name == "pairwise_dist":
                 row["d"] = d
+            if name == "vat_prim_order":
+                row["cluster"], row["threads"], row["bulk"] = prim_plan(n)
+                row["us_a_step"] = 1e3 * row["event_ms"] / (n - 1)
+                row["step_floor_us"] = step_floor_us(
+                    torch, n, row["cluster"], row["threads"])
             log("time", **row)
             rows.append(row)
     # row 1 at the flashvat seed scan's block (25 x 7 of them a fit at
@@ -2109,17 +2149,26 @@ def phase_times(torch, ref, kernels, rstars, gen, errs, launches):
                            "src/repro/kernels/prim_update.py:39"),
     }
     out = []
-    for name, (source, replaces) in meta.items():
-        row = next(r for r in rows if r["kernel"] == name and r["n"] == 2048)
+    # the Prim kernel has a row at each n: 2,048 (R in L2) and 16,384 (R
+    # from HBM), each with its cluster size and step floor
+    for name, n in (*((k, 2048) for k in meta), ("vat_prim_order", 16384)):
+        source, replaces = meta[name]
+        row = next(r for r in rows if r["kernel"] == name and r["n"] == n)
         timer = "cuda events" if name == "vat_prim_order" else "profiler"
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces,
+                    "launches": (big_launches if n == 16384
+                                 else launches)[name],
                     "max_abs_err": errs[name],
                     "ms": row["event_ms" if timer == "cuda events" else "ms"],
                     "timer": timer, "profiler_ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"]})
+        if name == "vat_prim_order":
+            out[-1].update({k: row[k] for k in (
+                "n", "cluster", "threads", "bulk", "us_a_step",
+                "step_floor_us")})
         if name == "pairwise_dist":
             shapes = {f"{r['n']}x{r.get('m') or r['n']}x{r['d']}": r
                       for r in rows if r["kernel"] == name}
@@ -4733,6 +4782,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.append(os.path.join(ROOT, "tools"))
     import repro_torch as rt
     from repro_torch import core
     from repro_torch.core.hopkins import probe_count
@@ -4766,8 +4816,8 @@ def main() -> int:
             "vat_prim_order": check_vat_prim(torch, ref, ops,
                                              vat_prim_order_cuda, vat_order,
                                              gen)}
-    launches, walls, rstars = phase_main_path(torch, rt, ref, ops, build,
-                                              vat_order)
+    launches, walls, rstars, big_launches = phase_main_path(
+        torch, rt, ref, ops, build, vat_order)
     errs["ivat_from_vat"], R8 = check_ivat(torch, ref, ops, core, rstars)
     kernels = {"pairwise_dist": pairwise_dist_cuda,
                "masked_argmin": masked_argmin_cuda,
@@ -4781,7 +4831,8 @@ def main() -> int:
     persist, step = phase_flash_times(torch, ref, ops, flash,
                                       prim_stream_step_cuda,
                                       prim_persist_cuda, _streamed_seed_pivot)
-    rows = phase_times(torch, ref, kernels, rstars, gen, errs, launches)
+    rows = phase_times(torch, ref, kernels, rstars, gen, errs, launches,
+                       big_launches)
     ivat = phase_ivat_times(torch, ref, ivu, rstars, R8, card)
     del R8
     row4 = ivat["n=2048"]

@@ -81,8 +81,8 @@ def reorder(R: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 def vat_order_batch(R: torch.Tensor) -> torch.Tensor:
     """``vat_order`` of every lane of a (b, n, n) stack: one launch of the
-    Prim kernel for the whole stack on the card (one CTA a lane), the loop
-    of (b, n) masked argmins on the CPU.  Every lane gets the order of
+    Prim kernel for the whole stack on the card (one cluster of CTAs a
+    lane), the loop of (b, n) masked argmins on the CPU.  Every lane gets the order of
     ``vat_order`` on its matrix, bit for bit.
 
     Returns:

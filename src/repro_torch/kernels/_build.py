@@ -43,9 +43,11 @@ SIGNATURES = {
     # vals, mask, b, n, partial, out, stream
     "repro_masked_argmin": (_P, _P, _I, _I, _P, _P, _P),
     "repro_masked_argmin_chunk": (),
-    # R, i0, b, n, shared, gmind, gsel, order, stream
-    "repro_vat_prim_order": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "repro_vat_prim_shared_max_n": (),
+    # R, i0, b, n, cluster, threads, bulk, order, stream
+    "repro_vat_prim_order": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # cluster, n, threads, bulk: clusters of that launch the device holds
+    # at once (or -error)
+    "repro_vat_prim_max_clusters": (_I, _I, _I, _I),
     "repro_cuda_error_string": (_I,),
     # rstar, out, scratch, routes, b, n, stream (the whole op)
     "repro_ivat_from_vat": (_P, _P, _P, _P, _I, _I, _P),
@@ -118,11 +120,8 @@ _LIB = None
 #: of prim_update.cu), read once when ``library()`` loads the library.
 MASKED_ARGMIN_CHUNK = 0
 
-#: Largest n whose Prim frontier ``repro_vat_prim_order`` keeps in shared
-#: memory, and the query rows of one CTA of the kNN kernel (a segmented
-#: call's work list counts ceil(q / rows) CTAs a cell); read with the
-#: library.
-VAT_PRIM_SHARED_MAX_N = 0
+#: The query rows of one CTA of the kNN kernel (a segmented call's work
+#: list counts ceil(q / rows) CTAs a cell); read with the library.
 KNN_BLOCK_ROWS = 0
 
 def reset_launch_counts() -> None:
@@ -212,7 +211,7 @@ def build() -> pathlib.Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), argtypes set."""
     global _LIB, MASKED_ARGMIN_CHUNK
-    global VAT_PRIM_SHARED_MAX_N, KNN_BLOCK_ROWS
+    global KNN_BLOCK_ROWS
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
@@ -225,7 +224,6 @@ def library() -> ctypes.CDLL:
         lib.repro_pairwise_scratch_words.restype = ctypes.c_longlong
         lib.repro_prim_stream_scratch_words.restype = ctypes.c_longlong
         MASKED_ARGMIN_CHUNK = lib.repro_masked_argmin_chunk()
-        VAT_PRIM_SHARED_MAX_N = lib.repro_vat_prim_shared_max_n()
         KNN_BLOCK_ROWS = lib.repro_knn_block_rows()
         _LIB = lib
     return _LIB

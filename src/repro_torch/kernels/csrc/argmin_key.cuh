@@ -45,6 +45,17 @@ __device__ __forceinline__ ArgKey warp_min_key(ArgKey key) {
     return key;
 }
 
+// The same minimum as warp_min_key by two redux.sync instructions (sm_80
+// and later): the least value bits of the warp, then the least index
+// among the lanes that hold them.
+__device__ __forceinline__ ArgKey warp_min_key_redux(ArgKey key) {
+    const unsigned hi = static_cast<unsigned>(key >> 32);
+    const unsigned m = __reduce_min_sync(0xffffffffu, hi);
+    const unsigned lo = __reduce_min_sync(
+        0xffffffffu, hi == m ? static_cast<unsigned>(key) : 0xffffffffu);
+    return (static_cast<ArgKey>(m) << 32) | lo;
+}
+
 // Block-wide minimum of one key per thread; every thread gets the result.
 // `scratch` holds one key per warp (blockDim.x is a multiple of 32, at most
 // 1024).  The call begins with a __syncthreads(), so back-to-back calls may

@@ -14,7 +14,9 @@
 // arithmetic.  The Prim ordering reads each of the n - 1 pivot rows of R
 // once (4 n^2 bytes: 16.8 MB at n = 2,048, 1.07 GB at 16,384), but its
 // steps are serial: each needs the previous step's winner, so a step costs
-// the latency of one row read from L2 or HBM plus one block reduction.
+// the latency of one row read from L2 (n = 2,048) or HBM (n = 16,384,
+// past the 50 MB L2) plus one reduction over all n lanes.  One SM cannot
+// keep a row's worth of loads in flight; a cluster of SMs can.
 //
 // Design: one launch does the whole reduction for n <= 4,096 (1,024 threads,
 // four lanes each): each thread folds its lanes into one packed
@@ -33,26 +35,42 @@
 // lane's stride, so each lane runs exactly the code of a single vector and
 // returns its pair bit for bit.  gridDim.y caps a batch at 65,535 lanes.
 //
-// The Prim ordering (vat_prim_order_kernel): one CTA of 1,024 threads per
-// matrix, gridDim.x = b.  Thread t owns the lanes j = t, t + 1024, ...; it
-// keeps their frontier (mind[j], selected[j]) and folds row q of R into
-// them, reading the row as the loop's index_select does (coalesced, rows
-// only, never columns).  A step is: fold the pivot's row, pack
-// (selected ? +inf : mind[j], j) into a key as masked_argmin does, one
-// block_min_key (two CTA barriers), the order write; nothing leaves the
-// chip.  Since each thread only ever touches its own lanes, the frontier
-// needs no barrier of its own.  Where the frontier lives is chosen by n
-// before launch: in shared memory (5 bytes a lane) up to
-// PRIM_SHARED_MAX_N = 40,960 lanes (200 KiB of the 227 KiB a CTA may
-// have), in a (b, n) global scratch the wrapper allocates above that; the
-// code of a step is the same in both.  Bits: the loop it replaces folds with
-// torch.minimum and selects with masked_argmin.  On finite values fminf and
-// ATen's minimum return equal values; they may differ only in the sign of
-// a zero, min(+0.0, -0.0), and pack_key folds -0.0 onto +0.0 before any
-// compare, as torch.argmin treats the two zeros as equal, so the sign of a
-// stored zero never changes a later comparison or key.  NaN cannot arrive:
-// admission refuses non-finite input (api/validation.py).  Lane z's order is
-// the solo launch's, bit for bit: it runs the solo code at its stride.
+// The Prim ordering (vat_prim_order_kernel<C, BULK>): one thread-block
+// cluster of C CTAs per matrix (C = 1, 2, 4, 8 or 16; 16 is Hopper's
+// non-portable size), b clusters for a (b, n, n) stack, launched with
+// cudaLaunchKernelEx and the cluster-dimension attribute; the host picks C
+// by n (kernels/prim_update.py::prim_cluster_size, from the figures of
+// tools/prim_order_phases.py) and a C the device cannot hold fails the
+// launch.  CTA r owns the lanes [r * slice, (r + 1) * slice), slice = ceil(n
+// / C) rounded up to 32, and keeps their frontier (mind f32, selected byte:
+// 5 bytes a lane) in its own shared memory, up to PRIM_SLICE_MAX = 40,960
+// lanes a CTA (200 KiB of the 227 KiB), so n up to 655,360 at C = 16: every
+// f32 matrix that fits the card's 80 GB (n up to about 141,000) has its
+// frontier on chip.  A step: every CTA folds its slice of pivot row q, read
+// by each thread's coalesced loads (PRIM_UNROLL in flight a thread) or,
+// where the host asks for it (16-byte rows, one matrix past the L2), by one
+// cp.async.bulk into a row buffer beside the frontier (BULK, copy_row); each
+// warp packs its least (selected ? +inf : mind[j], j) key as masked_argmin
+// does and stores it into its slot of every CTA of the cluster with st.async
+// through distributed shared memory, completing on that CTA's mbarrier; each
+// CTA waits on its own mbarrier for all the cluster's keys (no cluster-wide
+// barrier a step: one cost 0.3-0.55 us a step more on an H100 80GB HBM3 at
+// 700 W, tools/prim_order_phases.py), and every warp of every CTA takes the
+// least of them, so all hold the same q; CTA 0 writes order[t].  Slots and
+// mbarriers alternate by step parity (cluster_min_key); with C = 1 the
+// exchange is one __syncthreads() a step.  Two cluster barriers a launch:
+// before the first key is sent and before any CTA exits.  Nothing leaves the
+// chip but the order.  Bits: the loop it replaces folds with torch.minimum
+// and selects with masked_argmin.  On finite values fminf and ATen's minimum
+// return equal values; they may differ only in the sign of a zero, min(+0.0,
+// -0.0), and pack_key folds -0.0 onto +0.0 before any compare, as
+// torch.argmin treats the two zeros as equal, so the sign of a stored zero
+// never changes a later comparison or key.  Every lane keeps its global
+// index in its key, so the least key of the slices' least keys is the loop's
+// winner, first index on ties, whatever C is.  NaN cannot arrive: admission
+// refuses non-finite input (api/validation.py).  Lane z's order is the solo
+// launch's, bit for bit: its cluster runs the solo code at its stride.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "argmin_key.cuh"
@@ -144,76 +162,351 @@ extern "C" int repro_masked_argmin(const float* vals, const unsigned char* mask,
 
 namespace {
 
-constexpr int PRIM_SHARED_MAX_N = 40960;
+namespace cg = cooperative_groups;
 
-// Folds pivot row `row` (null: the seed row, copied as it is) into the
-// lanes of this thread and returns their least packed key.
+// Lanes one CTA's frontier holds: a cluster of C CTAs orders n <= C * this
+// (kernels/prim_update.py::SLICE_MAX).
+constexpr int PRIM_SLICE_MAX = 40960;
+constexpr int PRIM_MAX_THREADS = 1024;
+constexpr int PRIM_UNROLL = 8;          // row loads a thread has in flight
+
+// Folds pivot row `row` (the seed row: copied as it is) into this thread's
+// lanes of the CTA's slice and returns their least packed key.  `row`,
+// `mind` and `sel` start at the slice's first lane `lo`; the slice holds
+// `cnt` lanes.  The loads of up to PRIM_UNROLL lanes are issued before any
+// is folded, so a thread waits for one row read, not one a lane.
 template <bool SEED>
 __device__ __forceinline__ ArgKey fold_row(const float* __restrict__ row,
-                                           int n, unsigned q,
+                                           int lo, int cnt, unsigned q,
                                            float* __restrict__ mind,
                                            unsigned char* __restrict__ sel) {
     const float inf = __int_as_float(0x7f800000);
     ArgKey key = repro_torch::kMaxKey;
-    for (int j = threadIdx.x; j < n; j += THREADS) {
-        const bool s = SEED ? j == static_cast<int>(q)
-                            : (sel[j] || j == static_cast<int>(q));
-        const float m = SEED ? row[j] : fminf(mind[j], row[j]);
-        mind[j] = m;
-        sel[j] = s;
-        key = repro_torch::min_key(key, repro_torch::pack_key(s ? inf : m, j));
+    for (int base = threadIdx.x; base < cnt;
+         base += PRIM_UNROLL * blockDim.x) {
+        float r[PRIM_UNROLL];
+#pragma unroll
+        for (int u = 0; u < PRIM_UNROLL; ++u) {
+            const int i = base + u * blockDim.x;
+            r[u] = i < cnt ? row[i] : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < PRIM_UNROLL; ++u) {
+            const int i = base + u * blockDim.x;
+            if (i >= cnt) break;
+            const unsigned j = static_cast<unsigned>(lo + i);
+            const bool s = SEED ? j == q : (sel[i] || j == q);
+            const float m = SEED ? r[u] : fminf(mind[i], r[u]);
+            mind[i] = m;
+            sel[i] = s;
+            key = repro_torch::min_key(key,
+                                       repro_torch::pack_key(s ? inf : m, j));
+        }
     }
     return key;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Arrive on mbarrier `mbar` (one arrival a phase) and expect `bytes` of
+// st.async stores to complete this phase.
+__device__ __forceinline__ void mbar_expect(unsigned mbar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(mbar), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of mbarrier `mbar` completes.  A
+// step's keys arrive within microseconds; a wait of seconds means a key
+// was lost, and the kernel traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned mbar, unsigned parity) {
+    const long long start = clock64();
+    for (;;) {
+        unsigned done;
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+            "[%1], %2;\n\tselp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(mbar), "r"(parity) : "memory");
+        if (done) return;
+        if (clock64() - start > (1ll << 33)) __trap();
+    }
+}
+
+// Store `key` into the slot at shared address `slot` of CTA `rank` of the
+// cluster, completing its bytes on that CTA's mbarrier at `mbar`.
+__device__ __forceinline__ void send_key(ArgKey key, unsigned slot,
+                                         unsigned mbar, unsigned rank) {
+    unsigned rslot, rbar;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(rslot) : "r"(slot), "r"(rank));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(rbar) : "r"(mbar), "r"(rank));
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64"
+                 " [%0], %1, [%2];" :: "r"(rslot), "l"(key), "r"(rbar)
+                 : "memory");
+}
+
+// The least key of the whole cluster; every thread of every CTA gets it.
+// Each warp reduces its keys (redux.sync) and stores the warp's key into
+// slot [rank * warps + warp] of every CTA of the cluster (lane l of the
+// warp into CTA l) with st.async, which completes its 8 bytes on that
+// CTA's mbarrier of the step's parity; each CTA waits on its own mbarrier
+// for all C * warps keys, then every warp takes the least of them.  No
+// cluster-wide barrier: a CTA waits only for the keys it needs.  With
+// C = 1 the exchange is the CTA's __syncthreads().
+//
+// Slots and mbarriers alternate by step parity, and thread 0 re-arms an
+// mbarrier (expecting C * warps * 8 bytes) as soon as its phase is done.
+// A CTA stores step t + 2's keys only after it received every key of
+// step t + 1, and each warp of a CTA sends its step t + 1 key only after
+// it read step t's slots and after thread 0 re-armed (warp 0 sends after
+// the re-arm): so no key overwrites a slot still unread, and none lands
+// on an mbarrier that is not armed for it.
+template <int C>
+__device__ __forceinline__ ArgKey cluster_min_key(ArgKey key,
+                                                  ArgKey* __restrict__ slots,
+                                                  unsigned mbar,
+                                                  unsigned parity,
+                                                  unsigned rank) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    key = repro_torch::warp_min_key_redux(key);
+    if constexpr (C == 1) {
+        if (lane == 0) slots[warp] = key;
+        __syncthreads();
+    } else {
+        if (lane < C)
+            send_key(key, smem_addr(slots + rank * nwarps + warp), mbar,
+                     lane);
+        mbar_wait(mbar, parity);
+        if (threadIdx.x == 0) mbar_expect(mbar, 8u * C * nwarps);
+        __syncwarp();
+    }
+    ArgKey k = repro_torch::kMaxKey;
+    for (int i = lane; i < C * nwarps; i += 32)
+        k = repro_torch::min_key(k, slots[i]);
+    return repro_torch::warp_min_key_redux(k);
+}
+
+// Copies this CTA's slice of a pivot row (`cnt` floats at `row`, 16-byte
+// aligned) into `buf` with one cp.async.bulk that thread 0 issues, and
+// waits for it on mbarrier `mbar`; returns `buf`.  Every thread of the CTA
+// read the last row out of `buf` before this step's keys were complete,
+// so the copy overwrites nothing still unread.
+__device__ __forceinline__ const float* copy_row(const float* row, int cnt,
+                                                 float* buf, unsigned mbar,
+                                                 unsigned parity) {
+    if (cnt == 0) return buf;   // CTA-uniform
+    if (threadIdx.x == 0) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect(mbar, 4u * cnt);
+        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                     "complete_tx::bytes [%0], [%1], %2, [%3];"
+                     :: "r"(smem_addr(buf)), "l"(row), "r"(4 * cnt),
+                        "r"(mbar) : "memory");
+    }
+    mbar_wait(mbar, parity);
+    return buf;
+}
+
+// BULK: each pivot row's slice comes into shared memory by one bulk copy
+// (copy_row) instead of each thread's own loads; n % 4 == 0 and R 16-byte
+// aligned, the slice followed by a row buffer of 4 bytes a lane.
+template <int C, bool BULK>
+__global__ void __launch_bounds__(PRIM_MAX_THREADS)
 vat_prim_order_kernel(const float* __restrict__ R,
-                      const long long* __restrict__ i0, int n, int shared,
-                      float* __restrict__ gmind,
-                      unsigned char* __restrict__ gsel,
+                      const long long* __restrict__ i0, int n, int slice,
                       long long* __restrict__ order) {
     extern __shared__ __align__(16) unsigned char frontier[];
-    __shared__ ArgKey scratch[THREADS / 32];
-    const size_t lane = blockIdx.x;
+    __shared__ ArgKey slots[2][C * 32];
+    // [0], [1]: the key exchange by step parity; [2]: the row copy
+    __shared__ __align__(8) unsigned long long xbar[3];
+    const unsigned rank = C == 1 ? 0 : cg::this_cluster().block_rank();
+    const size_t lane = blockIdx.y;
     const size_t nn = static_cast<size_t>(n);
     R += lane * nn * nn;
     order += lane * nn;
-    float* mind = shared ? reinterpret_cast<float*>(frontier) : gmind + lane * nn;
-    unsigned char* sel = shared ? frontier + 4 * nn : gsel + lane * nn;
+    const int lo = min(n, static_cast<int>(rank) * slice);
+    const int cnt = min(n, lo + slice) - lo;   // 0 for a CTA past the end
+    float* mind = reinterpret_cast<float*>(frontier);
+    unsigned char* sel = frontier + 4 * static_cast<size_t>(slice);
+    float* rowbuf = reinterpret_cast<float*>(frontier
+                                             + 5 * static_cast<size_t>(slice));
     const unsigned first = static_cast<unsigned>(i0[lane]);
-    if (threadIdx.x == 0) order[0] = first;
-    ArgKey key = fold_row<true>(R + first * nn, n, first, mind, sel);
-    for (int t = 1; t < n; ++t) {
-        key = repro_torch::block_min_key(key, scratch);
-        const unsigned q = repro_torch::key_index(key);
-        if (threadIdx.x == 0) order[t] = q;
-        if (t + 1 < n) key = fold_row<false>(R + q * nn, n, q, mind, sel);
+    const bool writer = rank == 0 && threadIdx.x == 0;
+    if (writer) order[0] = first;
+    if (threadIdx.x == 0) {
+        for (int p = (C > 1 ? 0 : 2); p < (BULK ? 3 : 2); ++p)
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                         :: "r"(smem_addr(&xbar[p])) : "memory");
+        for (int p = 0; p < (C > 1 ? 2 : 0); ++p)
+            mbar_expect(smem_addr(&xbar[p]), 8u * C * (blockDim.x >> 5));
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
+    // every CTA of the cluster has started before any writes into another
+    if constexpr (C > 1) cg::this_cluster().sync(); else __syncthreads();
+    ArgKey key = fold_row<true>(R + first * nn + lo, lo, cnt, first, mind,
+                                sel);
+    unsigned parities = 0;   // bit p: parity of xbar[p]'s current phase
+    for (int t = 1; t < n; ++t) {
+        const int p = t & 1;
+        key = cluster_min_key<C>(key, slots[p], smem_addr(&xbar[p]),
+                                 (parities >> p) & 1u, rank);
+        parities ^= 1u << p;
+        const unsigned q = repro_torch::key_index(key);
+        if (writer) order[t] = q;
+        if (t + 1 < n) {
+            const float* row = R + q * nn + lo;
+            if constexpr (BULK) {
+                row = copy_row(row, cnt, rowbuf, smem_addr(&xbar[2]),
+                               (parities >> 2) & 1u);
+                parities ^= 1u << 2;
+            }
+            key = fold_row<false>(row, lo, cnt, q, mind, sel);
+        }
+    }
+    // every key sent into another CTA has landed before any CTA exits
+    if constexpr (C > 1) cg::this_cluster().sync();
+}
+
+template <int C, bool BULK>
+cudaLaunchConfig_t prim_config(int b, int threads, int slice,
+                               cudaLaunchAttribute* attr, cudaStream_t s) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, b);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = (BULK ? 9 : 5) * static_cast<size_t>(slice);
+    cfg.stream = s;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = C;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+template <int C, bool BULK>
+cudaError_t prim_attributes() {
+    cudaError_t err = cudaFuncSetAttribute(
+        vat_prim_order_kernel<C, BULK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, 5 * PRIM_SLICE_MAX);
+    if (err == cudaSuccess && C > 8)
+        err = cudaFuncSetAttribute(
+            vat_prim_order_kernel<C, BULK>,
+            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return err;
+}
+
+// Clusters of C CTAs of the launch at (n, threads) that can be resident
+// at once; 0 when none can.
+template <int C, bool BULK>
+cudaError_t prim_max_clusters(int n, int threads, int* count) {
+    cudaError_t err = prim_attributes<C, BULK>();
+    if (err != cudaSuccess) return err;
+    const int slice = ((n + C - 1) / C + 31) / 32 * 32;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = prim_config<C, BULK>(1, threads, slice, &attr,
+                                                  nullptr);
+    return cudaOccupancyMaxActiveClusters(
+        count, vat_prim_order_kernel<C, BULK>, &cfg);
+}
+
+template <int C>
+cudaError_t prim_max_clusters_of(int n, int threads, int bulk, int* count) {
+    return bulk ? prim_max_clusters<C, true>(n, threads, count)
+                : prim_max_clusters<C, false>(n, threads, count);
+}
+
+template <int C, bool BULK>
+cudaError_t prim_launch(const float* R, const long long* i0, int b, int n,
+                        int threads, long long* order, cudaStream_t s) {
+    cudaError_t err = prim_attributes<C, BULK>();
+    if (err != cudaSuccess) return err;
+    const int slice = ((n + C - 1) / C + 31) / 32 * 32;
+    if ((BULK ? 9 : 5) * slice > 5 * PRIM_SLICE_MAX
+            || (BULK && (n % 4 != 0
+                         || reinterpret_cast<size_t>(R) % 16 != 0)))
+        return cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = prim_config<C, BULK>(b, threads, slice, &attr,
+                                                  s);
+    return cudaLaunchKernelEx(&cfg, vat_prim_order_kernel<C, BULK>, R, i0, n,
+                              slice, order);
+}
+
+template <int C>
+cudaError_t prim_dispatch(const float* R, const long long* i0, int b, int n,
+                          int threads, int bulk, long long* order,
+                          cudaStream_t s) {
+    return bulk ? prim_launch<C, true>(R, i0, b, n, threads, order, s)
+                : prim_launch<C, false>(R, i0, b, n, threads, order, s);
 }
 
 }  // namespace
 
-// Largest n whose frontier the Prim kernel keeps in shared memory.
-extern "C" int repro_vat_prim_shared_max_n() { return PRIM_SHARED_MAX_N; }
+// How many clusters of `cluster` CTAs, launched as repro_vat_prim_order
+// would launch them at (n, threads, bulk), the current device can hold at
+// once (>= 0), or minus the cudaError_t of the query.
+extern "C" int repro_vat_prim_max_clusters(int cluster, int n, int threads,
+                                           int bulk) {
+    if (n < 1 || threads < 32 || threads > PRIM_MAX_THREADS
+            || threads % 32 != 0)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    int count = 0;
+    cudaError_t err;
+    switch (cluster) {
+        case 1: err = prim_max_clusters_of<1>(n, threads, bulk, &count); break;
+        case 2: err = prim_max_clusters_of<2>(n, threads, bulk, &count); break;
+        case 4: err = prim_max_clusters_of<4>(n, threads, bulk, &count); break;
+        case 8: err = prim_max_clusters_of<8>(n, threads, bulk, &count); break;
+        case 16:
+            err = prim_max_clusters_of<16>(n, threads, bulk, &count);
+            break;
+        default: err = cudaErrorInvalidValue;
+    }
+    return err == cudaSuccess ? count : -static_cast<int>(err);
+}
 
 // R (b, n, n) f32 row-major (b = 1 for one matrix), finite, n >= 1; i0 (b,)
-// int64 seeds; order (b, n) int64 out.  shared = 1 keeps the frontier in
-// shared memory (n <= PRIM_SHARED_MAX_N), shared = 0 in gmind (b, n) f32 and
-// gsel (b, n) bytes, scratch the caller allocates (unused, may be null, when
-// shared = 1).  1 <= b <= 65,535.
+// int64 seeds; order (b, n) int64 out.  One launch of b clusters of
+// `cluster` CTAs (1, 2, 4, 8 or 16; cluster c serves lane c, as blockIdx.y)
+// of `threads` threads (a multiple of 32, at most 1,024); each CTA's slice,
+// ceil(n / cluster) rounded up to 32 lanes, must be at most
+// PRIM_SLICE_MAX.  bulk = 1 brings each row's slice in by one bulk copy:
+// n % 4 == 0, R 16-byte aligned and 9 * slice <= 5 * PRIM_SLICE_MAX bytes.
+// 1 <= b <= 65,535.  A cluster size the device cannot schedule fails the
+// launch; nothing falls back to a smaller one.
 extern "C" int repro_vat_prim_order(const float* R, const long long* i0,
-                                    int b, int n, int shared, float* gmind,
-                                    unsigned char* gsel, long long* order,
+                                    int b, int n, int cluster, int threads,
+                                    int bulk, long long* order,
                                     void* stream) {
-    if (b < 1 || b > 65535 || n < 1 || (shared && n > PRIM_SHARED_MAX_N)
-            || (!shared && (gmind == nullptr || gsel == nullptr)))
+    if (b < 1 || b > 65535 || n < 1 || threads < 32
+            || threads > PRIM_MAX_THREADS || threads % 32 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = shared ? 5 * static_cast<size_t>(n) : 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        vat_prim_order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(5 * PRIM_SHARED_MAX_N));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    switch (cluster) {
+        case 1:
+            err = prim_dispatch<1>(R, i0, b, n, threads, bulk, order, s);
+            break;
+        case 2:
+            err = prim_dispatch<2>(R, i0, b, n, threads, bulk, order, s);
+            break;
+        case 4:
+            err = prim_dispatch<4>(R, i0, b, n, threads, bulk, order, s);
+            break;
+        case 8:
+            err = prim_dispatch<8>(R, i0, b, n, threads, bulk, order, s);
+            break;
+        case 16:
+            err = prim_dispatch<16>(R, i0, b, n, threads, bulk, order, s);
+            break;
+        default: err = cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
-    vat_prim_order_kernel<<<b, THREADS, smem, static_cast<cudaStream_t>(
-        stream)>>>(R, i0, n, shared, gmind, gsel, order);
     return static_cast<int>(cudaGetLastError());
 }

@@ -132,9 +132,10 @@ def masked_argmin(vals: torch.Tensor, mask: torch.Tensor):
 def vat_prim_order(R: torch.Tensor, i0: torch.Tensor) -> torch.Tensor:
     """Prim's VAT order of a dissimilarity matrix from seed ``i0``.
 
-    On the card one launch of the Prim kernel (one CTA a matrix, the
-    frontier on chip); on the CPU ``ref.vat_prim_order_ref``, the loop of
-    ``masked_argmin`` steps, whose order the kernel gives bit for bit.
+    On the card one launch of the Prim kernel (one thread-block cluster a
+    matrix, the frontier in its CTAs' shared memory); on the CPU
+    ``ref.vat_prim_order_ref``, the loop of ``masked_argmin`` steps, whose
+    order the kernel gives bit for bit.
 
     Args:
       R: (n, n) float32, or a (b, n, n) stack (one launch for the stack).

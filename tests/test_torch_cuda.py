@@ -632,16 +632,16 @@ def _prim_matrices(device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("frontier", ["shared", "global"])
-def test_cuda_vat_prim_order_equals_the_loop(cuda, frontier):
+@pytest.mark.parametrize("cluster", [None, 1, 16])
+def test_cuda_vat_prim_order_equals_the_loop(cuda, cluster):
     """The one-launch Prim kernel == the loop of plain masked argmins on the
-    same card matrix, bit for bit, with the frontier in shared memory and
-    in global scratch, rows holding both signed zeros included."""
+    same card matrix, bit for bit, at the cluster size the host picks, one
+    CTA and 16 CTAs a matrix, rows holding both signed zeros included."""
     for R in _prim_matrices(cuda):
         i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
-        got = vat_prim_order_cuda(R, i0, frontier=frontier)
+        got = vat_prim_order_cuda(R, i0, cluster=cluster)
         want = ref.vat_prim_order_ref(R, i0)
-        assert torch.equal(got, want), (R.shape, frontier)
+        assert torch.equal(got, want), (R.shape, cluster)
         assert torch.equal(vat_order(R), want)
 
 
@@ -660,6 +660,126 @@ def test_cuda_vat_prim_order_lanes_equal_solo(cuda):
     for z in range(8):
         solo = vat_prim_order_cuda(stack[z].contiguous(), i0[z:z + 1])
         assert torch.equal(lanes[z], solo)
+    assert torch.equal(lanes, ref.vat_prim_order_ref(stack, i0))
+
+
+_PRIM_WANT = {}
+
+
+def _prim_cases(n, device):
+    """(name, R, i0, the loop's order) at n: float, tie-heavy integer and
+    signed-zero matrices, the loop run once a matrix for every test."""
+    if n not in _PRIM_WANT:
+        gen = torch.Generator(device=device).manual_seed(n)
+        P = torch.randint(-3, 4, (n, 3), device=device, generator=gen).float()
+        Ri = torch.sum((P[:, None] - P[None]) ** 2, dim=-1)
+        Rz = Ri.clone()
+        Rz[(Rz == 0) & (torch.arange(n, device=device) % 2 == 0)[:, None]] \
+            = -0.0
+        X = torch.randn(n, 16, device=device, generator=gen)
+        cases = []
+        for name, R in (("float", ops.pairwise_dist(X)), ("int", Ri),
+                        ("signed_zero", Rz)):
+            i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
+            cases.append((name, R, i0, ref.vat_prim_order_ref(R, i0)))
+        _PRIM_WANT[n] = cases
+    return _PRIM_WANT[n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 129, 2047, 2048])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_cuda_vat_prim_order_cluster_size_changes_no_bit(cuda, cluster, n):
+    """Every cluster size, the rows read by loads and (n % 4 == 0) by the
+    bulk copy, gives the loop's order bit for bit: float, integer
+    (tie-heavy) and signed-zero matrices, n that C does not divide, and
+    C > n (CTAs with no lane).  ``tools/prim_order_phases.py`` holds 128
+    to 1,024 threads a CTA against the same order."""
+    from repro_torch.kernels.prim_update import prim_bulk
+    for name, R, i0, want in _prim_cases(n, cuda):
+        for bulk in (False, True) if prim_bulk(n, cluster) else (False,):
+            got = vat_prim_order_cuda(R, i0, cluster=cluster, bulk=bulk)
+            assert torch.equal(got, want), (name, bulk)
+
+
+@pytest.mark.cuda
+def test_cuda_vat_prim_order_bulk_copy_needs_aligned_rows(cuda):
+    """R at an address that is not 16-byte aligned, or n % 4 != 0, refuses
+    the bulk row copy when it is asked for, and the host's choice reads the
+    rows by loads: the loop's order either way."""
+    name, R, i0, want = _prim_cases(2048, cuda)[1]
+    buf = torch.empty(R.numel() + 1, device=cuda)
+    shifted = buf[1:].view(R.shape)
+    shifted.copy_(R)
+    assert shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="bulk row copy"):
+        vat_prim_order_cuda(shifted, i0, cluster=8, bulk=True)
+    assert torch.equal(vat_prim_order_cuda(shifted, i0, cluster=8), want)
+    assert torch.equal(vat_prim_order_cuda(R, i0, cluster=8, bulk=True), want)
+    _, R7, i07, want7 = _prim_cases(2047, cuda)[1]
+    with pytest.raises(ValueError, match="bulk row copy"):
+        vat_prim_order_cuda(R7, i07, cluster=8, bulk=True)
+
+
+@pytest.mark.cuda
+def test_cuda_vat_prim_order_past_one_slice(cuda):
+    """n = 40,961 is more than one CTA's shared memory holds: one CTA is
+    refused, clusters of 2 and the host's choice give the loop's order."""
+    from repro_torch.kernels.prim_update import SLICE_MAX
+    n = SLICE_MAX + 1
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    P = torch.randint(-3, 4, (n, 3), device=cuda, generator=gen).float()
+    R = pairwise_dist_cuda(P, metric="sqeuclidean").fill_diagonal_(0.0)
+    i0 = torch.argmax(torch.amax(R, dim=1)).view(1)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        vat_prim_order_cuda(R, i0, cluster=1)
+    want = vat_order(R, argmin=ref.masked_argmin_ref)
+    for cluster in (2, None):
+        assert torch.equal(vat_prim_order_cuda(R, i0, cluster=cluster), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [2, 8, 16])
+def test_cuda_vat_prim_order_lanes_equal_solo_under_clusters(cuda, cluster):
+    """Eight lanes of clusters in one launch == their solo launches at the
+    same C and the host's C, bit for bit; ``vat_order_batch`` makes one
+    launch of the stack and gives the same lanes."""
+    cases = _prim_cases(2048, cuda)
+    stack = torch.stack([cases[z % 3][1] for z in range(8)])
+    gen = torch.Generator(device=cuda).manual_seed(cluster)
+    stack[3:] += torch.rand(5, 2048, 2048, device=cuda, generator=gen).round()
+    i0 = torch.argmax(torch.amax(stack, dim=2), dim=1)
+    lanes = vat_prim_order_cuda(stack, i0, cluster=cluster)
+    _build.reset_launch_counts()
+    assert torch.equal(core.vat_order_batch(stack), lanes)
+    assert _build.launch_counts()["vat_prim_order"] == 1
+    for z in range(8):
+        for c in (cluster, None):
+            solo = vat_prim_order_cuda(stack[z].contiguous(), i0[z:z + 1],
+                                       cluster=c)
+            assert torch.equal(lanes[z], solo), (z, c)
+    assert torch.equal(lanes, ref.vat_prim_order_ref(stack, i0))
+
+
+@pytest.mark.cuda
+def test_cuda_vat_prim_order_clusters_in_waves(cuda):
+    """A stack of more 16-CTA clusters than the device holds at once runs
+    in waves; every lane still equals its solo launch."""
+    from repro_torch.kernels.prim_update import _resident_clusters, prim_plan
+    n = 129
+    _, threads, bulk = prim_plan(n, cluster=16)
+    held = _resident_clusters(16, n, threads, bulk)
+    assert held >= 1
+    b = 2 * held + 3
+    cases = _prim_cases(n, cuda)
+    stack = torch.stack([cases[z % 3][1] for z in range(b)])
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    stack += torch.rand(b, n, n, device=cuda, generator=gen).round()
+    i0 = torch.argmax(torch.amax(stack, dim=2), dim=1)
+    lanes = vat_prim_order_cuda(stack, i0, cluster=16)
+    for z in range(b):
+        assert torch.equal(lanes[z], vat_prim_order_cuda(
+            stack[z].contiguous(), i0[z:z + 1], cluster=16)), z
     assert torch.equal(lanes, ref.vat_prim_order_ref(stack, i0))
 
 
