@@ -91,11 +91,12 @@ directory: one device, a finite loss, resumed from step 4, run on cuda);
 reads the dry run (``dryrun``: ``python -m repro_torch.launch.dryrun
 --arch gemma-2b --shape train_4k`` at gemma-2b's published config,
 bfloat16, ``remat="full"``, ``seq_shard``, on the 16 x 16 mesh of a fake
-world of 512 ranks, ``launch.perf --exp B2_ctx_vpad`` and
-``tools/dryrun_sweep.py``; all three started as host subprocesses that
+world of 512 ranks, rwkv6-3b ``prefill_32k`` on the same mesh (its WKV
+recurrence traced once), ``launch.perf --exp B2_ctx_vpad`` and
+``tools/dryrun_sweep.py``; all four started as host subprocesses that
 see no card when the script starts, so they trace beside the card
-phases: ok, FLOPs a rank, all-gathers, a peak a rank under 80 GB, the
-roofline table at the H100's constants, ``analytic_flops`` against
+phases: ok, FLOPs a rank, all-gathers, a peak a rank under 80 GB (gemma),
+the roofline table at the H100's constants, ``analytic_flops`` against
 ``train_flops`` for gemma-2b at B 2, S 1,024, and one ``dryrun-sweep``
 line for each of the 30 smoke cells, every one ok and none unsharding an
 op beyond ``SWEEP_REPLICATED_OK``); runs the certification sweep (``numerics/certify.py``, 180
@@ -4588,6 +4589,9 @@ def phase_train(torch, ref, ops, kern, build, dev="cuda"):
 #: the sweep of the ten smoke configs' train, prefill and decode steps on
 #: the (4, 2) mesh of a fake world of 8 (``tools/dryrun_sweep.py``).
 DRYRUN_OUT = os.path.join("build", "chip_smoke_dryrun.json")
+#: rwkv6's prefill_32k on the same mesh: its WKV recurrence over 32,768
+#: positions, which the dry run traces once (``models.common.scan``)
+DRYRUN_RWKV_OUT = os.path.join("build", "chip_smoke_dryrun_rwkv.json")
 PERF_OUT = os.path.join("build", "chip_smoke_perf.json")
 SWEEP_OUT = os.path.join("build", "chip_smoke_sweep.json")
 HOST_RUNS: dict = {}
@@ -4598,17 +4602,20 @@ SWEEP_REPLICATED_OK: dict = {}
 
 
 def start_host_runs() -> None:
-    """Start the dry run, the perf experiment (``launch.perf --exp
-    B2_ctx_vpad``: whisper decode on the fake world) and the smoke sweep
-    as subprocesses that see no card (``CUDA_VISIBLE_DEVICES=""``): they
-    trace on the host while the card phases run, and ``phase_dryrun``
-    reads them."""
+    """Start the dry run (gemma-2b ``train_4k`` and rwkv6 ``prefill_32k``),
+    the perf experiment (``launch.perf --exp B2_ctx_vpad``: whisper decode
+    on the fake world) and the smoke sweep as subprocesses that see no card
+    (``CUDA_VISIBLE_DEVICES=""``): they trace on the host while the card
+    phases run, and ``phase_dryrun`` reads them."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     for name, args, out in (
             ("dryrun", ["-m", "repro_torch.launch.dryrun", "--arch",
                         "gemma-2b", "--shape", "train_4k"], DRYRUN_OUT),
+            ("dryrun-rwkv", ["-m", "repro_torch.launch.dryrun", "--arch",
+                             "rwkv6-3b", "--shape", "prefill_32k"],
+             DRYRUN_RWKV_OUT),
             ("perf", ["-m", "repro_torch.launch.perf", "--exp",
                       "B2_ctx_vpad"], PERF_OUT),
             ("sweep", [os.path.join(ROOT, "tools", "dryrun_sweep.py")],
@@ -4701,7 +4708,9 @@ def phase_dryrun(torch, deadline: float):
     """The dry run's record (gemma-2b ``train_4k``, 16 x 16 of a fake
     world of 512 ranks, bfloat16, ``remat="full"``, ``seq_shard``): ok,
     FLOPs a rank > 0, all-gathers (FSDP over ``data``), a peak a rank
-    under 80 GB; the roofline table at the card's constants;
+    under 80 GB; the roofline table at the card's constants; rwkv6
+    ``prefill_32k``'s record on the same mesh: ok, FLOPs a rank > 0, its
+    ``lower_s`` and collectives logged (no peak gate);
     ``analytic_flops`` against ``train_flops`` for gemma-2b at B 2, S
     1,024; the perf experiment's record; and the smoke sweep: one line a
     cell, every cell ok, no op unsharded beyond ``SWEEP_REPLICATED_OK``.
@@ -4735,6 +4744,14 @@ def phase_dryrun(torch, deadline: float):
                               "train_flops": train_flops(gemma, 2, 1024)
                               / 1e12})
     print(roofline.markdown_table([rec]), flush=True)
+    rwkv = wait_host_run("dryrun-rwkv", deadline)
+    rrec = rwkv["records"][0]
+    require(rrec.get("ok"), f"dryrun-rwkv: {rrec.get('error')}")
+    require(rrec["flops_per_device"] > 0, "dryrun-rwkv: no FLOPs counted")
+    log("dryrun-rwkv", cell="rwkv6-3b prefill_32k 16x16",
+        wall_s=rwkv["wall_s"], **{k: rrec[k] for k in (
+            "lower_s", "flops_per_device", "bytes_accessed_per_device",
+            "temp_bytes", "peak_bytes", "collectives", "replicated_ops")})
     perf = wait_host_run("perf", deadline)
     prec = perf["records"][0]
     require(prec.get("ok"), f"dryrun-perf: {prec.get('error')}")

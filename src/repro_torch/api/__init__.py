@@ -10,10 +10,11 @@
 Most callers want the package root: ``from repro_torch import FastVAT``.
 """
 from repro_torch.api import registry
-from repro_torch.api.facade import FastVAT, assess_tendency
+from repro_torch.api.facade import METHODS, FastVAT, assess_tendency
 from repro_torch.api.metrics import COMPUTED_METRICS, METRICS, validate_metric
-from repro_torch.api.registry import (MEDIUM_N, SMALL_N, Rung, RungOptions,
-                                      get_rung, register, select_method)
+from repro_torch.api.registry import (FLASH_SHARD_MIN_N, MEDIUM_N, SMALL_N,
+                                      Rung, RungOptions, get_rung, register,
+                                      select_method)
 from repro_torch.api.result import ResultMeta, TendencyReport, TendencyResult
 from repro_torch.api.validation import (MIN_POINTS, InvalidInput,
                                         validate_dissimilarity,
@@ -25,7 +26,7 @@ __all__ = [
     "TendencyResult", "TendencyReport", "ResultMeta",
     "METRICS", "COMPUTED_METRICS", "validate_metric",
     "Rung", "RungOptions", "register", "get_rung", "registry",
-    "select_method", "SMALL_N", "MEDIUM_N",
+    "select_method", "METHODS", "SMALL_N", "MEDIUM_N", "FLASH_SHARD_MIN_N",
     "InvalidInput", "MIN_POINTS", "validate_points",
     "validate_dissimilarity",
     "NumericsPolicy", "NumericsReport",

@@ -88,6 +88,10 @@ def _on(t: torch.Tensor, dev: torch.device) -> bool:
     return t.device == dev
 
 
+#: Method names at import time ("auto" + built-in rungs). The live list —
+#: including later third-party registrations — is ``registry.methods()``.
+METHODS = registry.methods()
+
 class FastVAT:
     """Facade over the registered rungs with auto-selection.
 

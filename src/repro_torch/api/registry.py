@@ -7,7 +7,7 @@ the uniform ``TendencyResult``), its capability flags and its
 auto-selection threshold.
 
 The port registers every rung of the reference: ``vat``, ``ivat``,
-``svat``, ``bigvat``, ``flashvat``, ``approx``, ``dvat`` and ``embed``;
+``svat``, ``flashvat``, ``bigvat``, ``approx``, ``dvat`` and ``embed``;
 ``vat``, ``flashvat`` and ``approx`` cover every n under auto-selection.
 ``UNPORTED`` lists the reference's rungs the port lacks: none.
 
@@ -642,12 +642,6 @@ register(Rung(
     fidelity=30.0,
     description="maximin sample VAT, O(ns + s^2); opt-in"))
 register(Rung(
-    name="bigvat", fit=_fit_bigvat, auto_threshold=None,
-    latency_model=LatencyModel(base_us=0.0, per_point_us=0.337),
-    fidelity=20.0,
-    description="maximin sample VAT + tiled nearest-prototype extension "
-                "to all n points, no (n, n) object; opt-in"))
-register(Rung(
     name="flashvat", fit=_fit_flashvat, fit_batch=_fit_flashvat_batch,
     supports_precomputed=False, auto_threshold=MEDIUM_N,
     latency_model=LatencyModel(base_us=4.65e3, per_point_us=3.40,
@@ -655,6 +649,12 @@ register(Rung(
     fidelity=40.0,
     description="matrix-free exact VAT (Flash-VAT): persistent Prim kernel, "
                 "O(n·d) memory, no (n, n) object"))
+register(Rung(
+    name="bigvat", fit=_fit_bigvat, auto_threshold=None,
+    latency_model=LatencyModel(base_us=0.0, per_point_us=0.337),
+    fidelity=20.0,
+    description="maximin sample VAT + tiled nearest-prototype extension "
+                "to all n points, no (n, n) object; opt-in"))
 register(Rung(
     name="approx", fit=_fit_approx, supports_precomputed=False,
     auto_threshold=math.inf,

@@ -36,6 +36,12 @@ traced step, never a time on a card:
 * ``lower_s`` — the tracing wall time; ``compile_s`` is 0, since there is
   no compile step.
 
+A recurrence that runs through ``models.common.scan`` (rwkv6's WKV) is
+traced once, as XLA traces a scan's body: while a step is traced the
+census is reachable through ``sharding.census()``, and the scan runs six
+positions under it and has it count the others (``counts``, ``add``,
+``quiet``, ``hold``), so the record is the step-by-step one at any S.
+
 An op that ``DTensor`` cannot carry a partial value through takes its
 input through ``models.sharding.settle`` first (the vocab-parallel
 lookup and gather).  A torch function that ``DTensor`` cannot shard as
@@ -220,24 +226,30 @@ class ReplicateFallback(TorchDispatchMode):
         self.ops[name] = self.ops.get(name, 0) + 1
         flat, tree = tree_flatten((args, kwargs))
         idx = [i for i, t in enumerate(flat) if isinstance(t, DTensor)]
-        for which in _unshard_tries(flat, idx):
-            snap = self._snapshot()
-            trial = list(flat)
-            for i, dims in which.items():
-                trial[i] = _unshard(flat[i], dims)
-            try:
-                return self._run(func, flat, trial, tree, local=False)
-            except Exception as e:  # noqa: BLE001
-                if not any(s in str(e) for s in _NO_RULE):
-                    raise
-                self._restore(snap)
-        trial = list(flat)
-        for i in idx:
-            trial[i] = _unshard(flat[i], range(flat[i].device_mesh.ndim))
         try:
-            return self._run(func, flat, trial, tree, local=True)
-        except Exception:  # noqa: BLE001
-            raise first from None
+            for which in _unshard_tries(flat, idx):
+                snap = self._snapshot()
+                trial = list(flat)
+                for i, dims in which.items():
+                    trial[i] = _unshard(flat[i], dims)
+                try:
+                    return self._run(func, flat, trial, tree, local=False)
+                except Exception as e:  # noqa: BLE001
+                    if not any(s in str(e) for s in _NO_RULE):
+                        raise
+                    self._restore(snap)
+            trial = list(flat)
+            for i in idx:
+                trial[i] = _unshard(flat[i], range(flat[i].device_mesh.ndim))
+            try:
+                return self._run(func, flat, trial, tree, local=True)
+            except Exception:  # noqa: BLE001
+                raise first from None
+        finally:
+            # ``first``'s traceback holds this frame, and so every tensor
+            # the frame holds: a cycle that only the collector would free,
+            # at a moment that moves the census's peak from run to run
+            del first
 
     @staticmethod
     def _run(func, flat, trial, tree, *, local: bool):
@@ -287,13 +299,47 @@ class Census(TorchDispatchMode):
         self.accessed = 0
         self.coll: dict[str, dict] = {}
         self.live = self.peak = 0
-        self.shape_only = 0
+        self.shape_only = self._quiet = 0
         self._seen = WeakIdKeyDictionary()
         for t in _locals(args):
             self._seen[t.untyped_storage()] = True
 
     def _free(self, n: int) -> None:
         self.live -= n
+
+    # what ``models.common.scan`` asks of the census to count a step
+    # traced once for every position of its recurrence
+
+    def counts(self) -> tuple[int, int, int, int]:
+        """FLOPs, bytes accessed, live bytes and collectives' result bytes
+        so far."""
+        return (self.flops, self.accessed, self.live,
+                sum(r["bytes"] for r in self.coll.values()))
+
+    def add(self, flops: int, accessed: int) -> None:
+        """Count ``flops`` FLOPs and ``accessed`` bytes more (fewer if
+        negative) than the ops seen."""
+        self.flops += flops
+        self.accessed += accessed
+
+    @contextlib.contextmanager
+    def quiet(self):
+        """Ops run here are not counted, and the storage they make is
+        never counted live."""
+        self._quiet += 1
+        try:
+            yield
+        finally:
+            self._quiet -= 1
+
+    def hold(self, t: torch.Tensor) -> None:
+        """``t``'s storage counted live until it is freed."""
+        st = t.untyped_storage()
+        self._seen[st] = True
+        n = st.nbytes()
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, n)
 
     def _track(self, out) -> None:
         for t in tree_leaves(out):
@@ -315,6 +361,11 @@ class Census(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self._quiet:
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self._seen[t.untyped_storage()] = True
+            return out
         if self.shape_only or any(isinstance(t, FakeTensor)
                                   for t in tree_leaves(args)):
             return out    # DTensor's sharding propagation at global shapes
@@ -486,6 +537,7 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         comm = CommDebugMode()
         census = Census(args)
         fallback = ReplicateFallback(census, comm)
+        sharding.set_census(census)
         with comm, census, implicit_replication(), fallback, \
                 shape_propagation(census):
             out = step(*args)
@@ -494,6 +546,7 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         del out, step, args
     finally:
         sharding.set_mesh(None)
+        sharding.set_census(None)
     colls = parse_collectives(comm, census)
     return {
         "n_devices": mesh.size(),

@@ -3,9 +3,11 @@
 As ``repro/models/rwkv6.py``.  Time-mix keeps a per-head (N x N) matrix
 state updated once per token, so decode is O(1) in sequence length.  The
 full sequence materializes r/k/v/w with products, then runs the
-recurrence as a Python loop over the S positions where the reference
-scans: plain torch, as the reference keeps it outside any Pallas kernel
-(under a mesh, on each rank's shards: ``sharding.on_shards``).
+recurrence through ``common.scan`` as the reference runs it through
+``lax.scan``: a Python loop over the S positions, plain torch, as the
+reference keeps it outside any Pallas kernel (under a mesh, on each rank's
+shards: ``sharding.on_shards``); on the dry run's "meta" tensors the step
+is traced once and counted S times.
 
 The decay is the Finch LoRA form: w = exp(-exp(w0 + tanh(x W1) W2)),
 data-dependent per channel per token.
@@ -18,8 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import sharding
-from repro_torch.models.common import (pad_front, rms_norm, seq_whole,
-                                       seq_whole_grad)
+from repro_torch.models.common import (pad_front, rms_norm, scan,
+                                       seq_whole, seq_whole_grad)
 
 
 class RWKVState(NamedTuple):
@@ -46,15 +48,21 @@ def _decay(xw, p):
     return torch.exp(-torch.exp(p["w0"].float() + lora.float()))
 
 
+def _wkv_step(wkv, x, u):
+    """One position of the WKV recurrence, the reference's scan ``step``:
+    state (B,H,N,N), x = (r, k, v, w) each (B,H,N) -> new state, y
+    (B,H,N)."""
+    r, k, v, w = x
+    kv = k[..., :, None] * v[..., None, :]                 # (B,H,N,N)
+    y = torch.einsum("bhn,bhnm->bhm", r, wkv + u * kv)
+    return w[..., :, None] * wkv + kv, y
+
+
 def _wkv_scan(r, k, v, w, u, wkv):
     """The WKV recurrence over sequence-first r/k/v/w (S,B,H,N) from state
     ``wkv`` (B,H,N,N): the outputs (S,B,H,N) and the last state."""
-    ys = []
-    for t in range(r.shape[0]):
-        kv = k[t, :, :, :, None] * v[t, :, :, None, :]  # (B,H,N,N)
-        ys.append(torch.einsum("bhn,bhnm->bhm", r[t], wkv + u * kv))
-        wkv = w[t, :, :, :, None] * wkv + kv
-    return torch.stack(ys), wkv
+    wkv, ys = scan(_wkv_step, wkv, (r, k, v, w), (u,))
+    return ys, wkv
 
 
 def rwkv_block(p, hin, cfg, *, state: RWKVState | None = None,

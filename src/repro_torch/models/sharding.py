@@ -32,6 +32,10 @@ when no mesh is set, so single-card and CPU runs never see sharding.
 region whose ops are all local (a loop that carries a state) on each
 rank's shards, so no step of it reshards; without a mesh both are the
 identity and a plain call.
+
+``set_census`` makes the dry run's op census reachable from model code
+while it traces a step (``census()``; None otherwise): ``common.scan`` asks
+it to count a recurrence's step once for every position.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from typing import Any, NamedTuple
 import torch
 
 # module-level mesh context for activation hints; set by launchers
-_ACTIVE: dict[str, Any] = {"mesh": None, "dp": None, "ep2d": False}
+_ACTIVE: dict[str, Any] = {"mesh": None, "dp": None, "ep2d": False,
+                           "census": None}
 
 
 class NamedSharding(NamedTuple):
@@ -86,6 +91,16 @@ def set_mesh(mesh) -> None:
 
 def dp_axes() -> tuple[str, ...] | None:
     return _ACTIVE["dp"]
+
+
+def set_census(census) -> None:
+    """The op census of the step being traced (``launch.dryrun.Census``),
+    or None when the trace ends."""
+    _ACTIVE["census"] = census
+
+
+def census():
+    return _ACTIVE["census"]
 
 
 def spec(*entries) -> tuple:

@@ -216,3 +216,23 @@ def test_port_runs_without_jax_subprocess():
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok vat"
+
+
+def test_api_exports_the_reference_names_subprocess():
+    """``repro_torch.api`` exports what ``repro.api`` does (the old spelling
+    ``from repro.api import METHODS`` switches to the port by renaming
+    the package), and ``METHODS`` is the reference's on a fresh import:
+    the rungs registered in the reference's order."""
+    code = (
+        "import repro.api as ref, repro_torch.api as port\n"
+        "assert port.__all__ == ref.__all__, (port.__all__, ref.__all__)\n"
+        "assert port.METHODS == ref.METHODS, (port.METHODS, ref.METHODS)\n"
+        "assert port.FLASH_SHARD_MIN_N == ref.FLASH_SHARD_MIN_N\n"
+        "print('ok', *port.METHODS)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[:2] == ["ok", "auto"]

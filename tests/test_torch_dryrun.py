@@ -13,11 +13,18 @@ ROADMAP.md, queue 3), so it is no oracle here.
   replicates no product); FSDP's all-gathers and reduce-scatters appear
   with a ``data`` axis; peak >= arguments.
 * ``hint`` on a fake world redistributes a tensor to its resolved spec;
-  ``ReplicateFallback`` runs an op with no sharding rule on whole copies.
+  ``ReplicateFallback`` runs an op with no sharding rule on whole copies,
+  and leaves no storage to the cycle collector.
 * Loop-carried state keeps one placement: the smoke rwkv6 and zamba2
   train steps (``seq_shard``, ``remat="full"``) make as many all-gathers
   at S 16 as at S 32 (the WKV loop and the SSD chunk loop run on each
   rank's heads, ``sharding.on_shards``), and unshard no op.
+* rwkv6's WKV recurrence traced once (``common.scan`` on "meta" tensors)
+  gives the step-by-step record (``common._ONCE_MIN`` patched) for the
+  smoke config's train, prefill and decode at S 16, 64 and 256: FLOPs,
+  bytes accessed, collectives, fallbacks and argument and output bytes
+  exactly, the peak within 1 %; prefill at S 4,096 traces within 2x of
+  S 64.
 * The cells whose ops some torch versions route to ``Replicate`` (a
   product's merge of a split sequence, pads, rolls, the moe dispatch,
   attention's value product with split query heads) trace with
@@ -34,6 +41,7 @@ import ast
 import json
 import os
 import sys
+import time
 
 import pytest
 import torch
@@ -44,6 +52,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import perf
+from repro_torch.models import common
 from repro_torch.models import sharding as SH
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,6 +136,30 @@ def test_hint_redistributes_and_fallback_replicates(world):
     assert fb.ops == {"renorm": 1} and y.shape == (8, 4, 6)
 
 
+def test_fallback_leaves_no_storage_to_the_cycle_collector(world):
+    """An op run by ``ReplicateFallback`` frees its tries' storage when it
+    returns, not when the cycle collector next runs: what the census
+    counts live does not depend on the collector's timing."""
+    import gc
+    SH.set_mesh(_mesh((4, 2)))
+    h = SH.hint(torch.empty(8, 4, 6000, device="meta"), "dp", None, "model")
+    census = D.Census((h,))
+    was = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        with census, D.ReplicateFallback(census) as fb:
+            for _ in range(3):
+                torch.renorm(h, 2, 1, 1.0)
+            live = census.live
+            gc.collect()
+    finally:
+        if was:
+            gc.enable()
+    assert fb.ops == {"renorm": 3}
+    assert census.live == live
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
 def test_loop_carried_state_keeps_one_placement(world, arch):
     cfg = D._pick_cfg(smoke_config(arch), "train", {})
@@ -135,6 +168,50 @@ def test_loop_carried_state_keeps_one_placement(world, arch):
     gathers = [r["collectives"]["all-gather"]["count"] for r in recs]
     assert gathers[0] == gathers[1] > 0, gathers
     assert [r["replicated_ops"] for r in recs] == [{}, {}]
+
+
+#: the records that the scan traced once must equal exactly, and the peak
+#: beyond the arguments, which it must equal within 1 % (it is equal at
+#: these shapes)
+_EXACT = ("flops_per_device", "bytes_accessed_per_device", "collectives",
+          "replicated_ops", "argument_bytes", "output_bytes")
+_TEMP_RTOL = 0.01
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("S", [16, 64, 256])
+def test_scan_traced_once_equals_step_by_step(world, kind, S, monkeypatch):
+    """rwkv6's WKV recurrence traced once (``common.scan`` on "meta"
+    tensors) against the same cell traced step by step (the module
+    patched so that every S runs the loop)."""
+    cfg = D._pick_cfg(smoke_config("rwkv6-3b"), kind, {})
+    shape = ShapeConfig("t", S, 8, kind)
+    tc = TrainConfig() if kind == "train" else None
+    once = D.trace_step(cfg, shape, _mesh((4, 2)), tc=tc)
+    monkeypatch.setattr(common, "_ONCE_MIN", 10**9)
+    loop = D.trace_step(cfg, shape, _mesh((4, 2)), tc=tc)
+    assert {k: once[k] for k in _EXACT} == {k: loop[k] for k in _EXACT}
+    assert abs(once["temp_bytes"] - loop["temp_bytes"]) \
+        <= _TEMP_RTOL * loop["temp_bytes"]
+    assert once["flops_per_device"] > 0
+
+
+def test_scan_trace_time_does_not_grow_with_S(world):
+    """rwkv6's prefill at S 4,096 traces within 2x of S 64 (the best of
+    three after a warm-up), with 64x the FLOPs."""
+    cfg = D._pick_cfg(smoke_config("rwkv6-3b"), "prefill", {})
+
+    def trace(S):
+        return D.trace_step(cfg, ShapeConfig("t", S, 8, "prefill"),
+                            _mesh((4, 2)))
+    trace(64)
+    best, flops = {64: float("inf"), 4096: float("inf")}, {}
+    for S in (64, 4096) * 3:
+        t0 = time.perf_counter()
+        flops[S] = trace(S)["flops_per_device"]
+        best[S] = min(best[S], time.perf_counter() - t0)
+    assert best[4096] <= 2 * best[64], best
+    assert flops[4096] == 64 * flops[64]
 
 
 @pytest.mark.parametrize("arch,kind,batch", [
