@@ -68,7 +68,10 @@ phi3.5-moe-42b-a6.6b (8 of 32 layers) and deepseek-v3-671b (1 of 61
 layers and its MTP block, labels in the batch), each through
 ``fit_embeddings`` (``embed-*``: bit for bit the plain fit, its kernels
 against their plain versions), ``router_tendency`` on the moe configs'
-last router logits (``router-probe``), and ``prefill`` of 128 tokens then
+last router logits (``router-probe``; ``moe-routing``: the dispatch's
+expert positions and the aux loss's token fractions equal the one-hot
+formulas bit for bit, on the card and the CPU), and ``prefill`` of 128
+tokens then
 32 ``decode_step``s against the forward of the same 160 (``decode-*``:
 within 2e-3 of scale, 5e-3 hybrid, under an f32 cache; prefill and a
 step timed under the bfloat16 cache), with ``model-parity`` for four of
@@ -92,8 +95,11 @@ reads the dry run (``dryrun``: ``python -m repro_torch.launch.dryrun
 --arch gemma-2b --shape train_4k`` at gemma-2b's published config,
 bfloat16, ``remat="full"``, ``seq_shard``, on the 16 x 16 mesh of a fake
 world of 512 ranks, rwkv6-3b ``prefill_32k`` on the same mesh (its WKV
-recurrence traced once), ``launch.perf --exp B2_ctx_vpad`` and
-``tools/dryrun_sweep.py``; all four started as host subprocesses that
+recurrence traced once), deepseek-v3-671b ``train_4k --optimized`` on
+the same mesh (``dryrun-dsv3``: experts over model x data; ok, no op
+unsharded, a peak a rank under half of the 774.23 GB the cell counted
+while the moe's buffers were whole on every rank), ``launch.perf --exp B2_ctx_vpad`` and
+``tools/dryrun_sweep.py``; all five started as host subprocesses that
 see no card when the script starts, so they trace beside the card
 phases: ok, FLOPs a rank, all-gathers, a peak a rank under 80 GB (gemma),
 the roofline table at the H100's constants, ``analytic_flops`` against
@@ -3873,9 +3879,43 @@ def phase_router_probe(torch, core, ref, ops, kern, cfg, params, batch,
             f"{label}: router logits {tuple(logits.shape)} {logits.dtype}")
     report = check_report(torch, core, ref, ops, kern, label,
                           router_tendency, logits[-1], dev)
+    check_moe_routing(torch, cfg, logits[-1], label, dev)
     log("router-probe", arch=cfg.name, logits_shape=list(logits.shape),
         layer=-1, report=report, rstar_equals_maximin_vat=True,
         peak_gb=peak_gb(torch, base))
+
+
+def check_moe_routing(torch, cfg, router_logits, label, dev="cuda"):
+    """``moe._positions`` and ``moe._token_fractions`` against the one-hot
+    formulas they replace, bit for bit, on the card and on the CPU: the
+    expert ids of ``router_logits`` (T, E), then seeded ids of 65,536 tokens
+    at deepseek-v3's 256 experts, top-8."""
+    import torch.nn.functional as F
+    from repro_torch.models.moe import _positions, _token_fractions
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(label, cfg.n_experts, expert_ids(torch, cfg, router_logits)),
+             ("seeded E 256 K 8", 256, torch.randint(
+                 0, 256, (65_536, 8), generator=gen, device=dev))]
+    out = {}
+    for name, E, ids in cases:
+        for where in (dev, "cpu"):
+            ids_w = ids.to(where)
+            ids_f = ids_w.T.reshape(-1)
+            oh = F.one_hot(ids_f, E)
+            pos_eq = torch.equal(_positions(ids_f, E),
+                                 (oh.cumsum(0) * oh).sum(1) - 1)
+            del oh
+            frac = _token_fractions(ids_w[:, 0], E)
+            want = F.one_hot(ids_w[:, 0], E).float().mean(0)
+            frac_eq = torch.equal(frac.view(torch.int32),
+                                  want.view(torch.int32))
+            require(pos_eq and frac_eq,
+                    f"moe-routing {name} on {where}: positions equal "
+                    f"{pos_eq}, token fractions equal {frac_eq}")
+            out[f"{name} {where}"] = {"tokens": ids.shape[0], "experts": E,
+                                      "top_k": ids.shape[1]}
+    log("moe-routing", arch=cfg.name, positions_equal=True,
+        token_fractions_equal=True, cases=out)
 
 
 def phase_decode(torch, cfg, params, label, dev="cuda"):
@@ -4592,6 +4632,14 @@ DRYRUN_OUT = os.path.join("build", "chip_smoke_dryrun.json")
 #: rwkv6's prefill_32k on the same mesh: its WKV recurrence over 32,768
 #: positions, which the dry run traces once (``models.common.scan``)
 DRYRUN_RWKV_OUT = os.path.join("build", "chip_smoke_dryrun_rwkv.json")
+#: deepseek-v3's train_4k at its optimized flags (experts over model x
+#: data, group-limited routing), the same mesh: its moe dispatch and
+#: combine keep the (E, cap, D) buffer expert-sharded
+DRYRUN_DSV3_OUT = os.path.join("build", "chip_smoke_dryrun_dsv3.json")
+#: its peak a rank must stay below half of the 774.23 GB a rank that
+#: deepseek-v3's train_4k counted on this mesh while the moe dispatch held
+#: its buffers whole on every rank
+DSV3_PEAK_LIMIT = 774.23e9 / 2
 PERF_OUT = os.path.join("build", "chip_smoke_perf.json")
 SWEEP_OUT = os.path.join("build", "chip_smoke_sweep.json")
 HOST_RUNS: dict = {}
@@ -4602,8 +4650,8 @@ SWEEP_REPLICATED_OK: dict = {}
 
 
 def start_host_runs() -> None:
-    """Start the dry run (gemma-2b ``train_4k`` and rwkv6 ``prefill_32k``),
-    the perf experiment (``launch.perf --exp B2_ctx_vpad``: whisper decode
+    """Start the dry run (gemma-2b ``train_4k``, rwkv6 ``prefill_32k`` and
+    deepseek-v3 ``train_4k --optimized``), the perf experiment (``launch.perf --exp B2_ctx_vpad``: whisper decode
     on the fake world) and the smoke sweep as subprocesses that see no card
     (``CUDA_VISIBLE_DEVICES=""``): they trace on the host while the card
     phases run, and ``phase_dryrun`` reads them."""
@@ -4616,6 +4664,9 @@ def start_host_runs() -> None:
             ("dryrun-rwkv", ["-m", "repro_torch.launch.dryrun", "--arch",
                              "rwkv6-3b", "--shape", "prefill_32k"],
              DRYRUN_RWKV_OUT),
+            ("dryrun-dsv3", ["-m", "repro_torch.launch.dryrun", "--arch",
+                             "deepseek-v3-671b", "--shape", "train_4k",
+                             "--optimized"], DRYRUN_DSV3_OUT),
             ("perf", ["-m", "repro_torch.launch.perf", "--exp",
                       "B2_ctx_vpad"], PERF_OUT),
             ("sweep", [os.path.join(ROOT, "tools", "dryrun_sweep.py")],
@@ -4710,7 +4761,9 @@ def phase_dryrun(torch, deadline: float):
     FLOPs a rank > 0, all-gathers (FSDP over ``data``), a peak a rank
     under 80 GB; the roofline table at the card's constants; rwkv6
     ``prefill_32k``'s record on the same mesh: ok, FLOPs a rank > 0, its
-    ``lower_s`` and collectives logged (no peak gate);
+    ``lower_s`` and collectives logged (no peak gate); deepseek-v3
+    ``train_4k`` at its optimized flags: ok, no op unsharded, a peak a
+    rank under ``DSV3_PEAK_LIMIT``;
     ``analytic_flops`` against ``train_flops`` for gemma-2b at B 2, S
     1,024; the perf experiment's record; and the smoke sweep: one line a
     cell, every cell ok, no op unsharded beyond ``SWEEP_REPLICATED_OK``.
@@ -4752,6 +4805,20 @@ def phase_dryrun(torch, deadline: float):
         wall_s=rwkv["wall_s"], **{k: rrec[k] for k in (
             "lower_s", "flops_per_device", "bytes_accessed_per_device",
             "temp_bytes", "peak_bytes", "collectives", "replicated_ops")})
+    ds = wait_host_run("dryrun-dsv3", deadline)
+    drec = ds["records"][0]
+    require(drec.get("ok"), f"dryrun-dsv3: {drec.get('error')}")
+    require(drec["replicated_ops"] == {},
+            f"dryrun-dsv3: ops unsharded: {drec['replicated_ops']}")
+    require(drec["peak_bytes"] < DSV3_PEAK_LIMIT,
+            f"dryrun-dsv3: peak {drec['peak_bytes'] / 1e9:.2f} GB a rank, "
+            f"not under {DSV3_PEAK_LIMIT / 1e9:.2f}")
+    log("dryrun-dsv3", cell="deepseek-v3-671b train_4k 16x16 (optimized)",
+        wall_s=ds["wall_s"], peak_gb=drec["peak_bytes"] / 1e9,
+        **{k: drec[k] for k in (
+            "overrides", "lower_s", "flops_per_device",
+            "bytes_accessed_per_device", "argument_bytes", "temp_bytes",
+            "peak_bytes", "collectives", "replicated_ops")})
     perf = wait_host_run("perf", deadline)
     prec = perf["records"][0]
     require(prec.get("ok"), f"dryrun-perf: {prec.get('error')}")

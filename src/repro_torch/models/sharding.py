@@ -31,7 +31,10 @@ when no mesh is set, so single-card and CPU runs never see sharding.
 ``grad_hint`` places a gradient the same way, and ``on_shards`` runs a
 region whose ops are all local (a loop that carries a state) on each
 rank's shards, so no step of it reshards; without a mesh both are the
-identity and a plain call.
+identity and a plain call.  ``scatter_sum``, ``gather_rows`` and
+``sum_over`` are collectives over one mesh dim for such a region's local
+tensors (the moe dispatch and combine), each with its adjoint as its
+backward.
 
 ``set_census`` makes the dry run's op census reachable from model code
 while it traces a step (``census()``; None otherwise): ``common.scan`` asks
@@ -235,6 +238,86 @@ def on_shards(fn, args: tuple, like: tuple) -> tuple:
     return tuple(DTensor.from_local(o, l.device_mesh, l.placements,
                                     run_check=False)
                  for o, l in zip(outs, like, strict=True))
+
+
+def _c10d(mesh, dim) -> tuple[int, str]:
+    return mesh.size(dim), mesh.get_group(dim).group_name
+
+
+def _reduce_scatter(t, mesh, dim):
+    n, name = _c10d(mesh, dim)
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.reduce_scatter_tensor(t.contiguous(), "sum",
+                                                     n, name))
+
+
+def _all_gather(t, mesh, dim):
+    n, name = _c10d(mesh, dim)
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_gather_into_tensor(t.contiguous(), n,
+                                                      name))
+
+
+def _all_reduce(t, mesh, dim):
+    _, name = _c10d(mesh, dim)
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(t.contiguous(), "sum", name))
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _reduce_scatter(t, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.dim), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _all_gather(t, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.dim), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        return _all_reduce(t, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+# Collectives on the local tensors of a region run on each rank's shards,
+# over one mesh dim, with their adjoints as backward: the census counts
+# them as it counts ``DTensor``'s own.
+
+def scatter_sum(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The sum over mesh dim ``dim`` of every rank's ``t``, each rank
+    keeping its chunk of dim 0 (a reduce-scatter; backward an
+    all-gather)."""
+    return _ScatterSum.apply(t, mesh, dim)
+
+
+def gather_rows(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` over mesh dim ``dim``, stacked along dim 0 in the
+    ranks' order (an all-gather; backward a reduce-scatter)."""
+    return _GatherRows.apply(t, mesh, dim)
+
+
+def sum_over(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The sum over mesh dim ``dim`` of every rank's ``t`` (an all-reduce).
+    The result is the same on those ranks, and so is its gradient, which
+    the backward passes on as it is."""
+    return _SumOver.apply(t, mesh, dim)
 
 
 def gather_fsdp(w: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,12 @@ rank into the shardspecs' placements on a (2, 2) mesh and step again.
 
   python tests/_torch_elastic.py WORLD CKPT_DIR STORE_FILE [ARCH]
 
-``ARCH`` picks the smoke config of ``CFGS`` (phi3-mini by default; rwkv6
-and zamba2 with the dry run's ``seq_shard`` and ``remat="full"``, so the
-WKV loop and the SSD chunk loop run on each rank's heads and the
-sublayers gather the sequence).  Rank 0 prints ``ELASTIC_OK <sharded
+``ARCH`` picks the smoke config of ``CFGS`` (phi3-mini by default; rwkv6,
+zamba2, phi3.5-moe and deepseek-v3 with the dry run's ``seq_shard`` and
+``remat="full"``, so the WKV loop and the SSD chunk loop run on each
+rank's heads, the moe dispatch and combine on each rank's shard of the
+experts, and the sublayers gather the sequence; deepseek-v3 with its MLA,
+its MTP block, group-limited routing and its experts over model x data).  Rank 0 prints ``ELASTIC_OK <sharded
 loss> <one-rank loss> <collectives> <gradient norm's relative gap>
 <largest parameter gap>`` once every rank's checks hold: the losses
 agree, and the sharded step's gradient norm and updated parameters equal
@@ -33,7 +35,13 @@ from repro_torch.train import steps as S  # noqa: E402
 
 CFGS = {"phi3-mini-3.8b": smoke_config("phi3-mini-3.8b"),
         **{a: smoke_config(a).replace(seq_shard=True, remat="full")
-           for a in ("rwkv6-3b", "zamba2-2.7b")}}
+           for a in ("rwkv6-3b", "zamba2-2.7b", "phi3.5-moe-42b-a6.6b")},
+        "deepseek-v3-671b": smoke_config("deepseek-v3-671b").replace(
+            seq_shard=True, remat="full", route_groups=2,
+            route_top_groups=1)}
+#: the configs whose experts spread over model x data (``set_ep2d``), as
+#: the dry run's optimized deepseek-v3 cells place them
+EP2D = {"deepseek-v3-671b"}
 CFG = CFGS["phi3-mini-3.8b"]
 TC = TrainConfig(lr=1e-3)
 SHAPE = ShapeConfig("t", 32, 8, "train")
@@ -94,6 +102,7 @@ def _rank_main(rank, world, ckpt_dir, store, arch):
         restored, _ = ckpt.restore(ckpt_dir, template)
         mesh = init_device_mesh("cpu", (2, 2),
                                 mesh_dim_names=("data", "model"))
+        sharding.set_ep2d(arch in EP2D)
         state = distribute(restored, state_shardings(restored, mesh), mesh,
                            from_full)
         b = batch(cfg)
@@ -129,6 +138,7 @@ def _rank_main(rank, world, ckpt_dir, store, arch):
                   f"{abs(gn - gn1) / abs(gn1)!r} {max(off.values())!r}",
                   flush=True)
     finally:
+        sharding.set_ep2d(False)
         dist.destroy_process_group()
 
 

@@ -7,7 +7,9 @@ CPU against the JAX package, at smoke size.
   ``mla_block`` in its expanded and absorbed forms, ``moe_ffn`` (output,
   aux, logits, the same expert ids and so the same drops; group-limited
   routing with ties among zeroed experts; shared experts), the reference's
-  capacity-conservation case, ``rwkv_block`` (full, with its final state,
+  capacity-conservation case; the dispatch's positions and the aux
+  loss's token fractions (O(K*T)) against the one-hot formulas, bit for
+  bit; ``rwkv_block`` (full, with its final state,
   stepped) and ``mamba_block`` (chunked with its final state, stepped).
 * ``init_params``: the reference's leaf names and shapes for all ten
   configs, and the draws of the new families' special leaves.
@@ -249,6 +251,49 @@ def test_moe_ffn_matches_reference(name, replace):
     assert abs(float(aux) - float(waux)) <= 2e-5 * abs(float(waux))
     again, _ = moe.moe_ffn(lp, _t(h), tcfg)
     assert torch.equal(again, got)
+
+
+def _routed_ids(seed: int, T: int, E: int, K: int, groups: int):
+    """(T, K) expert ids from seeded router probabilities, routed as
+    ``moe_ffn`` routes them (group-limited when ``groups``)."""
+    rng = np.random.default_rng(seed)
+    probs = torch.softmax(torch.from_numpy(
+        rng.standard_normal((T, E)).astype(np.float32) * 2), -1)
+    if groups:
+        gsz = E // groups
+        gscore = moe._top_k(probs.reshape(T, groups, gsz), 2)[0].sum(-1)
+        keep = torch.zeros(T, groups, dtype=torch.bool).scatter_(
+            1, moe._top_k(gscore, groups // 2)[1], True)
+        probs = torch.where(keep.repeat_interleave(gsz, 1), probs, 0.0)
+    return moe._top_k(probs, K)[1]
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("T,E,K,groups", [
+    (37, 4, 2, 0), (512, 16, 2, 0), (1000, 16, 4, 4), (4096, 256, 8, 8)])
+def test_moe_positions_equal_the_one_hot_formulas(seed, T, E, K, groups):
+    """``moe._positions`` and ``moe._token_fractions`` (O(K*T) memory)
+    against the one-hot formulas they replace, bit for bit: each entry's
+    position among its expert's entries, ``keep`` at capacities that drop
+    entries and at ones that do not, and the aux loss's token fractions,
+    over seeds, widths and group-limited routing."""
+    import torch.nn.functional as F
+    ids = _routed_ids(seed, T, E, K, groups)
+    ids_f = ids.T.reshape(-1)
+    oh = F.one_hot(ids_f, E)
+    want = (oh.cumsum(0) * oh).sum(1) - 1
+    pos = moe._positions(ids_f, E)
+    assert pos.dtype == want.dtype and torch.equal(pos, want)
+    drops = 0
+    for factor in (0.25, 0.5, 1.25, 8.0):
+        cap = max(int(K * T * factor / E), 1)
+        assert torch.equal(pos < cap, want < cap)
+        drops += int((want >= cap).sum())
+    assert drops > 0
+    frac = moe._token_fractions(ids[:, 0], E)
+    want_frac = F.one_hot(ids[:, 0], E).float().mean(0)
+    assert frac.dtype == torch.float32
+    assert torch.equal(frac.view(torch.int32), want_frac.view(torch.int32))
 
 
 def test_top_k_breaks_ties_to_the_lower_index():

@@ -30,7 +30,10 @@
   resumed to 5 from its checkpoint.
 * The elastic re-mesh: a checkpoint written by one rank restored into the
   shardspecs' placements by a spawned gloo world of four, stepped there
-  (phi3-mini, and rwkv6 under ``seq_shard`` with its loop on the shards).
+  (phi3-mini; rwkv6 and zamba2 under ``seq_shard`` with their loops on
+  the shards; phi3.5-moe and deepseek-v3 with the moe dispatch on each
+  rank's part of the expert buffer); ``moe_ffn`` on a gloo world of eight
+  against one rank (``tests/_torch_moe_ep.py``).
 """
 import functools
 import os
@@ -487,3 +490,46 @@ def test_elastic_remesh_zamba2_sharded_loop(tmp_path):
     split batch and ``Bm``/``Cm`` whole beside split heads, and the step
     equals the one-rank step as ``_elastic_remesh`` checks."""
     _elastic_remesh(tmp_path, "zamba2-2.7b")
+
+
+def test_elastic_remesh_phi35_moe_expert_parallel(tmp_path):
+    """phi3.5-moe under ``seq_shard`` and ``remat="full"`` on the world of
+    four: experts over "model", the buffer's slots over "data"; each rank
+    writes its own tokens' entries and keeps its shard of the (E, cap, D)
+    buffer (a reduce-scatter), and the combine sums each entry over
+    "model".  The step equals the one-rank step as ``_elastic_remesh``
+    checks."""
+    _elastic_remesh(tmp_path, "phi3.5-moe-42b-a6.6b")
+
+
+def test_elastic_remesh_deepseek_v3_ep2d(tmp_path):
+    """deepseek-v3 (MLA, MTP, group-limited routing) with its experts over
+    model x data (``set_ep2d``: one expert a rank), under ``seq_shard`` and
+    ``remat="full"`` on the world of four: the step equals the one-rank
+    step as ``_elastic_remesh`` checks."""
+    _elastic_remesh(tmp_path, "deepseek-v3-671b")
+
+
+def test_moe_expert_parallel_on_a_world_of_eight(tmp_path):
+    """``moe_ffn`` on a spawned gloo world of eight ranks, mesh (2, 2, 2)
+    (``tests/_torch_moe_ep.py``): experts over "model" with slots over
+    ("pod", "data"), and over ("data", "model") with "pod" summing, each
+    also at a batch the token ranks do not divide; output, aux and
+    gradients equal the one rank's within ``RTOL``."""
+    import _torch_moe_ep as EP
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, EP.__file__, str(tmp_path / "store")], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=240)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        pytest.fail(f"the world of eight outlived 240 s: {err[-2000:]}")
+    line = [ln for ln in out.splitlines() if ln.startswith("MOE_EP_OK")]
+    assert line, err[-3000:]
+    _, cases, out_gap, grad_gap = line[0].split()
+    assert int(cases) == len(EP.CASES)
+    assert float(out_gap) <= EP.RTOL and float(grad_gap) <= EP.RTOL
