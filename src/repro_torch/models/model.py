@@ -426,15 +426,20 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         layers, fam = params["layers"], cfg.family
         run = _remat(cfg)
 
-        def dense(lp, h):
-            return _dense_block(lp, h, cfg, cos, sin)[0]
+        # each body gathers its layer's FSDP shards itself, so that under
+        # remat the checkpoint keeps the shards, not the gathered weights,
+        # and the backward gathers again (the reference scans the sharded
+        # stack through its remat'd body)
+        def dense(i, h):
+            return _dense_block(_layer(layers, i), h, cfg, cos, sin)[0]
 
-        def moe_layer(lp, h):
-            h, a, _, logits = _moe_block(lp, h, cfg, cos, sin, taps=taps)
+        def moe_layer(i, h):
+            h, a, _, logits = _moe_block(_layer(layers, i), h, cfg, cos, sin,
+                                         taps=taps)
             return h, a, logits
 
-        def ssm(lp, h):
-            return rwkv_block(lp, h, cfg)[0]
+        def ssm(i, h):
+            return rwkv_block(_layer(layers, i), h, cfg)[0]
 
         def super_block(i, h):
             for j in range(cfg.attn_every - 1):
@@ -444,13 +449,12 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
 
         if fam in ("dense", "vlm", "ssm", "moe"):
             for i in range(cfg.n_layers):
-                lp = _layer(layers, i)
                 if fam == "moe":
-                    h, a, logits = run(moe_layer, lp, h)
+                    h, a, logits = run(moe_layer, i, h)
                     aux = aux + a
                     router.append(logits)
                 else:
-                    h = run(ssm if fam == "ssm" else dense, lp, h)
+                    h = run(ssm if fam == "ssm" else dense, i, h)
                 if taps:
                     outs.append(h)
         elif fam == "hybrid":
@@ -504,11 +508,12 @@ def _encode(params, cfg, frames):
     cos, sin = _rope_tables(cfg, _positions(h, 0, h.shape[1]))
     enc, run = params["enc_layers"], _remat(cfg)
 
-    def body(lp, h):
-        return _dense_block(lp, h, cfg, cos, sin, causal=False)[0]
+    def body(i, h):     # gathers inside the remat, as ``forward``'s bodies
+        return _dense_block(_layer(enc, i), h, cfg, cos, sin,
+                            causal=False)[0]
 
     for i in range(cfg.n_enc_layers):
-        h = run(body, _layer(enc, i), h)
+        h = run(body, i, h)
     return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -527,12 +532,13 @@ def _forward_encdec(params, cfg, batch, *, return_hidden=False, taps=False):
     cos, sin = _rope_tables(cfg, _positions(h, 0, h.shape[1]))
     outs, run = [], _remat(cfg)
 
-    def body(lp, h):
+    def body(i, h):     # gathers inside the remat, as ``forward``'s bodies
+        lp = _layer(params["layers"], i)
         return _dec_block(lp, h, cfg, cos, sin,
                           _cross_kv(lp, enc_out, cfg))[0]
 
     for i in range(cfg.n_layers):
-        h = run(body, _layer(params["layers"], i), h)
+        h = run(body, i, h)
         if taps:
             outs.append(h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

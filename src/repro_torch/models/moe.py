@@ -296,14 +296,20 @@ def moe_ffn(p, h, cfg, *, return_logits: bool = False):
         buf = DTensor.from_local(buf, part.mesh, buf_pl, run_check=False)
     buf = sharding.hint(buf, e_axes, b_axis, None)
 
-    # expert compute (batched over the expert dim)
+    # expert compute (batched over the expert dim).  Where the tokens split
+    # over a mesh dim that the buffer is whole on (``sums``: the "pod" of
+    # ``set_ep2d``), the experts' gradient is a sum over it, done per layer
+    # so that it reaches the optimizer laid out as the experts
+    ew = {k: p[k] for k in ("e_gate", "e_up", "e_down") if k in p}
+    if part.sums:
+        ew = {k: sharding.grad_like(w) for k, w in ew.items()}
     act = activation(cfg.act)
-    up = torch.einsum("ecd,edf->ecf", buf, p["e_up"])
+    up = torch.einsum("ecd,edf->ecf", buf, ew["e_up"])
     if cfg.gated:
-        inner = act(torch.einsum("ecd,edf->ecf", buf, p["e_gate"])) * up
+        inner = act(torch.einsum("ecd,edf->ecf", buf, ew["e_gate"])) * up
     else:
         inner = act(up)
-    out_buf = sharding.hint(torch.einsum("ecf,efd->ecd", inner, p["e_down"]),
+    out_buf = sharding.hint(torch.einsum("ecf,efd->ecd", inner, ew["e_down"]),
                             e_axes, b_axis, None)
 
     if part.mesh is not None:

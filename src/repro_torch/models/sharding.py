@@ -198,6 +198,35 @@ def grad_hint(x: torch.Tensor, *entries) -> torch.Tensor:
     return _GradHint.apply(x, entries)
 
 
+class _GradLike(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the input
+    lies."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_like(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient laid out as ``x`` lies: for a weight
+    replicated over a mesh dim that splits the tokens it is used on, whose
+    gradient is a pending sum over that dim (an all-reduce per use, as
+    data parallelism reduces a gradient).  ``x`` itself without a mesh, off
+    a mesh or off autograd."""
+    from torch.distributed.tensor import DTensor
+    if (_ACTIVE["mesh"] is None or not isinstance(x, DTensor)
+            or not torch.is_grad_enabled() or not x.requires_grad):
+        return x
+    return _GradLike.apply(x)
+
+
 def placed_alike(ts, dims: tuple[int, ...]) -> bool:
     """Whether the ``DTensor``s ``ts`` have one set of placements, each
     shard on one of ``dims``: what ``on_shards`` needs of a region that

@@ -163,20 +163,32 @@ def adafactor_init(params, *, momentum: bool = True) -> OptState:
                     v=tree_map(v_init, params))
 
 
+def _laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` with ``like``'s placements, so that a second moment keeps the
+    state's layout under a mesh: a factored moment whose mean ran over a
+    sharded dim is a pending sum, completed here (an all-reduce of the
+    small statistic), and the outer product of the two statistics then
+    comes out placed as the weight.  ``x`` itself off a mesh."""
+    placements = getattr(like, "placements", None)
+    if placements is None or tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(like.device_mesh, placements)
+
+
 def _adafactor_leaf(p, g, m, v, *, tc, lr, b2):
     gf = g.float()
     g2 = gf * gf + 1e-30
     if p.ndim >= 2:
         vr, vc = v
-        vr2 = b2 * vr + (1 - b2) * torch.mean(g2, dim=-1)
-        vc2 = b2 * vc + (1 - b2) * torch.mean(g2, dim=-2)
+        vr2 = _laid_out_as(b2 * vr + (1 - b2) * torch.mean(g2, dim=-1), vr)
+        vc2 = _laid_out_as(b2 * vc + (1 - b2) * torch.mean(g2, dim=-2), vc)
         denom = (vr2[..., None] * vc2[..., None, :]
                  / (torch.mean(vr2, dim=-1, keepdim=True)[..., None]
                     + 1e-30))
         u = gf * torch.rsqrt(denom + 1e-30)
         v2 = (vr2, vc2)
     else:
-        v2 = b2 * v + (1 - b2) * g2
+        v2 = _laid_out_as(b2 * v + (1 - b2) * g2, v)
         u = gf * torch.rsqrt(v2 + 1e-30)
     # update clipping (RMS <= 1)
     rms = torch.sqrt(torch.mean(u * u) + 1e-30)

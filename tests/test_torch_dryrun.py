@@ -34,6 +34,20 @@ ROADMAP.md, queue 3), so it is no oracle here.
   whose one-rank peak is mostly the moe's tensors unshard no op on
   (4, 2), and a rank's ``temp_bytes`` there is below (2, 2)'s and at most
   half the one-rank step's.
+* Each layer's FSDP shards are gathered inside its checkpointed body
+  (gemma-2b and phi3.5-moe smoke train steps on (4, 2), ``remat`` "full"
+  and "dots"): at the step's peak at most two layers' gathered weights
+  are live, and doubling the layers adds less than the added layers'
+  gathered weights; FLOPs equal the counts pinned before the gathers
+  moved.
+* Each flag of the optimized mode (``head_pad``, ``vocab_pad``,
+  ``ce_chunk``, ``momentum=False``) traces its smoke cell on (4, 2) with
+  no more ops unsharded than the unflagged cell, and lowers what it
+  exists to lower (fallbacks, argument bytes, FLOPs).
+* On two pods ((2, 2, 2), deepseek-v3's smoke train step at 3 layers,
+  with and without ``set_ep2d``) Adafactor's factored moments keep the
+  state's placements, the experts' gradient reaches the optimizer laid
+  out as the experts, and the step holds no more than the AdamW step.
 * ``dryrun.OPTIMIZED`` and ``perf.EXPERIMENTS`` equal the reference's
   (read from its source, since importing the reference's launchers sets
   ``XLA_FLAGS`` for the process); ``lower_cell`` builds the production
@@ -47,6 +61,7 @@ import json
 import os
 import sys
 import time
+import weakref
 
 import pytest
 import torch
@@ -283,6 +298,201 @@ def test_moe_buffer_stays_expert_sharded(world, monkeypatch, arch, kind,
     assert temp[(4, 2)] <= temp[(1, 1)] / 2, temp
 
 
+def _tree_pairs(a, b):
+    """(path, leaf of a, leaf of b) of two trees of one structure."""
+    if isinstance(a, dict):
+        for k in a:
+            for path, x, y in _tree_pairs(a[k], b[k]):
+                yield f"{k}/{path}", x, y
+    elif isinstance(a, tuple):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from ((f"{i}/{p}", u, w) for p, u, w in _tree_pairs(x, y))
+    elif a is not None:
+        yield "", a, b
+
+
+@pytest.mark.parametrize("ep2d", [False, True], ids=["ep", "ep2d"])
+def test_adafactor_state_keeps_its_layout_on_two_pods(world, monkeypatch,
+                                                      ep2d):
+    """deepseek-v3's smoke train step on (2, 2, 2), 3 layers (so no
+    stacked dim splits evenly over "pod"), under Adafactor: the new
+    factored moments keep the state's placements (a mean over a sharded
+    dim is completed), the experts' gradient reaches the optimizer laid
+    out as the experts (under ``set_ep2d`` its sum over "pod" is done per
+    layer), and the step's ``temp_bytes`` is at most the AdamW step's: the
+    update unshards no stack of weights."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.optim import adamw as O
+    mesh = DeviceMesh("cpu", torch.arange(8).view(2, 2, 2),
+                      mesh_dim_names=("pod", "data", "model"))
+    real, moved = O.apply_opt, []
+
+    def apply_opt(tc, params, grads, st, **kw):
+        new_p, new_st = real(tc, params, grads, st, **kw)
+        if tc.optimizer == "adafactor":
+            moved.extend(
+                p for p, old, new in _tree_pairs(st.v, new_st.v)
+                if tuple(old.placements) != tuple(new.placements))
+            moved.extend(
+                p for p, w, g in _tree_pairs(params["layers"],
+                                             grads["layers"])
+                if p.startswith("e_")
+                and tuple(w.placements) != tuple(g.placements))
+        return new_p, new_st
+
+    monkeypatch.setattr(O, "apply_opt", apply_opt)
+    cfg = D._pick_cfg(smoke_config("deepseek-v3-671b"), "train",
+                      {"n_experts": 16, "top_k": 4, "n_layers": 3})
+    temp = {}
+    for opt in ("adafactor", "adamw"):
+        SH.set_ep2d(ep2d)
+        rec = D.trace_step(cfg, ShapeConfig("t", 32, 16, "train"), mesh,
+                           tc=TrainConfig(optimizer=opt),
+                           param_dtype=torch.float32)
+        temp[opt] = rec["temp_bytes"]
+        assert rec["replicated_ops"] == {}
+    assert moved == []
+    assert temp["adafactor"] <= temp["adamw"], temp
+
+
+class _GatheredCensus(D.Census):
+    """``Census`` that also notes the bytes of gathered layer weights live
+    when the step reaches its peak: ``gathered`` holds the local storages
+    that ``sharding.gather_fsdp`` made for a layer's leaves."""
+
+    made: list = []
+
+    def __init__(self, args):
+        super().__init__(args)
+        self.gathered = weakref.WeakSet()
+        self.gathered_at_peak = 0
+        _GatheredCensus.made.append(self)
+
+    def _track(self, out) -> None:
+        super()._track(out)
+        if self.live == self.peak:
+            self.gathered_at_peak = sum(st.nbytes()
+                                        for st in list(self.gathered))
+
+
+#: ``flops_per_device`` of the train steps below (B 8, S 16, f32, (4, 2)),
+#: at the smoke config's 2 layers and at 4, as counted while each layer was
+#: gathered outside its checkpointed body: where the gather runs moves no
+#: FLOP
+_LAYER_FLOPS = {
+    ("gemma-2b", "full"): (9699328, 18612224),
+    ("gemma-2b", "dots"): (7995392, 15204352),
+    ("phi3.5-moe-42b-a6.6b", "full"): (11927552, 23068672),
+    ("phi3.5-moe-42b-a6.6b", "dots"): (11239424, 21692416),
+}
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "phi3.5-moe-42b-a6.6b"])
+def test_layer_gathers_stay_inside_the_remat(world, monkeypatch, arch,
+                                             remat):
+    """Each layer's FSDP shards are gathered inside its checkpointed body,
+    as the reference's scan of the sharded stack through its remat'd body
+    gathers them: at the train step's peak on (4, 2) the gathered weights
+    of at most two layers are live, and doubling the layers adds less to
+    ``temp_bytes`` than the added layers' gathered weights (what a
+    checkpoint holding each layer's gathered weights as its inputs adds on
+    top of their activations and gradients).  FLOPs are the pinned
+    counts."""
+    real = SH.gather_fsdp
+    shapes: set = set()
+
+    def gather(w):
+        out = real(w)
+        if out is not w and tuple(out.shape) in shapes \
+                and _GatheredCensus.made:
+            _GatheredCensus.made[-1].gathered.add(
+                out.to_local().untyped_storage())
+        return out
+
+    monkeypatch.setattr(SH, "gather_fsdp", gather)
+    monkeypatch.setattr(D, "Census", _GatheredCensus)
+    base, mesh = smoke_config(arch), _mesh((4, 2))
+    shape, recs = ShapeConfig("t", 16, 8, "train"), []
+    for L in (base.n_layers, 2 * base.n_layers):
+        cfg = D._pick_cfg(base, "train", {"remat": remat, "n_layers": L})
+        SH.set_mesh(mesh)
+        _, (state, _) = D.build_step(cfg, shape, mesh, tc=TrainConfig(),
+                                     param_dtype=torch.float32)
+        layers = state.params["layers"]
+        shapes.clear()
+        shapes.update(tuple(v.shape[1:]) for v in layers.values())
+        per_layer = 0       # one layer's gathered weights, local bytes
+        for v in layers.values():
+            g = real(v[0])
+            if g is not v[0]:
+                per_layer += g.to_local().numel() * g.element_size()
+        SH.set_mesh(None)
+        rec = D.trace_step(cfg, shape, mesh, tc=TrainConfig(),
+                           param_dtype=torch.float32)
+        at_peak = _GatheredCensus.made[-1].gathered_at_peak
+        assert 0 < at_peak <= 2 * per_layer, (L, at_peak, per_layer)
+        assert rec["replicated_ops"] == {}
+        recs.append(rec)
+    grown = recs[1]["temp_bytes"] - recs[0]["temp_bytes"]
+    assert 0 < grown < base.n_layers * per_layer, (grown, per_layer)
+    assert tuple(r["flops_per_device"] for r in recs) == \
+        _LAYER_FLOPS[arch, remat]
+
+
+#: the optimized mode's flags, each on a smoke cell: (arch, kind, the
+#: unflagged cell's overrides, the flag, the record keys the flag must
+#: lower).  Three heads do not divide "model" (2), so the unpadded head
+#: split falls back; a vocabulary of 123 does not either, so the unpadded
+#: table and logits stay whole.
+_FLAG_CELLS = [
+    ("whisper-large-v3", "decode", {"n_heads": 3, "n_kv_heads": 3},
+     {"head_pad": 4}, ("fallbacks",)),
+    ("whisper-large-v3", "train", {"n_heads": 3, "n_kv_heads": 3},
+     {"head_pad": 4}, ("fallbacks", "temp_bytes")),
+    ("internvl2-1b", "train", {"vocab": 123}, {"vocab_pad": 64},
+     ("argument_bytes", "flops_per_device")),
+    ("internvl2-1b", "prefill", {"vocab": 123}, {"vocab_pad": 64},
+     ("argument_bytes", "flops_per_device")),
+    ("gemma-2b", "train", {}, {"ce_chunk": 16}, ()),
+    ("deepseek-v3-671b", "train", {}, {"momentum": False},
+     ("argument_bytes",)),
+]
+
+
+@pytest.mark.parametrize(
+    "arch,kind,base,flag,lower", _FLAG_CELLS,
+    ids=["head_pad-decode", "head_pad-train", "vocab_pad-train",
+         "vocab_pad-prefill", "ce_chunk-train", "momentum-train"])
+def test_optimized_flag_shards_no_less(world, arch, kind, base, flag,
+                                       lower):
+    """Each flag of ``launch.dryrun --optimized`` traces its smoke cell on
+    (4, 2) with no op unsharded that the unflagged cell keeps sharded
+    (``replicated_ops`` op by op at most the unflagged cell's), and lowers
+    what it exists to lower: padded heads take away the head split's
+    fallbacks, a padded vocabulary shards the table and the logits, no
+    momentum drops the first moment; chunking the CE moves no FLOP."""
+    recs = []
+    for over in (base, {**base, **flag}):
+        over = dict(over)
+        momentum = over.pop("momentum", True)
+        cfg = D._pick_cfg(smoke_config(arch), kind, over)
+        tc = D._train_config(cfg, momentum) if kind == "train" else None
+        rec = D.trace_step(cfg, ShapeConfig("t", 64, 8, kind), _mesh((4, 2)),
+                           tc=tc)
+        rec["fallbacks"] = sum(rec["replicated_ops"].values())
+        recs.append(rec)
+    plain, flagged = recs
+    assert all(n <= plain["replicated_ops"].get(op, 0)
+               for op, n in flagged["replicated_ops"].items()), recs
+    for key in lower:
+        assert flagged[key] < plain[key], (key, plain[key], flagged[key])
+    if "head_pad" in flag:
+        assert flagged["replicated_ops"] == {}
+    if "ce_chunk" in flag:
+        assert flagged["flops_per_device"] == plain["flops_per_device"]
+
+
 def _ref_literal(module: str, name: str):
     src = open(os.path.join(ROOT, "src", "repro", "launch",
                             f"{module}.py")).read()
@@ -301,6 +511,31 @@ def test_experiment_lists_equal_the_references():
     tc = D._train_config(smoke_config("deepseek-v3-671b"), momentum=False)
     assert (tc.optimizer, tc.b1) == ("adafactor", 0.0)
     assert jbase.TrainConfig().b1 == TrainConfig().b1
+
+
+def test_sweep_cell_of_a_perf_experiment(world, monkeypatch, capsys):
+    """``--exp NAME``: the ``launch.perf`` experiment's cell, mesh and
+    flags (``--optimized``: ``launch.dryrun --optimized``'s), with the
+    buffers live at its peak.  The production cell is stood in for by the
+    smoke config's decode on (4, 2)."""
+    tool = _sweep_tool(monkeypatch)
+    calls = []
+
+    def small_cell(arch, shape, multi_pod=False, overrides=None):
+        calls.append((arch, shape, multi_pod, overrides))
+        cfg = D._pick_cfg(smoke_config(arch), "decode", {})
+        return D.trace_step(cfg, ShapeConfig("t", 16, 8, "decode"),
+                            _mesh((4, 2)))
+
+    monkeypatch.setattr(D, "run_cell", small_cell)
+    tool.main(["--exp", "B3_head_pad", "--largest", "2"])
+    printed = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert printed[-3]["live_at_peak_bytes"] > 0
+    tool.main(["--cell", "internvl2-1b", "decode_32k", "--optimized"])
+    assert calls == [
+        ("whisper-large-v3", "decode_32k", False,
+         {"vocab_pad": 256, "head_pad": 32}),
+        ("internvl2-1b", "decode_32k", False, {"vocab_pad": 256})]
 
 
 def test_lower_cell_on_a_production_world(world):
@@ -460,7 +695,7 @@ def test_sweep_cell_where_on_the_multi_pod_mesh(world, monkeypatch,
     tool = _sweep_tool(monkeypatch)
     _renorm_first(monkeypatch)
 
-    def small_cell(arch, shape, multi_pod=False):
+    def small_cell(arch, shape, multi_pod=False, overrides=None):
         mesh = (DeviceMesh("cpu", torch.arange(8).view(2, 2, 2),
                            mesh_dim_names=("pod", "data", "model"))
                 if multi_pod else _mesh((4, 2)))

@@ -11,7 +11,9 @@ and inputs from a numpy seed.
   feedback and ``cosine_lr`` bit for bit.
 * ``loss_fn`` and its gradient against ``jax.value_and_grad`` for all ten
   smoke configs within 2e-5 of scale; chunked CE equal to full CE; the
-  ``remat`` modes equal bit for bit.
+  padded heads and vocabulary of the dry run's optimized mode
+  (``head_pad``, ``vocab_pad``) in the forward and the loss within 2e-5
+  of scale; the ``remat`` modes equal bit for bit.
 * ``build_train_step``: the reference's ``test_forward_and_train_step``
   for every arch, the input state left as it was, ``donate`` equal bit for
   bit, the loss and the gradient norm against the reference's step;
@@ -325,6 +327,38 @@ def test_chunked_ce_equals_full(name):
     for a, b in zip(tree_leaves(gf), tree_leaves(gc)):
         scale = float(torch.amax(torch.abs(a))) or 1.0
         assert float(torch.amax(torch.abs(a - b))) <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("name,replace", [
+    ("whisper-large-v3", {"head_pad": 8}),
+    ("phi3-mini-3.8b", {"head_pad": 8}),
+    ("internvl2-1b", {"vocab": 123, "vocab_pad": 64}),
+    ("whisper-large-v3", {"vocab": 123, "vocab_pad": 256, "head_pad": 32}),
+], ids=["whisper-head_pad", "phi3-head_pad", "internvl-vocab_pad",
+        "whisper-optimized"])
+def test_padded_forward_and_loss_match_reference(name, replace):
+    """The optimized mode's padding flags on one rank against the
+    reference's forward and loss, on its own weights: the logits (padding
+    rows masked to -1e30 in both) within 2e-5 of scale, the loss and its
+    parts as ``test_loss_and_grad_match_reference``'s."""
+    cfg, jp, tcfg, tp = _params(name, **replace)
+    assert tcfg.eff_heads > tcfg.n_heads or tcfg.padded_vocab > tcfg.vocab
+    got, want = _batch(cfg)
+    jl, _ = JM.forward(jp, cfg, want)
+    tl, _ = M.forward(tp, tcfg, got)
+    jl = np.asarray(jl)
+    assert tl.shape == jl.shape and tl.shape[-1] == tcfg.padded_vocab
+    real = jl[..., :cfg.vocab]
+    scale = float(np.max(np.abs(real)))
+    np.testing.assert_allclose(tl[..., :cfg.vocab].numpy(), real, rtol=0,
+                               atol=2e-5 * scale)
+    np.testing.assert_array_equal(tl[..., cfg.vocab:].numpy(),
+                                  jl[..., cfg.vocab:])
+    _, jm = JS.loss_fn(jp, cfg, want)
+    _, metrics = S.loss_fn(tp, tcfg, got)
+    for k in ("loss", "ce", "aux"):
+        assert abs(float(metrics[k]) - float(jm[k])) \
+            <= 2e-5 * max(abs(float(jm[k])), 1.0)
 
 
 @pytest.mark.parametrize("mode", ["full", "dots"])

@@ -6,6 +6,8 @@ Run from the repository root:
     python3 tools/dryrun_sweep.py                 # every arch's smoke config
     python3 tools/dryrun_sweep.py --where --out sweep.json
     python3 tools/dryrun_sweep.py --cell gemma-2b train_4k --largest 12
+    python3 tools/dryrun_sweep.py --cell internvl2-1b train_4k --optimized
+    python3 tools/dryrun_sweep.py --exp A3_ep2d_cechunk_dots --largest 16
     python3 tools/dryrun_sweep.py --table build/dryrun_all.json
 
 Without ``--cell`` it traces each arch's smoke config (train, prefill and
@@ -23,8 +25,10 @@ unsharded, where it was called (file:line in ``repro_torch``; for a
 backward op the line of the forward op it differentiates, which
 autograd's anomaly mode keeps) and its inputs' placements, with a count
 (for a cell, also the result bytes a rank of the collectives that cost);
-``--multi-pod`` takes a cell to the 2 x 16 x 16 mesh and ``--out`` writes
-its record.
+``--multi-pod`` takes a cell to the 2 x 16 x 16 mesh, ``--optimized`` to
+the flags of ``launch.dryrun --optimized``, and ``--out`` writes its
+record; ``--exp NAME`` runs a ``launch.perf`` experiment's cell, mesh and
+flags as ``--cell`` does.
 ``--table`` prints the records of a ``launch.dryrun --out`` file as a
 markdown table.  Every figure is a count on a fake world, not a time.  A
 full-width cell needs the memory of the card machine's host for its
@@ -190,10 +194,11 @@ def sweep(where: bool = False, out: str = "") -> None:
 
 
 def one_cell(arch: str, shape: str, largest: int, where: bool = False,
-             multi_pod: bool = False, out: str = "") -> None:
+             multi_pod: bool = False, out: str = "",
+             over: dict | None = None) -> None:
     D.Census = LargestCensus
     with torch.autograd.set_detect_anomaly(where, check_nan=False):
-        rec = D.run_cell(arch, shape, multi_pod=multi_pod)
+        rec = D.run_cell(arch, shape, multi_pod=multi_pod, overrides=over)
     print(json.dumps(rec), flush=True)
     if where:
         fb = WhereFallback.made[-1]
@@ -248,6 +253,10 @@ def main(argv=None) -> None:
     ap.add_argument("--largest", type=int, default=12)
     ap.add_argument("--multi-pod", action="store_true",
                     help="with --cell: the 2 x 16 x 16 mesh")
+    ap.add_argument("--optimized", action="store_true",
+                    help="with --cell: launch.dryrun --optimized's flags")
+    ap.add_argument("--exp", metavar="NAME",
+                    help="a launch.perf experiment's cell, mesh and flags")
     ap.add_argument("--out", default="",
                     help="also write the sweep's lines to this JSON file")
     ap.add_argument("--table", metavar="RESULTS",
@@ -262,9 +271,18 @@ def main(argv=None) -> None:
     print(json.dumps({"torch": torch.__version__}), flush=True)
     if args.where:
         D.ReplicateFallback = WhereFallback
-    if args.cell:
-        one_cell(*args.cell, args.largest, args.where, args.multi_pod,
-                 args.out)
+    if args.exp:
+        from repro_torch.launch.perf import EXPERIMENTS
+        [(arch, shape, mp, over)] = [e[1:] for e in EXPERIMENTS
+                                     if e[0] == args.exp]
+        one_cell(arch, shape, args.largest, args.where, mp, args.out, over)
+    elif args.cell:
+        from repro_torch.configs import SHAPES
+        arch, shape = args.cell
+        over = (D.optimized_overrides(arch, SHAPES[shape].kind)
+                if args.optimized else None)
+        one_cell(arch, shape, args.largest, args.where, args.multi_pod,
+                 args.out, over)
     else:
         sweep(args.where, args.out)
 
